@@ -16,7 +16,11 @@ Phases (any failure exits nonzero and prints no result line):
 4. the full slice: ``make_dataset`` at the TREC-COVID corpus size, Vamana
    build with the paper's DiskANN parameters, ``bimetric_search`` and
    ``rerank_search`` at Q in {100, 1000}, recall@10 / nDCG@10 against the
-   brute-force top-10 under D.
+   brute-force top-10 under D;
+5. the sharded slice on phase 4's data and graph: S corpus blocks on the
+   one card (``search_mesh(S, devices=["cuda:0"] * S)``), ``vamana.search``
+   and ``bimetric_search`` at S=4 (and S=3, one pad row), each bit-equal to
+   its shards=1 run and launching ``gather_score_local`` S times a wave.
 
 Ends with a JSON line per ported kernel and the result line
 ``{"ok": true, "device": {...}}``. Needs one CUDA device; imports no JAX.
@@ -25,6 +29,7 @@ Ends with a JSON line per ported kernel and the result line
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import statistics
 import subprocess
@@ -162,6 +167,124 @@ def check_gather(dev, n, dims, ks, b, timing, rehearse):
                     corpus, qt, live, metric="l2"), reps=5, inner=2)
             rows_out.append(row)
             if timed is None and dim == max(dims):
+                timed = row  # the stage-2 wave
+        del corpus, views
+    return max_err, rows_out, timed
+
+
+def check_gather_local(dev, n, dims, ks, b, timing, rehearse):
+    """gather_score_local against its plain version at the offset of every
+    shard of S=4 and of the uneven S=3 split of N, in every form and row
+    type, at every wave width K of the main path, with lanes that mix
+    owned, foreign and padding ids. Foreign and
+    padding lanes must be +0.0 exactly, owned lanes must equal the
+    gather_score kernel's bit for bit, and so must the shards' sum. Times
+    one launch per shard at the S=4 waves of the main path."""
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import backend, l2_topk
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    max_err, rows_out, timed = 0.0, [], None
+    for dim in dims:
+        corpus = torch.randn(n, dim, generator=g, device=dev)
+        corpus[7] = 0.0
+        q = torch.randn(b, dim, generator=g, device=dev)
+        waves = []
+        for k in ks:
+            ids = torch.randint(-1, n, (b, k), generator=g, device=dev,
+                                dtype=torch.int32)
+            ids[:, ::9] = -1  # padding lanes
+            ids[:, 1] = 7  # the zero row
+            waves.append(ids)
+        views = {"f32": backend.as_corpus_view(corpus)}
+        for mode in ("int8", "fp8", "fp8_e5m2"):
+            views[mode] = backend.as_corpus_view(corpus, quantize=mode)
+        for name, view in views.items():
+            meta = l2_topk.pack_row_meta(view)
+            forms = [(False, None if name == "f32" else meta), (True, meta)]
+            tol = 1e-5 if name == "f32" else 1e-4
+            for shards in (4, 3):
+                st = sharding.shard_corpus_view(view, shards)
+                n_local = st[-1]
+                blocks = []
+                for s in range(shards):
+                    bv = backend.CorpusView(
+                        rows=st[0][s], sq_norms=st[1][s], inv_norms=st[2][s],
+                        scales=st[3][s] if view.scales is not None else None,
+                        zero_points=(st[4][s] if view.zero_points is not None
+                                     else None))
+                    blocks.append((bv.rows, l2_topk.pack_row_meta(bv)))
+                for metric, ids in itertools.product(l2_topk.VALID_METRICS,
+                                                     waves):
+                    scale = _term_scale(view, q, ids, metric)
+                    for mm, m in forms:
+                        full = l2_topk.gather_score(view.rows, q, ids,
+                                                    metric=metric, meta=m,
+                                                    matmul=mm)
+                        total = None
+                        for s, (r, bm) in enumerate(blocks):
+                            off = s * n_local
+                            bm = bm if m is not None else None
+                            got = l2_topk.gather_score_local(
+                                r, q, ids, off, metric=metric, meta=bm,
+                                matmul=mm)
+                            want = l2_topk.gather_score_local_plain(
+                                r, q, ids, off, metric=metric, meta=bm,
+                                matmul=mm)
+                            owned = (ids >= 0) & (ids - off >= 0) & (
+                                ids - off < n_local)
+                            where = (f"local {dim} K={ids.shape[1]} S={shards} "
+                                     f"s={s} {metric} {name} mm={mm}")
+                            require(bool((got[~owned].view(torch.int32) == 0)
+                                         .all()), f"{where}: foreign lane")
+                            require(torch.equal(got[owned], full[owned]),
+                                    f"{where}: owned lane != gather_score")
+                            err = (got[owned] - want[owned]).abs()
+                            lim = tol * torch.maximum(want[owned].abs(),
+                                                      scale[owned])
+                            require(bool((err <= lim).all()),
+                                    f"{where}: max err {float(err.max()):.3e}")
+                            if err.numel():
+                                max_err = max(max_err, float(err.max()))
+                            total = got if total is None else total + got
+                        total = torch.where(ids >= 0, total, torch.inf)
+                        require(torch.equal(total, full),
+                                f"local {dim} K={ids.shape[1]} S={shards} "
+                                f"{metric} {name} mm={mm}: shard sum != "
+                                "gather_score")
+                del st, blocks
+        # times at the main path's shapes and form (gather-then-reduce over
+        # f32 rows, S=4 blocks, live ids drawn from the whole corpus): one
+        # launch per shard, averaged over the four shards of a wave
+        for tb, tk in timing.get(dim, ()):
+            qt = torch.randn(tb, dim, generator=g, device=dev)
+            live = torch.randint(0, n, (tb, tk), generator=g, device=dev,
+                                 dtype=torch.int32)
+            stacked, n_local = sharding.shard_corpus(corpus, 4)
+            row = dict(dim=dim, B=tb, K=tk, S=4)
+            per = []
+            for s in range(4):
+                off = s * n_local
+                owned = int(((live >= off) & (live < off + n_local)).sum())
+                nbytes = owned * dim * 4 + tb * dim * 4 + 2 * tb * tk * 4
+                cell = dict(owned_lanes=owned)
+                cell["bound_ms"], cell["bound_by"] = bound(nbytes,
+                                                           3 * owned * dim)
+                blk = stacked[s]
+                if not rehearse:
+                    cell["ms"] = time_ms(lambda: l2_topk.gather_score_local(
+                        blk, qt, live, off, metric="l2"))
+                    cell["plain_ms"] = time_ms(
+                        lambda: l2_topk.gather_score_local_plain(
+                            blk, qt, live, off, metric="l2"), reps=5, inner=2)
+                per.append(cell)
+            for key in ("owned_lanes", "bound_ms", "ms", "plain_ms"):
+                if key in per[0]:
+                    row[key] = statistics.fmean(c[key] for c in per)
+            row["bound_by"] = per[0]["bound_by"]
+            row["per_shard"] = per
+            rows_out.append(row)
+            if dim == max(dims):
                 timed = row  # the stage-2 wave
         del corpus, views
     return max_err, rows_out, timed
@@ -435,7 +558,7 @@ def full_slice(dev, n, dim_d, dim_D, n_queries, quotas, rehearse):
     out["build_s"] = time.perf_counter() - t0
     log(f"  build N={n}: {out['build_s']:.3f} s")
     build_launches = dict(l2_topk.launches)
-    runs = []
+    runs, results = [], {}
     for q in quotas:
         for method in ("bimetric", "rerank"):
             fn = (bimetric.bimetric_search if method == "bimetric"
@@ -449,6 +572,7 @@ def full_slice(dev, n, dim_d, dim_D, n_queries, quotas, rehearse):
             require(res.ids.shape == (n_queries, k))
             require(torch.isfinite(res.dists).all())
             require(int(res.D_calls.max()) <= q, (method, q))
+            results[method, q] = res
             run = dict(method=method, Q=q, query_s=dt, qps=n_queries / dt,
                        recall_at_10=float(metrics.recall_at_k(
                            res.ids, true_ids).mean()),
@@ -470,9 +594,117 @@ def full_slice(dev, n, dim_d, dim_D, n_queries, quotas, rehearse):
     if dev.type == "cuda":
         out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
         log(f"  max_memory_allocated {out['max_memory_allocated']} bytes")
+    # the kernels of this path: the unsharded gather and the merge
+    require(launches["gather_score_local"] == 0)
     if not rehearse:
-        for name, cnt in launches.items():
-            require(cnt > 0, f"{name} was never launched on the main path")
+        for name in ("gather_score", "beam_merge_topk"):
+            require(launches[name] > 0,
+                    f"{name} was never launched on the main path")
+    return out, dict(data=data, idx=idx, k=k, true_ids=true_ids,
+                     results=results)
+
+
+# --------------------------------------------------------------------------
+# phase 5: the sharded slice
+# --------------------------------------------------------------------------
+def sharded_slice(dev, ph4, quotas, rehearse):
+    """Phase 4's data and graph searched with the corpus split into S
+    blocks on one device: ``vamana.search(shards=4)``, ``bimetric_search(
+    shards=4)`` at every Q, S=3 (one pad row) at the smallest Q, and the
+    norm-cache form with int8 stage-1 residency at S=4. Each run must equal
+    its shards=1 run bit for bit and launch gather_score_local S times a
+    wave."""
+    from repro_torch.core import bimetric, distances, metrics, vamana
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import l2_topk
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    data, idx, k = ph4["data"], ph4["idx"], ph4["k"]
+    n = data.corpus_d.shape[0]
+    n_queries = data.queries_d.shape[0]
+    corpora = (data.corpus_d, data.corpus_D)
+    q0 = min(quotas)
+    one = torch.device("cuda", 0) if dev.type == "cuda" else dev
+    mesh = {s: sharding.search_mesh(s, devices=[one] * s) for s in (3, 4)}
+
+    def vamana_run(**kw):
+        ids, dists, calls = vamana.search(idx, data.corpus_d, data.queries_d,
+                                          k=k, device=dev, **kw)
+        return dict(ids=ids, dists=dists, calls=calls)
+
+    def bimetric_run(q, fns=(None, None), **kw):
+        res = bimetric.bimetric_search(
+            *fns, idx, data.queries_d, data.queries_D, n_points=n, quota=q,
+            k=k, corpora=corpora, device=dev, **kw)
+        return res._asdict()
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        res = fn()
+        sync()
+        return res, time.perf_counter() - t0
+
+    # (name, S, Q, its shards=1 run, the sharded run); the unsharded
+    # bi-metric run scores through the metric callables, as phase 4 does
+    fns = (distances.EmbeddingMetric(data.corpus_d).dists_batch,
+           distances.EmbeddingMetric(data.corpus_D).dists_batch)
+    mm = dict(backend="matmul", quantize="int8")
+    specs = [("vamana", 4, None, vamana_run,
+              lambda: vamana_run(shards=4, mesh=mesh[4]))]
+    specs += [(f"bimetric Q={q}", 4, q, lambda q=q: bimetric_run(q, fns),
+               lambda q=q: bimetric_run(q, shards=4, mesh=mesh[4]))
+              for q in quotas]
+    specs += [(f"bimetric Q={q0}", 3, q0, lambda: bimetric_run(q0, fns),
+               lambda: bimetric_run(q0, shards=3, mesh=mesh[3]))]
+    specs += [("matmul-int8", 4, q0, lambda: bimetric_run(q0, **mm),
+               lambda: bimetric_run(q0, shards=4, mesh=mesh[4], **mm))]
+
+    # the shards=1 runs first, timed; they must repeat phase 4 exactly
+    base = []
+    for name, shards, q, base_fn, _ in specs:
+        res, dt = timed(base_fn)
+        if name.startswith("bimetric"):
+            for field, want in ph4["results"]["bimetric", q]._asdict().items():
+                require(torch.equal(res[field], want),
+                        f"{name}: {field} differs from phase 4")
+        base.append((res, dt))
+        log(f"  {name:15s} S=1: {dt:.4f} s, {n_queries / dt:.2f} q/s")
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    l2_topk.reset_launches()  # the sharded path starts here
+    runs = []
+    for (name, shards, q, _, fn), (want, base_s) in zip(specs, base):
+        before = dict(l2_topk.launches)
+        res, dt = timed(fn)
+        delta = {kk: l2_topk.launches[kk] - before[kk] for kk in before}
+        for field, w in want.items():
+            require(torch.equal(res[field], w),
+                    f"{name} S={shards}: {field} differs from shards=1")
+        run = dict(run=name, S=shards, Q=q, query_s=dt, qps=n_queries / dt,
+                   shards1_query_s=base_s, launches=delta)
+        if q is not None:
+            require(int(res["D_calls"].max()) <= q, (name, shards))
+            run["recall_at_10"] = float(metrics.recall_at_k(
+                res["ids"], ph4["true_ids"]).mean())
+            run["mean_D_calls"] = float(res["D_calls"].float().mean())
+        waves = delta["beam_merge_topk"]
+        if not rehearse:
+            require(waves > 0 and delta["gather_score"] == 0
+                    and delta["gather_score_local"] == shards * waves,
+                    f"{name} S={shards}: launches {delta}")
+        log(f"  {name:15s} S={shards}: {dt:.4f} s, {run['qps']:.2f} q/s "
+            f"({dt / base_s:.3f}x shards=1), launches {delta}, bit-equal "
+            "to shards=1")
+        runs.append(run)
+    launches = dict(l2_topk.launches)  # read just after the sharded path
+    out = dict(runs=runs, launches=launches)
+    if dev.type == "cuda":
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        log(f"  max_memory_allocated {out['max_memory_allocated']} bytes")
+    if not rehearse:
+        require(launches["gather_score_local"] > 0,
+                "gather_score_local was never launched on the sharded path")
     return out
 
 
@@ -488,6 +720,7 @@ def main() -> int:
     args = ap.parse_args()
 
     rehearse = args.rehearse
+    t_start = time.perf_counter()
     if not rehearse and not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
@@ -514,6 +747,7 @@ def main() -> int:
     if rehearse:
         sizes = dict(n=3000, dims=(16, 48), ks=(8, 20), b=4,
                      timing={16: ((4, 8),), 48: ((4, 20),)},
+                     local_timing={16: ((4, 8),), 48: ((4, 8),)},
                      shapes=((4, 16, 8),), cn=600, cd=8, cD=32, cq=4, quotas=(20, 60), bn=300,
                      fn=800, fq=8)
     else:
@@ -522,6 +756,7 @@ def main() -> int:
         sizes = dict(n=args.n, dims=(384, 4096), ks=(64, 500, 1000), b=256,
                      timing={384: ((1024, 64), (256, 64)),
                              4096: ((256, 64), (256, 500), (256, 1000))},
+                     local_timing={384: ((256, 64),), 4096: ((256, 64),)},
                      shapes=((1024, 256, 64), (256, 500, 64), (256, 1000, 64),
                              (256, 1000, 500)), cn=8192, cd=384, cD=4096, cq=16,
                      quotas=(100, 1000), bn=2048, fn=args.n, fq=256)
@@ -531,11 +766,17 @@ def main() -> int:
     g_err, g_rows, g_timed = check_gather(dev, sizes["n"], sizes["dims"],
                                           sizes["ks"], sizes["b"],
                                           sizes["timing"], rehearse)
+    l_err, l_rows, l_timed = check_gather_local(
+        dev, sizes["n"], sizes["dims"], sizes["ks"], sizes["b"],
+        sizes["local_timing"], rehearse)
     m_err, m_rows, m_timed = check_merge(dev, sizes["shapes"], rehearse)
-    for r in g_rows + m_rows:
+    for r in g_rows + l_rows + m_rows:
         log("  " + json.dumps(r))
-    report.update(gather=g_rows, merge=m_rows, phase2_s=time.perf_counter() - t0)
-    log(f"  gather_score max |kernel - plain| {g_err:.3e}; merge exact")
+    report.update(gather=g_rows, gather_local=l_rows, merge=m_rows,
+                  phase2_s=time.perf_counter() - t0)
+    log(f"  gather_score max |kernel - plain| {g_err:.3e}; gather_score_local "
+        f"{l_err:.3e}, foreign lanes +0.0, shard sums == gather_score; "
+        "merge exact")
 
     t0 = time.perf_counter()
     log("phase 3: the slice on the card vs on the CPU")
@@ -545,10 +786,17 @@ def main() -> int:
 
     t0 = time.perf_counter()
     log("phase 4: the full slice")
-    full = full_slice(dev, sizes["fn"], sizes["cd"], sizes["cD"], sizes["fq"],
-                      sizes["quotas"], rehearse)
+    full, ph4 = full_slice(dev, sizes["fn"], sizes["cd"], sizes["cD"],
+                           sizes["fq"], sizes["quotas"], rehearse)
     report["full"] = full
     report["phase4_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    log("phase 5: the sharded slice (S shards on one device)")
+    sharded = sharded_slice(dev, ph4, sizes["quotas"], rehearse)
+    del ph4
+    report["sharded"] = sharded
+    report["phase5_s"] = time.perf_counter() - t0
 
     kernels = [
         dict(name="gather_score", route="cuda",
@@ -558,6 +806,13 @@ def main() -> int:
              ms=g_timed.get("ms"), plain_ms=g_timed.get("plain_ms"),
              bound_ms=g_timed["bound_ms"], bound_by=g_timed["bound_by"],
              library_ms=None),
+        dict(name="gather_score_local", route="cuda",
+             source="src/repro_torch/kernels/csrc/l2_topk.cu",
+             replaces="src/repro/kernels/l2_topk.py:256",
+             launches=sharded["launches"]["gather_score_local"],
+             max_abs_err=l_err, ms=l_timed.get("ms"),
+             plain_ms=l_timed.get("plain_ms"), bound_ms=l_timed["bound_ms"],
+             bound_by=l_timed["bound_by"], library_ms=None),
         dict(name="beam_merge_topk", route="cuda",
              source="src/repro_torch/kernels/csrc/l2_topk.cu",
              replaces="src/repro/kernels/l2_topk.py:355",
@@ -567,6 +822,8 @@ def main() -> int:
              library_ms=m_timed.get("library_ms")),
     ]
     report["kernels"] = kernels
+    report["smoke_s"] = time.perf_counter() - t_start
+    log(f"smoke finished in {report['smoke_s']:.1f} s (from start of main)")
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)
         Path(args.report).write_text(json.dumps(report, indent=1))

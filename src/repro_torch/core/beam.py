@@ -25,6 +25,15 @@ Unlike the JAX package's pure functions, :func:`plan_step` updates the
 dedup state in place (a (B, N) bitmap copy per step would dominate the
 build); a state must not be used again after it is passed to
 :func:`plan_step`.
+
+Sharded search (:func:`sharded_greedy_search`): the corpus is split into
+contiguous row blocks over a 1-D mesh (``repro_torch.distributed``) and one
+controller drives every shard. The replicated state (pools, counters, a
+sorted set) lives on the mesh's first device, so the merge runs once per
+step; under a :class:`ShardCtx` the bitmap is a tuple of per-shard column
+slices, and waves are scored by the shard-local kernel, one launch per
+shard, summed in shard order. Results are bit-exact against the
+single-device engine under the same backend.
 """
 from __future__ import annotations
 
@@ -33,6 +42,9 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.distributed import collectives
+from repro_torch.distributed.sharding import (search_mesh, shard_corpus,
+                                              shard_corpus_view)
 from repro_torch.kernels import backend as kernel_backend
 from repro_torch.kernels import ops
 
@@ -44,11 +56,26 @@ CHECK_EVERY = 8
 _I32 = torch.int32
 
 
+class ShardCtx(NamedTuple):
+    """Handle for running the engine over a corpus mesh.
+
+    ``devices`` holds the device of each shard, in shard order; shard s
+    owns global rows ``[s * n_local, (s + 1) * n_local)``. Under a ShardCtx
+    the bitmap form of ``BatchedSearchState.scored`` is the tuple of the S
+    (B, n_local) column slices, each on its shard's device; everything else
+    in the state is replicated, once, on ``devices[0]``.
+    """
+
+    devices: tuple[torch.device, ...]
+    n_local: int
+
+
 class ScoredSet(NamedTuple):
     """Quota-proportional dedup state: per-query sorted membership arrays.
 
     ``ids`` (B, C) int32 ascending, ``ops.SET_PAD`` padded; ``count`` (B,)
     insertions so far (the overflow diagnostic: ``count <= capacity``).
+    Under a :class:`ShardCtx` the set is replicated like the pools.
     """
 
     ids: torch.Tensor
@@ -74,7 +101,7 @@ class BatchedSearchState(NamedTuple):
     pool_ids: torch.Tensor  # (B, P) int32, sorted by dist; -1 pad
     pool_dists: torch.Tensor  # (B, P) f32; +inf pad
     expanded: torch.Tensor  # (B, P) bool
-    scored: torch.Tensor | ScoredSet  # dedup state
+    scored: torch.Tensor | ScoredSet | tuple  # dedup state (see ShardCtx)
     n_calls: torch.Tensor  # (B,) int32
     n_steps: torch.Tensor  # (B,) int32
 
@@ -163,31 +190,44 @@ def scored_set_to_bitmap(sset: ScoredSet, n_points: int) -> torch.Tensor:
     return _bitmap_or(bitmap, sset.ids.clamp(0, n_points - 1), valid)
 
 
-def _scored_lookup(scored, ids: torch.Tensor) -> torch.Tensor:
-    """(B, K) bool: which (valid) ids are already in the dedup state."""
+def _scored_lookup(scored, ids: torch.Tensor,
+                   shard: ShardCtx | None = None) -> torch.Tensor:
+    """(B, K) bool: which (valid) ids are already in the dedup state.
+
+    A sorted set is replicated under a :class:`ShardCtx` too, so its local
+    op is the whole answer, with no collective."""
     if isinstance(scored, ScoredSet):
         return ops.sorted_set_lookup(scored.ids, ids)
-    return (ids >= 0) & scored.gather(1, ids.clamp(min=0).long())
+    if shard is None:
+        return (ids >= 0) & scored.gather(1, ids.clamp(min=0).long())
+    return collectives.bitmap_lookup(scored, ids)
 
 
-def _scored_scatter(scored, ids: torch.Tensor, mark: torch.Tensor):
+def _scored_scatter(scored, ids: torch.Tensor, mark: torch.Tensor,
+                    shard: ShardCtx | None = None):
     """Mark the kept lanes' ids in the dedup state (bitmap: in place)."""
     if isinstance(scored, ScoredSet):
         pad = torch.full_like(ids, ops.SET_PAD)
         merged = ops.sorted_set_merge(scored.ids, torch.where(mark, ids, pad))
         return ScoredSet(ids=merged,
                          count=scored.count + mark.sum(dim=1, dtype=_I32))
-    return _bitmap_or(scored, ids.clamp(min=0), mark)
+    if shard is None:
+        return _bitmap_or(scored, ids.clamp(min=0), mark)
+    return collectives.bitmap_scatter(scored, ids, mark)
 
 
 def init_state(entry_ids: torch.Tensor, *, n_points: int, pool_size: int,
                quota, scored_init=None, calls_init=0, dedup: str = "bitmap",
-               set_capacity: int | None = None):
+               set_capacity: int | None = None,
+               shard: ShardCtx | None = None):
     """Empty pools + the entry wave, quota-masked but not yet scored.
 
     Returns ``(state, safe_entries (B, E0), keep (B, E0))``; the caller
     scores ``safe_entries`` and feeds the result to :func:`commit_scores`.
-    ``scored`` / ``n_calls`` already account for the kept entries.
+    ``scored`` / ``n_calls`` already account for the kept entries. Under a
+    :class:`ShardCtx` the bitmap is allocated as the per-shard column
+    slices (entry marks land on their owners); the sorted set is
+    replicated.
     """
     b, _ = entry_ids.shape
     dev = entry_ids.device
@@ -200,16 +240,23 @@ def init_state(entry_ids: torch.Tensor, *, n_points: int, pool_size: int,
     safe = torch.where(keep, entry_ids, torch.full_like(entry_ids, -1))
 
     if scored_init is not None:
-        scored = (ScoredSet(scored_init.ids.clone(), scored_init.count.clone())
-                  if isinstance(scored_init, ScoredSet)
-                  else scored_init.clone())
+        if isinstance(scored_init, ScoredSet):
+            scored = ScoredSet(scored_init.ids.clone(),
+                               scored_init.count.clone())
+        elif shard is not None:
+            scored = tuple(t.clone() for t in scored_init)
+        else:
+            scored = scored_init.clone()
     elif dedup == "sorted":
         if set_capacity is None:
             raise ValueError("dedup='sorted' needs a static set_capacity")
         scored = empty_scored_set(b, int(set_capacity), dev)
+    elif shard is not None:
+        scored = tuple(torch.zeros((b, shard.n_local), dtype=torch.bool,
+                                   device=d) for d in shard.devices)
     else:
         scored = torch.zeros((b, n_points), dtype=torch.bool, device=dev)
-    scored = _scored_scatter(scored, safe, keep)
+    scored = _scored_scatter(scored, safe, keep, shard)
     n_calls = calls0 + keep.sum(dim=1, dtype=_I32)
 
     p = pool_size
@@ -239,7 +286,8 @@ def active_mask(state: BatchedSearchState, *, beam_width, quota,
 
 def plan_step(state: BatchedSearchState, adjacency: torch.Tensor, *,
               beam_width, quota, max_steps, expand_width=1,
-              expand_cap: int | None = None, wave_dedup: bool = True):
+              expand_cap: int | None = None, wave_dedup: bool = True,
+              shard: ShardCtx | None = None):
     """One expansion wave: pick frontiers, gather fanout, mask to the quota.
 
     Returns ``(state', safe (B, E*R), keep (B, E*R), active (B,))``;
@@ -247,7 +295,10 @@ def plan_step(state: BatchedSearchState, adjacency: torch.Tensor, *,
     advanced (a wave is paid for when planned). Frozen queries plan an
     all-masked wave, which commits as an exact no-op. A row at expand_width
     1 keeps the historical quirk of paying for duplicate ids inside one
-    adjacency row twice.
+    adjacency row twice. Under a :class:`ShardCtx` the lookup ORs the
+    owners' bitmap answers and the scatter lands on the owners only; the
+    rest of the plan runs on the replicated state, so the wave is the
+    unsharded one.
     """
     b, p = state.pool_ids.shape
     dev = state.pool_ids.device
@@ -284,12 +335,12 @@ def plan_step(state: BatchedSearchState, adjacency: torch.Tensor, *,
     cand = nbrs.reshape(b, E * r)
     if E > 1 and wave_dedup:
         cand = torch.where((ew > 1)[:, None], _positional_dedup(cand), cand)
-    fresh = (cand >= 0) & ~_scored_lookup(state.scored, cand)
+    fresh = (cand >= 0) & ~_scored_lookup(state.scored, cand, shard)
     call_idx = torch.cumsum(fresh.to(_I32), dim=1, dtype=_I32) - 1
     keep = fresh & (call_idx < (quota - state.n_calls)[:, None])
     safe = torch.where(keep, cand, torch.full_like(cand, -1))
 
-    scored = _scored_scatter(state.scored, safe, keep)
+    scored = _scored_scatter(state.scored, safe, keep, shard)
     n_calls = state.n_calls + keep.sum(dim=1, dtype=_I32)
     n_steps = state.n_steps + active.to(_I32)
     state = state._replace(expanded=expanded, scored=scored, n_calls=n_calls,
@@ -324,6 +375,7 @@ def batched_greedy_search(
     calls_init=0,
     dedup: str = "auto",
     set_capacity: int | None = None,
+    shard: ShardCtx | None = None,
 ) -> SearchResult:
     """Greedy beam search over ``adjacency`` for a whole query batch.
 
@@ -332,7 +384,10 @@ def batched_greedy_search(
     :func:`fused_dist_fn` both satisfy it. ``beam_width`` / ``quota`` /
     ``max_steps`` may be scalars or (B,) vectors; a (B,) beam width needs an
     explicit ``pool_size`` and ``max_steps``. Returns pools sorted ascending
-    by distance and the (B, N) scored bitmap.
+    by distance and the (B, N) scored bitmap. ``shard`` runs the loop over
+    a corpus mesh (``dist_fn_batch`` must then be the sharded wave; use
+    :func:`sharded_greedy_search`, which sets this up); with the bitmap
+    backend ``scored`` is then the tuple of the shards' column slices.
     """
     adjacency = adjacency.to(_I32)
     if adjacency.shape[0] != n_points:
@@ -366,7 +421,7 @@ def batched_greedy_search(
     state, safe, keep = init_state(
         entry_ids.to(dev), n_points=n_points, pool_size=P, quota=quota,
         scored_init=scored_init, calls_init=calls_init, dedup=dedup,
-        set_capacity=set_capacity)
+        set_capacity=set_capacity, shard=shard)
     state = commit_scores(state, safe, keep, dist_fn_batch(query_ctx, safe))
 
     step = 0
@@ -376,7 +431,7 @@ def batched_greedy_search(
             break
         state, safe, keep, _ = plan_step(
             state, adjacency, beam_width=L, quota=quota, max_steps=max_steps,
-            expand_width=expand_width, expand_cap=expand_cap)
+            expand_width=expand_width, expand_cap=expand_cap, shard=shard)
         state = commit_scores(state, safe, keep,
                               dist_fn_batch(query_ctx, safe))
         step += 1
@@ -408,3 +463,109 @@ def fused_dist_fn(corpus, metric: str = "sqeuclidean", *, backend=None,
         return ops.gather_score(src, q_embs, ids, metric=metric, backend=be)
 
     return fn
+
+
+def sharded_greedy_search(
+    corpus,
+    adjacency,
+    query_embs,
+    entry_ids,
+    *,
+    shards: int,
+    metric: str = "sqeuclidean",
+    mesh=None,
+    beam_width,
+    pool_size: int | None = None,
+    quota=NO_QUOTA,
+    expand_width: int = 1,
+    max_steps=None,
+    backend=None,
+    quantize: str | None = None,
+    dedup: str = "auto",
+    set_capacity: int | None = None,
+    device=None,
+) -> SearchResult:
+    """Batched greedy search over a corpus split into ``shards`` blocks.
+
+    The corpus (raw rows or a ``CorpusView``) is placed in contiguous row
+    blocks over ``mesh`` (``distributed.sharding.search_mesh``; without one,
+    the first ``shards`` devices of ``device``'s type). Each wave is scored
+    shard by shard with the shard-local kernel and summed in shard order;
+    pools, counters and the merge stay replicated on the mesh's first
+    device. The result, ``scored`` included, is bit-exact against
+    :func:`batched_greedy_search` with :func:`fused_dist_fn` on one device
+    under the same backend and residency.
+
+    ``dedup`` resolves as the unsharded engine's fused drive does (``auto``
+    -> bitmap): the bitmap is column-sharded with the corpus, the sorted set
+    replicated. The matmul backend and quantized residency build the view
+    once, here, and shard its norms and dequant parameters with the rows.
+    ``shards=1`` is the single-device engine.
+    """
+    be = kernel_backend.resolve_backend(backend, quantize=quantize,
+                                        _caller="beam.sharded_greedy_search")
+    n_points = kernel_backend.corpus_rows(corpus).shape[0]
+    if shards == 1:
+        dev = kernel_backend.resolve_device(device)
+        if not isinstance(corpus, kernel_backend.CorpusView):
+            corpus = kernel_backend.as_tensor(corpus, dev)
+        return batched_greedy_search(
+            fused_dist_fn(corpus, metric, backend=be),
+            kernel_backend.as_tensor(adjacency, dev, _I32),
+            kernel_backend.as_tensor(query_embs, dev),
+            kernel_backend.as_tensor(entry_ids, dev, _I32),
+            n_points=n_points, beam_width=beam_width, pool_size=pool_size,
+            quota=quota, expand_width=expand_width, max_steps=max_steps,
+            dedup=dedup, set_capacity=set_capacity)
+    if mesh is None:
+        mesh = search_mesh(shards, device=device)
+    if mesh.size != shards:
+        raise ValueError(f"shards={shards} but the mesh has {mesh.size} "
+                         "devices")
+    want = kernel_backend.resolve_device(device)
+    if any(d.type != want.type for d in mesh.devices):
+        raise ValueError(f"the search runs on {want.type} but the mesh is "
+                         f"{mesh.devices}")
+    dev = mesh.devices[0]
+    dedup, set_capacity = resolve_dedup(dedup, set_capacity, quota, n_points,
+                                        drive="fused")
+
+    if not isinstance(corpus, kernel_backend.CorpusView):
+        corpus = kernel_backend.as_tensor(corpus, dev)
+    quant = be.quantize
+    if quant is None and isinstance(corpus, kernel_backend.CorpusView):
+        quant = corpus.quantize
+    if be.matmul or quant is not None:
+        rows, sq, inv, sc, zp, n_local = shard_corpus_view(
+            corpus, shards, quantize=be.quantize)
+        blocks = [kernel_backend.CorpusView(
+            rows=rows[s].to(d), sq_norms=sq[s].to(d), inv_norms=inv[s].to(d),
+            scales=sc[s].to(d) if quant is not None else None,
+            zero_points=zp[s].to(d) if zp.shape[-1] else None)
+            for s, d in enumerate(mesh.devices)]
+    else:
+        stacked, n_local = shard_corpus(kernel_backend.corpus_rows(corpus),
+                                        shards)
+        blocks = [stacked[s].to(d) for s, d in enumerate(mesh.devices)]
+
+    def dist_fn(q_embs, ids):
+        return collectives.wave_gather_score(blocks, q_embs, ids,
+                                             metric=metric, backend=be)
+
+    entry_ids = kernel_backend.as_tensor(entry_ids, dev, _I32)
+    bw_max = _static_quota_bound(beam_width)
+    if max_steps is None:
+        max_steps = 4 * bw_max + 16
+    res = batched_greedy_search(
+        dist_fn, kernel_backend.as_tensor(adjacency, dev, _I32),
+        kernel_backend.as_tensor(query_embs, dev), entry_ids,
+        n_points=n_points, beam_width=beam_width,
+        pool_size=max(pool_size or 0, bw_max, entry_ids.shape[1]),
+        quota=quota, expand_width=expand_width, max_steps=max_steps,
+        dedup=dedup, set_capacity=set_capacity,
+        shard=ShardCtx(mesh.devices, n_local))
+    if dedup == "bitmap":
+        # the slices side by side, cut to N (pad columns are never marked)
+        scored = torch.cat([t.to(dev) for t in res.scored], dim=1)
+        res = res._replace(scored=scored[:, :n_points].contiguous())
+    return res

@@ -21,7 +21,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from repro_torch.core.beam import (NO_QUOTA, batched_greedy_search,
-                                   fused_dist_fn)
+                                   fused_dist_fn, sharded_greedy_search)
 from repro_torch.core.vamana import VamanaIndex
 from repro_torch.kernels import backend as kernel_backend
 
@@ -86,6 +86,7 @@ def bimetric_search(
     expand_width: int = 1,
     shards: int = 1,
     corpora=None,
+    mesh=None,
     metric: str = "l2",
     backend=None,
     quantize=None,
@@ -99,14 +100,19 @@ def bimetric_search(
     objects) the matmul backend, ``quantize=`` or a view score a stage over
     its corpus through ``ops.gather_score``; ``quantize`` applies to stage 1
     only — the ground-truth stage is never quantized by this knob.
+
+    ``shards > 1`` runs both stages over corpora split into ``shards``
+    blocks on ``mesh`` (``beam.sharded_greedy_search``); the metrics must
+    then be embedding-backed: pass ``corpora`` (the callables are ignored).
+    The result is bit-exact against ``shards=1``.
     """
     if not isinstance(index, VamanaIndex):
         raise NotImplementedError(
             "bimetric_search over a cover tree waits for the port's "
             "cover-tree slice; pass a VamanaIndex")
-    if shards > 1:
-        raise NotImplementedError(
-            "bimetric_search(shards > 1) waits for the port's sharding slice")
+    if shards > 1 and corpora is None:
+        raise ValueError("shards > 1 needs corpora=(corpus_d, corpus_D): "
+                         "only embedding-backed metrics can be sharded")
     dev = kernel_backend.resolve_device(device)
     be1 = kernel_backend.resolve_backend(backend, quantize=quantize,
                                          _caller="bimetric_search")
@@ -133,7 +139,15 @@ def bimetric_search(
         n_seeds = max(1, quota // 2)  # paper default: top-Q/2
     l1 = l_search_d or max(index.config.l_build, n_seeds)
 
-    if use_stage1:
+    if use_stage1 and shards > 1:
+        res1 = sharded_greedy_search(
+            _corpus(corpora[0]), index.adjacency, q_cheap,
+            _medoid_entries(index, b, dev), shards=shards, metric=metric,
+            mesh=mesh, beam_width=l1, pool_size=max(l1, n_seeds),
+            quota=NO_QUOTA, expand_width=expand_width, max_steps=4 * l1,
+            backend=be1, device=dev)
+        seeds, d_calls = res1.pool_ids[:, :n_seeds].contiguous(), res1.n_calls
+    elif use_stage1:
         seeds, d_calls = _stage1_batch(
             (fused_dist_fn(_corpus(corpora[0]), metric, backend=be1)
              if use_fused1 else cheap_fn_batch),
@@ -153,6 +167,15 @@ def bimetric_search(
         bw = beam_width_D
     # the quota is the real stop; steps = per-query safety cap
     max_steps_D = min(4 * quota, NO_QUOTA) if scalar_quota else 4 * quota
+    if shards > 1:
+        res = sharded_greedy_search(
+            _corpus(corpora[1]), index.adjacency, q_expensive, seeds,
+            shards=shards, metric=metric, mesh=mesh, beam_width=bw,
+            pool_size=max(bw, k), quota=quota, expand_width=expand_width,
+            max_steps=max_steps_D, backend=be, device=dev)
+        return BiMetricResult(ids=res.pool_ids[:, :k],
+                              dists=res.pool_dists[:, :k], d_calls=d_calls,
+                              D_calls=res.n_calls)
     res = batched_greedy_search(
         (fused_dist_fn(_corpus(corpora[1]), metric, backend=be)
          if use_fused else expensive_fn_batch),

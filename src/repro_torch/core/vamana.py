@@ -19,6 +19,7 @@ import torch
 from repro_torch.core import distances
 from repro_torch.core.beam import batched_greedy_search
 from repro_torch.core.beam import fused_dist_fn as beam_fused_dist_fn
+from repro_torch.core.beam import sharded_greedy_search
 from repro_torch.kernels import backend as kernel_backend
 
 _I32 = torch.int32
@@ -182,17 +183,17 @@ def build(x, cfg: VamanaConfig | None = None, *, init_adjacency=None,
 def search(index: VamanaIndex, corpus_emb, query_emb, *, k: int,
            beam_width: int | None = None, quota=None,
            metric: str | None = None, n_entries: int = 8,
-           expand_width: int = 1, shards: int = 1, backend=None,
+           expand_width: int = 1, shards: int = 1, mesh=None, backend=None,
            quantize=None, device=None):
     """Single-metric search -> (ids (B, k), dists (B, k), calls (B,)).
 
     Starts from the medoid plus ``n_entries - 1`` stratified vertices.
     ``quota`` may be a (B,) vector. ``corpus_emb`` may be a prebuilt
     ``CorpusView``; ``backend="matmul"`` or ``quantize=`` score over a view.
+    ``shards > 1`` runs the same loop over a corpus split into ``shards``
+    blocks on ``mesh`` (``beam.sharded_greedy_search``), bit-exact against
+    ``shards=1``.
     """
-    if shards > 1:
-        raise NotImplementedError(
-            "vamana.search(shards > 1) waits for the port's sharding slice")
     dev = kernel_backend.resolve_device(device)
     met = metric or index.config.metric
     L = beam_width or max(k, index.config.l_build)
@@ -218,6 +219,13 @@ def search(index: VamanaIndex, corpus_emb, query_emb, *, k: int,
         quota = int(quota)
     be = kernel_backend.resolve_backend(backend, quantize=quantize,
                                         _caller="vamana.search")
+    if shards > 1:
+        res = sharded_greedy_search(
+            corpus_emb, adjacency, query_emb, entries_b, shards=shards,
+            metric=met, mesh=mesh, beam_width=L, pool_size=max(L, k),
+            quota=quota, expand_width=expand_width, max_steps=4 * L,
+            backend=be, device=dev)
+        return res.pool_ids[:, :k], res.pool_dists[:, :k], res.n_calls
     if (be.matmul or be.quantize is not None
             or isinstance(corpus_emb, kernel_backend.CorpusView)):
         dist_fn = beam_fused_dist_fn(corpus_emb, met, backend=be)

@@ -10,7 +10,7 @@
 //   rate, so the floor is B*K*dim*itemsize / 3.35 TB/s.
 //   Design: one warp per lane, eight lanes of one query per block; the block
 //   stages query b in shared memory once, each warp streams its row with
-//   16-byte vector loads (when dim and the base pointer allow) and
+//   16-byte vector loads (when dim is a multiple of 16 / itemsize) and
 //   accumulates in f32 in a fixed order, then reduces with a fixed xor
 //   shuffle tree. A lane's result depends only on (query row, corpus row),
 //   never on B, K or its position, so batched and single-query searches
@@ -19,6 +19,20 @@
 //   packed (N, 2) [|x|^2, 1/|x|] or (N, 4) [.., scale, zp] metadata;
 //   QUANT=true dequantizes the codes in registers as (code - zp) * scale,
 //   exactly ref.dequant_rows_ref (rounded steps, no contraction).
+//
+// gather_score_local — replaces repro/kernels/l2_topk.py:gather_score_local
+//   (Pallas bodies _gather_score_local_kernel, _gather_score_local_mm_kernel,
+//   _gather_score_local_mm_quant_kernel), reached through the sharded
+//   search's wave (distributed/collectives.wave_gather_score). Each shard
+//   holds a contiguous block of n_local rows starting at global row offset;
+//   a lane is owned iff 0 <= id - offset < n_local. Owned lanes run the
+//   lane body of gather_score (score_row) on the local row, so they equal
+//   the unsharded lane bit for bit; foreign and padding lanes write 0.0 and
+//   load nothing, so summing the S partials rebuilds the wave exactly.
+//   Bound: bytes, the owned lanes' rows (about K/S lanes of each query).
+//   Same forms and row types as gather_score. The 16-byte path is chosen
+//   from (dim, row type) alone, never from the block's address, so every
+//   shard splits its rows across the warp as the unsharded kernel does.
 //
 // beam_merge — replaces repro/kernels/l2_topk.py:beam_merge_topk (Pallas
 //   bodies _merge_kernel, _xor_permute), reached through
@@ -80,37 +94,48 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <typename T, bool MM, bool QUANT>
-__global__ void gather_score_kernel(const T* __restrict__ rows,
-                                    const float* __restrict__ meta, int meta_cols,
-                                    const float* __restrict__ queries,
-                                    const int* __restrict__ ids,
-                                    float* __restrict__ out, int K, int N,
-                                    int dim, int metric, int vec) {
-  extern __shared__ float q_s[];
-  const int b = blockIdx.y;
-  const float* qg = queries + static_cast<size_t>(b) * dim;
-  for (int i = threadIdx.x; i < dim; i += blockDim.x) q_s[i] = qg[i];
-  __syncthreads();
+// The arguments of both gather kernels. n_rows is N for gather_score and
+// n_local for the shard-local kernel, whose block starts at global row
+// offset (0 for gather_score).
+struct GatherArgs {
+  const void* rows;
+  const float* meta;
+  int meta_cols;
+  const float* queries;
+  const int* ids;
+  float* out;
+  int B, K, n_rows, offset, dim, metric, vec;
+};
 
-  const int warp = threadIdx.x >> 5;
+// Stages query blockIdx.y in shared memory. Returns the flat index b*K + k
+// of this warp's lane, or -1 for a warp past K.
+__device__ __forceinline__ long long stage_query(const GatherArgs& a, float* q_s) {
+  const int b = blockIdx.y;
+  const float* qg = a.queries + static_cast<size_t>(b) * a.dim;
+  for (int i = threadIdx.x; i < a.dim; i += blockDim.x) q_s[i] = qg[i];
+  __syncthreads();
+  const int k = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  return k < a.K ? static_cast<long long>(b) * a.K + k : -1;
+}
+
+// The lane body both gather kernels share: one warp scores the staged query
+// against row r of the block it was given. The value depends only on the
+// query, the row and its metadata (fixed accumulation order, fixed xor
+// tree, every rounding step explicit so the compiler contracts nothing), so
+// an owned shard-local lane equals the gather_score lane bit for bit.
+template <typename T, bool MM, bool QUANT>
+__device__ __forceinline__ float score_row(const GatherArgs& a, const float* q_s,
+                                           int r) {
   const int lane = threadIdx.x & 31;
-  const int k = blockIdx.x * kWarps + warp;
-  if (k >= K) return;
-  const size_t o = static_cast<size_t>(b) * K + k;
-  const int id = ids[o];
-  if (id < 0 || id >= N) {
-    // padding -> +inf; an id past the corpus is a caller bug -> NaN
-    if (lane == 0) out[o] = id < 0 ? INFINITY : NAN;
-    return;
-  }
-  const float* m = meta + static_cast<size_t>(id) * meta_cols;
+  const int dim = a.dim, metric = a.metric;
+  const float* m = (MM || QUANT) ? a.meta + static_cast<size_t>(r) * a.meta_cols
+                                 : nullptr;
   const float scale = QUANT ? m[2] : 1.f;
   const float zp = QUANT ? m[3] : 0.f;
-  const T* row = rows + static_cast<size_t>(id) * dim;
+  const T* row = static_cast<const T*>(a.rows) + static_cast<size_t>(r) * dim;
 
   Acc<MM, QUANT> acc;
-  if (vec) {
+  if (a.vec) {
     constexpr int per = 16 / sizeof(T);
     const uint4* rv = reinterpret_cast<const uint4*>(row);
     const int nvec = dim / per;
@@ -128,59 +153,95 @@ __global__ void gather_score_kernel(const T* __restrict__ rows,
   const float a0 = warp_sum(acc.a0);
   const float a1 = warp_sum(acc.a1);
   const float a2 = warp_sum(acc.a2);
-  if (lane != 0) return;
 
-  float d;
   if (!MM) {
-    if (metric == kL2) d = sqrtf(a0);
-    else if (metric == kSqEuclidean) d = a0;
-    else if (metric == kIp) d = -a0;
-    else d = 1.f - a0 * rsqrtf(a2 + 1e-12f) * rsqrtf(a1 + 1e-12f);
-  } else {
-    const float nsq = m[0], ninv = m[1];
-    if (metric == kL2 || metric == kSqEuclidean) {
-      d = fmaxf(nsq - 2.f * a0 + a2, 0.f);  // the expansion can dip below 0
-      if (metric == kL2) d = sqrtf(d);
-    } else if (metric == kIp) {
-      d = -a0;
-    } else {
-      d = 1.f - a0 * rsqrtf(a2 + 1e-12f) * ninv;
-    }
+    if (metric == kL2) return sqrtf(a0);
+    if (metric == kSqEuclidean) return a0;
+    if (metric == kIp) return -a0;
+    return __fsub_rn(1.f, __fmul_rn(__fmul_rn(a0, rsqrtf(__fadd_rn(a2, 1e-12f))),
+                                    rsqrtf(__fadd_rn(a1, 1e-12f))));
   }
-  out[o] = d;
+  const float nsq = m[0], ninv = m[1];
+  if (metric == kL2 || metric == kSqEuclidean) {
+    // the expansion can dip below 0
+    const float d = fmaxf(__fadd_rn(__fsub_rn(nsq, __fmul_rn(2.f, a0)), a2), 0.f);
+    return metric == kL2 ? sqrtf(d) : d;
+  }
+  if (metric == kIp) return -a0;
+  return __fsub_rn(1.f, __fmul_rn(__fmul_rn(a0, rsqrtf(__fadd_rn(a2, 1e-12f))), ninv));
 }
 
 template <typename T, bool MM, bool QUANT>
-cudaError_t launch_gather_t(const void* rows, const float* meta, int meta_cols,
-                            const float* queries, const int* ids, float* out,
-                            int B, int K, int N, int dim, int metric, int vec,
-                            cudaStream_t stream) {
-  dim3 grid((K + kWarps - 1) / kWarps, B);
-  size_t smem = static_cast<size_t>(dim) * sizeof(float);
-  gather_score_kernel<T, MM, QUANT><<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(rows), meta, meta_cols, queries, ids, out, K, N,
-      dim, metric, vec);
+__global__ void gather_score_kernel(const GatherArgs a) {
+  extern __shared__ float q_s[];
+  const long long o = stage_query(a, q_s);
+  if (o < 0) return;
+  const int id = a.ids[o];
+  const bool lead = (threadIdx.x & 31) == 0;
+  if (id < 0 || id >= a.n_rows) {
+    // padding -> +inf; an id past the corpus is a caller bug -> NaN
+    if (lead) a.out[o] = id < 0 ? INFINITY : NAN;
+    return;
+  }
+  const float d = score_row<T, MM, QUANT>(a, q_s, id);
+  if (lead) a.out[o] = d;
+}
+
+// gather_score_local: lane owned iff 0 <= id - offset < n_local. An owned
+// lane scores local row id - offset exactly as gather_score scores global
+// row id; a foreign or padding lane writes 0.0 (the identity of the sum
+// over shards) and loads no row, so the S launches of a wave read each
+// gathered row once in total.
+template <typename T, bool MM, bool QUANT>
+__global__ void gather_score_local_kernel(const GatherArgs a) {
+  extern __shared__ float q_s[];
+  const long long o = stage_query(a, q_s);
+  if (o < 0) return;
+  const int id = a.ids[o];
+  const int r = id < 0 ? -1 : id - a.offset;  // offset >= 0: no overflow
+  const bool lead = (threadIdx.x & 31) == 0;
+  if (r < 0 || r >= a.n_rows) {
+    if (lead) a.out[o] = 0.f;
+    return;
+  }
+  const float d = score_row<T, MM, QUANT>(a, q_s, r);
+  if (lead) a.out[o] = d;
+}
+
+template <bool LOCAL, typename T, bool MM, bool QUANT>
+cudaError_t launch_gather_t(const GatherArgs& a, cudaStream_t stream) {
+  dim3 grid((a.K + kWarps - 1) / kWarps, a.B);
+  size_t smem = static_cast<size_t>(a.dim) * sizeof(float);
+  if constexpr (LOCAL)
+    gather_score_local_kernel<T, MM, QUANT><<<grid, kWarps * 32, smem, stream>>>(a);
+  else
+    gather_score_kernel<T, MM, QUANT><<<grid, kWarps * 32, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_gather_form(const void* rows, const float* meta, int meta_cols,
-                               int matmul, const float* queries, const int* ids,
-                               float* out, int B, int K, int N, int dim,
-                               int metric, int vec, cudaStream_t stream) {
-  const bool quant = meta_cols == 4;
-  if (matmul) {
-    if (quant)
-      return launch_gather_t<T, true, true>(rows, meta, meta_cols, queries, ids, out,
-                                            B, K, N, dim, metric, vec, stream);
-    return launch_gather_t<T, true, false>(rows, meta, meta_cols, queries, ids, out,
-                                           B, K, N, dim, metric, vec, stream);
+template <bool LOCAL, typename T>
+cudaError_t launch_gather_form(const GatherArgs& a, int matmul, cudaStream_t stream) {
+  const bool quant = a.meta_cols == 4;
+  if (matmul)
+    return quant ? launch_gather_t<LOCAL, T, true, true>(a, stream)
+                 : launch_gather_t<LOCAL, T, true, false>(a, stream);
+  return quant ? launch_gather_t<LOCAL, T, false, true>(a, stream)
+               : launch_gather_t<LOCAL, T, false, false>(a, stream);
+}
+
+template <bool LOCAL>
+int launch_gather(const GatherArgs& a, int row_type, int matmul, void* stream) {
+  if (a.B == 0 || a.K == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (row_type) {
+    case kF32: return launch_gather_form<LOCAL, float>(a, matmul, s);
+    case kBF16: return launch_gather_form<LOCAL, __nv_bfloat16>(a, matmul, s);
+    case kF16: return launch_gather_form<LOCAL, __half>(a, matmul, s);
+    case kI8: return launch_gather_form<LOCAL, int8_t>(a, matmul, s);
+    case kE4M3: return launch_gather_form<LOCAL, __nv_fp8_e4m3>(a, matmul, s);
+    case kE5M2: return launch_gather_form<LOCAL, __nv_fp8_e5m2>(a, matmul, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (quant)
-    return launch_gather_t<T, false, true>(rows, meta, meta_cols, queries, ids, out,
-                                           B, K, N, dim, metric, vec, stream);
-  return launch_gather_t<T, false, false>(rows, meta, meta_cols, queries, ids, out,
-                                          B, K, N, dim, metric, vec, stream);
 }
 
 // order-preserving image of an f32 distance: -0 folds onto +0 (they compare
@@ -256,36 +317,29 @@ __global__ void beam_merge_kernel(const int* __restrict__ pool_ids,
 extern "C" {
 
 // rows: (N, dim) of row_type; meta: (N, meta_cols) f32 or null (meta_cols 0);
-// queries (B, dim) f32; ids (B, K) i32; out (B, K) f32. Returns the launch's
-// cudaGetLastError().
+// queries (B, dim) f32; ids (B, K) i32; out (B, K) f32. vec: 16-byte row
+// loads (dim a multiple of 16 / itemsize, rows 16-byte aligned). Returns the
+// launch's cudaGetLastError().
 int gather_score_launch(const void* rows, int row_type, const float* meta,
                         int meta_cols, int matmul, const float* queries,
                         const int* ids, float* out, int B, int K, int N, int dim,
                         int metric, int vec, void* stream) {
-  if (B == 0 || K == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (row_type) {
-    case kF32:
-      return launch_gather_form<float>(rows, meta, meta_cols, matmul, queries, ids, out,
-                                       B, K, N, dim, metric, vec, s);
-    case kBF16:
-      return launch_gather_form<__nv_bfloat16>(rows, meta, meta_cols, matmul, queries,
-                                               ids, out, B, K, N, dim, metric, vec, s);
-    case kF16:
-      return launch_gather_form<__half>(rows, meta, meta_cols, matmul, queries, ids, out,
-                                        B, K, N, dim, metric, vec, s);
-    case kI8:
-      return launch_gather_form<int8_t>(rows, meta, meta_cols, matmul, queries, ids, out,
-                                        B, K, N, dim, metric, vec, s);
-    case kE4M3:
-      return launch_gather_form<__nv_fp8_e4m3>(rows, meta, meta_cols, matmul, queries,
-                                               ids, out, B, K, N, dim, metric, vec, s);
-    case kE5M2:
-      return launch_gather_form<__nv_fp8_e5m2>(rows, meta, meta_cols, matmul, queries,
-                                               ids, out, B, K, N, dim, metric, vec, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return launch_gather<false>(
+      GatherArgs{rows, meta, meta_cols, queries, ids, out, B, K, N, 0, dim, metric, vec},
+      row_type, matmul, stream);
+}
+
+// The shard-local twin: rows/meta are the (n_local, ..) block of global rows
+// [offset, offset + n_local); ids are global. Owned lanes -> the value
+// gather_score_launch gives on the same row; every other lane -> 0.0.
+int gather_score_local_launch(const void* rows, int row_type, const float* meta,
+                              int meta_cols, int matmul, const float* queries,
+                              const int* ids, float* out, int B, int K, int n_local,
+                              int offset, int dim, int metric, int vec, void* stream) {
+  return launch_gather<true>(
+      GatherArgs{rows, meta, meta_cols, queries, ids, out, B, K, n_local, offset, dim,
+                 metric, vec},
+      row_type, matmul, stream);
 }
 
 // pool (B, P) ids/dists/flags (flags nullable), cand (B, K) ids/dists;

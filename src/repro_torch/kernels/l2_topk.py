@@ -1,6 +1,6 @@
 """Gather → score and pool-merge kernels of the bi-metric beam step.
 
-Two hand-written Hopper kernels (``csrc/l2_topk.cu``, CUDA C++ for
+Three hand-written Hopper kernels (``csrc/l2_topk.cu``, CUDA C++ for
 ``sm_90a``), each with its plain PyTorch version beside it:
 
 * :func:`gather_score` replaces the Pallas ``repro.kernels.l2_topk.
@@ -10,6 +10,11 @@ Two hand-written Hopper kernels (``csrc/l2_topk.cu``, CUDA C++ for
   query staged in shared memory, 16-byte row loads, f32 accumulation in a
   fixed order and a fixed shuffle tree, so a lane's value depends only on
   its (query, row) pair.
+* :func:`gather_score_local` replaces the Pallas ``gather_score_local``:
+  the shard-local twin over one contiguous block of rows. Owned lanes run
+  the same lane body as :func:`gather_score` on the local row, so they
+  equal it bit for bit; foreign and padding lanes give 0.0 and load no row.
+  Bound by the owned lanes' rows.
 * :func:`beam_merge_topk` / :func:`merge_pool_batch` replace the Pallas
   ``beam_merge_topk``: per row a bitonic sort of (pool ‖ candidates) on the
   key (distance, input position) in shared memory — stable, so it equals
@@ -39,7 +44,8 @@ MAX_MERGE_PAD = 16384
 MAX_GATHER_DIM = 12288
 
 #: kernel launches since the last :func:`reset_launches`, by kernel name
-launches = {"gather_score": 0, "beam_merge_topk": 0}
+launches = {"gather_score": 0, "gather_score_local": 0,
+            "beam_merge_topk": 0}
 
 
 def reset_launches() -> None:
@@ -56,6 +62,9 @@ def _lib():
         lib.gather_score_launch.argtypes = [p, i, p, i, i, p, p, p, i, i, i,
                                             i, i, i, p]
         lib.gather_score_launch.restype = i
+        lib.gather_score_local_launch.argtypes = [p, i, p, i, i, p, p, p, i,
+                                                  i, i, i, i, i, i, p]
+        lib.gather_score_local_launch.restype = i
         lib.beam_merge_launch.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i,
                                           p]
         lib.beam_merge_launch.restype = i
@@ -127,6 +136,50 @@ def gather_score_plain(rows: torch.Tensor, queries: torch.Tensor,
     return torch.where(ids >= 0, d, torch.full_like(d, float("inf")))
 
 
+def _check_gather(name, rows, queries, ids, metric, meta, matmul):
+    """Validate a gather's arguments -> (f32 contiguous queries, dim, b, k)."""
+    if metric not in VALID_METRICS:
+        raise ValueError(f"metric must be one of {VALID_METRICS}, got {metric!r}")
+    if matmul and meta is None:
+        raise ValueError(f"{name}(matmul=True) needs the row metadata")
+    if meta is not None and meta.shape[1] not in (2, 4):
+        raise ValueError(f"meta must have 2 or 4 columns, got {meta.shape}")
+    if rows.dtype not in _ROW_TYPE:
+        raise ValueError(f"{name}: unsupported row dtype {rows.dtype}")
+    if ids.dtype != torch.int32:
+        raise ValueError(f"{name}: ids must be int32, got {ids.dtype}")
+    n, dim = rows.shape
+    b, k = ids.shape
+    if queries.shape != (b, dim):
+        raise ValueError(f"{name}: queries {tuple(queries.shape)} do not "
+                         f"match ids {tuple(ids.shape)} and dim {dim}")
+    if meta is not None and (meta.dtype != torch.float32 or meta.shape[0] != n):
+        raise ValueError(f"{name}: meta must be (rows, 2|4) float32")
+    queries = queries.float().contiguous()
+    _check_layout(name, rows, queries, ids,
+                  *([meta] if meta is not None else []))
+    if rows.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {rows.device}")
+    if rows.device.type == "cuda" and dim > MAX_GATHER_DIM:
+        raise ValueError(f"{name}: dim {dim} > {MAX_GATHER_DIM}")
+    return queries, dim, b, k
+
+
+def _vec(name: str, rows: torch.Tensor) -> int:
+    """The 16-byte row-load path, chosen from (dim, dtype) alone.
+
+    The vector and scalar paths split a row across the warp differently, so
+    their sums differ in the last bits. A shard's block starts wherever its
+    rows do; choosing by address would let two shards of one corpus take
+    different paths. A misaligned base therefore raises.
+    """
+    vec = rows.shape[1] % (16 // rows.element_size()) == 0
+    if vec and rows.data_ptr() % 16:
+        raise ValueError(f"{name}: rows at address {rows.data_ptr():#x} are "
+                         "not 16-byte aligned")
+    return int(vec)
+
+
 def gather_score(rows: torch.Tensor, queries: torch.Tensor, ids: torch.Tensor,
                  *, metric: str = "sqeuclidean",
                  meta: torch.Tensor | None = None,
@@ -138,45 +191,79 @@ def gather_score(rows: torch.Tensor, queries: torch.Tensor, ids: torch.Tensor,
     required), without it the gather-then-reduce form; a 4-column ``meta``
     dequantizes int8/fp8 codes in registers in either form.
     """
-    if metric not in VALID_METRICS:
-        raise ValueError(f"metric must be one of {VALID_METRICS}, got {metric!r}")
-    if matmul and meta is None:
-        raise ValueError("gather_score(matmul=True) needs the row metadata")
-    if meta is not None and meta.shape[1] not in (2, 4):
-        raise ValueError(f"meta must have 2 or 4 columns, got {meta.shape}")
-    if rows.dtype not in _ROW_TYPE:
-        raise ValueError(f"gather_score: unsupported row dtype {rows.dtype}")
-    if ids.dtype != torch.int32:
-        raise ValueError(f"gather_score: ids must be int32, got {ids.dtype}")
-    n, dim = rows.shape
-    b, k = ids.shape
-    if queries.shape != (b, dim):
-        raise ValueError(f"gather_score: queries {tuple(queries.shape)} do not "
-                         f"match ids {tuple(ids.shape)} and dim {dim}")
-    if meta is not None and (meta.dtype != torch.float32 or meta.shape[0] != n):
-        raise ValueError("gather_score: meta must be (N, 2|4) float32")
-    queries = queries.float().contiguous()
-    _check_layout("gather_score", rows, queries, ids,
-                  *([meta] if meta is not None else []))
+    queries, dim, b, k = _check_gather("gather_score", rows, queries, ids,
+                                       metric, meta, matmul)
     if rows.device.type == "cpu":
         return gather_score_plain(rows, queries, ids, metric=metric,
                                   meta=meta, matmul=matmul)
-    if rows.device.type != "cuda":
-        raise ValueError(f"gather_score: unsupported device {rows.device}")
-    if dim > MAX_GATHER_DIM:
-        raise ValueError(f"gather_score: dim {dim} > {MAX_GATHER_DIM}")
-    per = 16 // rows.element_size()
-    vec = int(dim % per == 0 and rows.data_ptr() % 16 == 0)
+    vec = _vec("gather_score", rows)
     out = torch.empty((b, k), dtype=torch.float32, device=rows.device)
     err = _lib().gather_score_launch(
         rows.data_ptr(), _ROW_TYPE[rows.dtype],
         meta.data_ptr() if meta is not None else None,
         meta.shape[1] if meta is not None else 0, int(matmul),
-        queries.data_ptr(), ids.data_ptr(), out.data_ptr(), b, k, n, dim,
-        _METRIC_CODE[metric], vec,
+        queries.data_ptr(), ids.data_ptr(), out.data_ptr(), b, k,
+        rows.shape[0], dim, _METRIC_CODE[metric], vec,
         torch.cuda.current_stream(rows.device).cuda_stream)
     _raise_on("gather_score", err)
     launches["gather_score"] += 1
+    return out
+
+
+def gather_score_local_plain(rows: torch.Tensor, queries: torch.Tensor,
+                             ids: torch.Tensor, offset: int, *,
+                             metric: str = "sqeuclidean",
+                             meta: torch.Tensor | None = None,
+                             matmul: bool = False) -> torch.Tensor:
+    """The plain PyTorch version of :func:`gather_score_local`."""
+    if not matmul:
+        if meta is not None and meta.shape[1] == 4:
+            return ref.gather_score_local_quant_ref(
+                rows, meta[:, 2], meta[:, 3], queries, ids, offset,
+                metric=metric)
+        return ref.gather_score_local_ref(rows, queries, ids, offset,
+                                          metric=metric)
+    owned, loc = ref.owned_local(ids, offset, rows.shape[0])
+    d = gather_score_plain(rows, queries, loc, metric=metric, meta=meta,
+                           matmul=True)
+    return torch.where(owned, d, torch.zeros_like(d))
+
+
+def gather_score_local(rows: torch.Tensor, queries: torch.Tensor,
+                       ids: torch.Tensor, offset: int, *,
+                       metric: str = "sqeuclidean",
+                       meta: torch.Tensor | None = None,
+                       matmul: bool = False) -> torch.Tensor:
+    """Shard-local :func:`gather_score` over global ids -> (B, K) partials.
+
+    ``rows`` (n_local, dim) is one shard's block, global rows
+    ``[offset, offset + n_local)``; ``meta`` its :func:`pack_row_meta`. A
+    lane is owned iff ``0 <= ids - offset < n_local``: owned lanes carry
+    exactly the value :func:`gather_score` gives on that row, every other
+    lane (foreign or padding) 0.0, so the sum over shards is the unsharded
+    wave with its padding lanes at 0.0.
+    """
+    queries, dim, b, k = _check_gather("gather_score_local", rows, queries,
+                                       ids, metric, meta, matmul)
+    offset = int(offset)
+    if offset < 0:
+        raise ValueError(f"gather_score_local: offset {offset} < 0")
+    if rows.device.type == "cpu":
+        return gather_score_local_plain(rows, queries, ids, offset,
+                                        metric=metric, meta=meta,
+                                        matmul=matmul)
+    vec = _vec("gather_score_local", rows)
+    out = torch.empty((b, k), dtype=torch.float32, device=rows.device)
+    with torch.cuda.device(rows.device):
+        err = _lib().gather_score_local_launch(
+            rows.data_ptr(), _ROW_TYPE[rows.dtype],
+            meta.data_ptr() if meta is not None else None,
+            meta.shape[1] if meta is not None else 0, int(matmul),
+            queries.data_ptr(), ids.data_ptr(), out.data_ptr(), b, k,
+            rows.shape[0], offset, dim, _METRIC_CODE[metric], vec,
+            torch.cuda.current_stream(rows.device).cuda_stream)
+    _raise_on("gather_score_local", err)
+    launches["gather_score_local"] += 1
     return out
 
 

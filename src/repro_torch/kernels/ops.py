@@ -51,6 +51,34 @@ def gather_score(corpus, queries, ids, *, metric="sqeuclidean", backend=None,
     return _lt.gather_score(corpus_rows(src), queries, ids, metric=metric)
 
 
+def gather_score_local(corpus_local, queries, ids, offset, *,
+                       metric="sqeuclidean", backend=None, quantize=None):
+    """Shard-local gather→score over global ids: (B, K) -> (B, K) partials.
+
+    ``corpus_local`` is one shard's block (raw rows or its ``CorpusView``,
+    whose norms and dequant parameters shard with the rows), global rows
+    ``[offset, offset + n_local)``. Owned lanes carry exactly the value of
+    :func:`gather_score` under the same backend; foreign and padding lanes
+    carry 0.0, so the sum over shards rebuilds the unsharded wave (the
+    caller masks ids < 0 back to +inf).
+    """
+    be = resolve_backend(backend, quantize=quantize,
+                         _caller="ops.gather_score_local")
+    src = _view_for(corpus_local, be, "ops.gather_score_local")
+    ids = ids.to(torch.int32)
+    if be.matmul:
+        return _lt.gather_score_local(src.rows, queries, ids, offset,
+                                      metric=metric,
+                                      meta=_lt.pack_row_meta(src),
+                                      matmul=True)
+    if isinstance(src, CorpusView) and src.quantize is not None:
+        return _lt.gather_score_local(src.rows, queries, ids, offset,
+                                      metric=metric,
+                                      meta=_lt.pack_row_meta(src))
+    return _lt.gather_score_local(corpus_rows(src), queries, ids, offset,
+                                  metric=metric)
+
+
 # Padding sentinel for the sorted-membership dedup arrays: larger than any
 # real vertex id, so pads always sort to the tail of an ascending row.
 SET_PAD = torch.iinfo(torch.int32).max

@@ -62,6 +62,44 @@ def gather_score_quant_ref(rows: torch.Tensor, scales: torch.Tensor,
     return _score_rows(deq, queries, ids, metric)
 
 
+def owned_local(ids: torch.Tensor, offset: int, n_local: int):
+    """(owned (B, K) bool, local ids with every other lane -1)."""
+    loc = ids - offset
+    owned = (ids >= 0) & (loc >= 0) & (loc < n_local)
+    return owned, torch.where(owned, loc, torch.full_like(loc, -1))
+
+
+def gather_score_local_ref(corpus_local: torch.Tensor, queries: torch.Tensor,
+                           ids: torch.Tensor, offset: int,
+                           metric: str = "sqeuclidean") -> torch.Tensor:
+    """Shard-local :func:`gather_score_ref` over global ids (sum identity).
+
+    ``corpus_local`` (n_local, dim) holds global rows [offset, offset +
+    n_local). Owned lanes carry the exact per-lane value of
+    :func:`gather_score_ref` on local row ``id - offset``; foreign and
+    padding lanes carry 0.0, so the sum of every shard's partials is the
+    unsharded wave (x + 0.0 == x; each id has one owner). The caller masks
+    ids < 0 back to +inf after the sum.
+    """
+    owned, loc = owned_local(ids, offset, corpus_local.shape[0])
+    d = gather_score_ref(corpus_local, queries, loc, metric=metric)
+    return torch.where(owned, d, torch.zeros_like(d))
+
+
+def gather_score_local_quant_ref(rows_local: torch.Tensor,
+                                 scales_local: torch.Tensor,
+                                 zp_local: torch.Tensor | None,
+                                 queries: torch.Tensor, ids: torch.Tensor,
+                                 offset: int,
+                                 metric: str = "sqeuclidean") -> torch.Tensor:
+    """Shard-local :func:`gather_score_quant_ref` (same owned-lane contract
+    as :func:`gather_score_local_ref`)."""
+    owned, loc = owned_local(ids, offset, rows_local.shape[0])
+    d = gather_score_quant_ref(rows_local, scales_local, zp_local, queries,
+                               loc, metric=metric)
+    return torch.where(owned, d, torch.zeros_like(d))
+
+
 def beam_merge_topk_ref(beam_ids, beam_dists, cand_ids, cand_dists):
     """Merge (B, L) beam with (B, K) candidates, best (B, L) by dist."""
     L = beam_ids.shape[1]

@@ -158,9 +158,13 @@ def test_unported_index_kinds_raise(setup):
     with pytest.raises(NotImplementedError, match="cover-tree"):
         tbm.bimetric_search(tfd, tfD, object(), t[3], t[2], n_points=N,
                             quota=10, device="cpu")
-    with pytest.raises(NotImplementedError, match="sharding"):
+    with pytest.raises(ValueError, match="corpora"):
         tbm.bimetric_search(tfd, tfD, tidx, t[3], t[2], n_points=N,
                             quota=10, shards=2, device="cpu")
+    with pytest.raises(ValueError, match="search_mesh"):
+        tbm.bimetric_search(tfd, tfD, tidx, t[3], t[2], n_points=N,
+                            quota=10, shards=2, corpora=(t[1], t[0]),
+                            device="cpu")
 
 
 def test_make_dataset_and_paper_config():

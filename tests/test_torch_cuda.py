@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from repro_torch.core import beam, distances
+from repro_torch.distributed import sharding
 from repro_torch.kernels import backend, l2_topk, ops
 
 METRICS = ["l2", "sqeuclidean", "ip", "cosine"]
@@ -137,3 +138,99 @@ def test_search_batch_matches_single_on_card(dev):
         distances.EmbeddingMetric(emb).dists_batch, adj, qs,
         entries.cpu(), **kw)
     assert torch.equal(cpu.n_calls, batched.n_calls.cpu())
+
+
+def _local_blocks(view, shards):
+    """Shard s's (rows, meta) of a view, placed as the sharded engine
+    places it."""
+    st = sharding.shard_corpus_view(view, shards)
+    blocks = []
+    for s in range(shards):
+        v = backend.CorpusView(
+            rows=st[0][s], sq_norms=st[1][s], inv_norms=st[2][s],
+            scales=st[3][s] if view.scales is not None else None,
+            zero_points=st[4][s] if view.zero_points is not None else None)
+        blocks.append((v.rows, l2_topk.pack_row_meta(v)))
+    return blocks, st[-1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [3, 4])
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("rows", ["float32", "bfloat16", "int8", "fp8",
+                                  "fp8_e5m2"])
+def test_gather_local_kernel_vs_plain(dev, rows, metric, shards):
+    """At every shard's offset: owned lanes agree with the plain version and
+    equal the gather_score kernel's lanes bit for bit; foreign and padding
+    lanes are exactly 0.0; the shards' sum is the unsharded wave."""
+    corpus, qs, ids = _gather_inputs(seed=len(rows) + len(metric) + shards,
+                                     n=301)
+    if rows in ("float32", "bfloat16"):
+        view = backend.as_corpus_view(corpus.to(getattr(torch, rows)))
+    else:
+        view = backend.as_corpus_view(corpus, quantize=rows)
+    gview = _to(view, dev)
+    blocks, n_local = _local_blocks(gview, shards)
+    q, i = qs.to(dev), ids.to(dev)
+    meta = l2_topk.pack_row_meta(gview)
+    forms = [(False, None if view.scales is None else meta), (True, meta)]
+    for mm, m in forms:
+        full = l2_topk.gather_score(gview.rows, q, i, metric=metric, meta=m,
+                                    matmul=mm)
+        total = None
+        for s, (r, bm) in enumerate(blocks):
+            off = s * n_local
+            bm = bm if m is not None else None
+            before = l2_topk.launches["gather_score_local"]
+            got = l2_topk.gather_score_local(r, q, i, off, metric=metric,
+                                             meta=bm, matmul=mm)
+            assert l2_topk.launches["gather_score_local"] == before + 1
+            want = l2_topk.gather_score_local_plain(
+                r.cpu(), qs, ids, off, metric=metric,
+                meta=None if bm is None else bm.cpu(), matmul=mm)
+            owned = (i >= 0) & (i - off >= 0) & (i - off < n_local)
+            assert (got[~owned] == 0.0).all()
+            assert torch.equal(got[owned], full[owned])
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+            total = got if total is None else total + got
+        total = torch.where(i >= 0, total, torch.inf)
+        assert torch.equal(total, full)
+
+
+@pytest.mark.cuda
+def test_gather_local_refuses_a_misaligned_block(dev):
+    flat = torch.zeros(300 * 384 + 1, device=dev)
+    rows = flat[1:].view(300, 384)  # 4 bytes past a 16-byte boundary
+    q = torch.zeros((2, 384), device=dev)
+    ids = torch.zeros((2, 3), dtype=torch.int32, device=dev)
+    for fn in (lambda: l2_topk.gather_score(rows, q, ids),
+               lambda: l2_topk.gather_score_local(rows, q, ids, 0)):
+        with pytest.raises(ValueError, match="aligned"):
+            fn()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend_", [("ref", None), ("matmul", "int8")])
+def test_sharded_search_matches_unsharded_on_card(dev, backend_):
+    """N=2048: sharded_greedy_search at S=4 on one card equals shards=1 on
+    every field, and launches the shard-local kernel S times a wave."""
+    be, quant = backend_
+    rng = np.random.default_rng(4)
+    n, b = 2048, 8
+    adj = torch.from_numpy(rng.integers(0, n, (n, 16)).astype(np.int32))
+    emb = torch.from_numpy(rng.normal(size=(n, 384)).astype(np.float32))
+    qs = torch.from_numpy(rng.normal(size=(b, 384)).astype(np.float32))
+    entries = torch.zeros((b, 1), dtype=torch.int32)
+    kw = dict(metric="l2", beam_width=32, pool_size=32, quota=200,
+              max_steps=300, backend=be, quantize=quant)
+    base = beam.sharded_greedy_search(emb.to(dev), adj, qs, entries,
+                                      shards=1, device=dev, **kw)
+    l2_topk.reset_launches()
+    mesh = sharding.search_mesh(4, devices=[dev] * 4)
+    got = beam.sharded_greedy_search(emb.to(dev), adj, qs, entries, shards=4,
+                                     mesh=mesh, **kw)
+    for name, x, y in zip(got._fields, base, got):
+        assert torch.equal(x, y), name
+    waves = l2_topk.launches["beam_merge_topk"]
+    assert waves > 1 and l2_topk.launches["gather_score"] == 0
+    assert l2_topk.launches["gather_score_local"] == 4 * waves

@@ -67,7 +67,7 @@ def test_imports_with_jax_blocked():
 def test_entry_points_without_device_raise_on_cpu_host():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is visible: device=None means the card")
-    from repro_torch.core import bimetric, distances, vamana
+    from repro_torch.core import beam, bimetric, distances, vamana
     from repro_torch.data.synthetic import make_dataset
 
     x = torch.from_numpy(np.random.default_rng(0).normal(
@@ -89,5 +89,10 @@ def test_entry_points_without_device_raise_on_cpu_host():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         bimetric.rerank_search(fn, fn, idx, x[:2], x[:2], n_points=64,
                                quota=10)
+    entries = torch.zeros((2, 1), dtype=torch.int32)
+    for shards in (1, 2):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            beam.sharded_greedy_search(x, idx.adjacency, x[:2], entries,
+                                       shards=shards, beam_width=4)
     ids, _, _ = vamana.search(idx, x, x[:2], k=3, device="cpu")
     assert ids.device.type == "cpu"

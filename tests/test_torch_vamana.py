@@ -103,7 +103,7 @@ def test_search_from_converted_index_and_matmul(built):
     mids, _, _ = tv.search(idx, torch.from_numpy(x), q, k=10,
                            backend="matmul", device="cpu")
     assert (mids.numpy() == ids.numpy()).mean() >= 0.99
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="search_mesh"):
         tv.search(idx, torch.from_numpy(x), q, k=10, shards=2, device="cpu")
 
 
