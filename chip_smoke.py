@@ -20,9 +20,15 @@ Phases (any failure exits nonzero and prints no result line):
 5. the sharded slice on phase 4's data and graph: S corpus blocks on the
    one card (``search_mesh(S, devices=["cuda:0"] * S)``), ``vamana.search``
    and ``bimetric_search`` at S=4 (and S=3, one pad row), each bit-equal to
-   its shards=1 run and launching ``gather_score_local`` S times a wave.
+   its shards=1 run and launching ``gather_score_local`` S times a wave;
+6. the kernels off the search path, through ``ops.flash_attention``,
+   ``ops.flash_decode`` and ``ops.embedding_bag``: each against its plain
+   version at the JAX sweep shapes and the edge cases, then once at the
+   full widths of the configurations it serves (sfr-mistral-7b and
+   bge-micro-like attention layers, decode at a 32k cache, DIN's bag), with
+   times beside the bound, the plain version and the library call.
 
-Ends with a JSON line per ported kernel and the result line
+Ends with a JSON line of every ported kernel and the result line
 ``{"ok": true, "device": {...}}``. Needs one CUDA device; imports no JAX.
 ``--rehearse`` runs the control flow on the CPU at toy sizes and exits 3.
 """
@@ -42,10 +48,12 @@ sys.path.insert(0, str(ROOT / "src"))
 
 import torch  # noqa: E402
 
-# H100 SXM peaks (NVIDIA data sheet): HBM rate and f32 rate outside the
-# tensor cores — the kernels here do f32 scalar arithmetic
+# H100 SXM peaks (NVIDIA data sheet): HBM rate, f32 rate outside the tensor
+# cores (the kernels here do f32 scalar arithmetic), and the dense bf16
+# tensor-core rate, the least time for bf16 attention whatever a kernel uses
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 
 CROSS_RTOL = 1e-5  # near-tie allowance between the card and the CPU
 
@@ -84,9 +92,9 @@ def time_ms(fn, reps=11, inner=10, warmup=3):
     return statistics.median(times)
 
 
-def bound(nbytes, nops):
+def bound(nbytes, nops, ops_per_s=F32_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / F32_OPS_PER_S * 1e3
+    t_ops = nops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -709,6 +717,240 @@ def sharded_slice(dev, ph4, quotas, rehearse):
 
 
 # --------------------------------------------------------------------------
+# phase 6: the kernels off the search path
+# --------------------------------------------------------------------------
+F32, BF16 = torch.float32, torch.bfloat16
+# the JAX kernel tests' tolerances (assert_allclose with atol = rtol = tol),
+# for the check shapes, whose outputs are about 0.2
+ATTN_TOL = {F32: 2e-5, BF16: 2e-2}
+BAG_TOL = 1e-5
+# (atol, rtol) of the full-width rows. An attention output there averages
+# thousands of keys and is about 0.01 to 0.03, so a bf16 atol of 2e-2 would
+# pass a wrong kernel: the limit is scaled to the data instead, and rtol
+# 1e-2 still covers one bf16 ulp of the rounded output (at most 2^-7 of it)
+MAIN_TOL = {F32: (2e-5, 2e-5), BF16: (1e-3, 1e-2)}
+
+# check shapes: the JAX sweeps (tests/test_kernels.py), bf16, dv != dh
+# (DeepSeek-V3's MLA 192/128 included) and Sq > Skv causal (empty rows)
+ATTN_CHECKS = [  # B, H, Sq, Skv, dh, dv, causal, dtype
+    (2, 4, 128, 128, 64, 64, True, F32), (1, 2, 96, 96, 32, 32, True, F32),
+    (2, 2, 64, 256, 32, 32, False, F32), (1, 1, 128, 128, 128, 128, True, BF16),
+    (1, 2, 33, 65, 16, 16, True, F32), (1, 2, 64, 64, 48, 32, True, F32),
+    (2, 4, 128, 128, 64, 64, True, BF16), (1, 2, 70, 70, 192, 128, True, F32),
+    (1, 2, 70, 70, 192, 128, True, BF16), (2, 1, 100, 37, 64, 64, True, F32),
+]
+# B, H, S, dh, dv, dtype, lengths (None: seeded in [1, S]); S = 1000 and 333
+# are multiples of no tile
+DECODE_CHECKS = [
+    (2, 4, 256, 64, 64, F32, None), (1, 2, 100, 32, 32, F32, None),
+    (3, 1, 512, 128, 128, F32, None), (3, 2, 1000, 128, 128, F32, (0, 1, 1000)),
+    (3, 2, 1000, 128, 128, BF16, (0, 1, 1000)),
+    (3, 2, 333, 192, 128, BF16, (0, 1, 333)),
+]
+BAG_CHECKS = [(200, 32, 8, 10), (64, 128, 4, 5), (1000, 16, 16, 30)]  # V, D, B, L
+
+
+def _ops_rate(dtype):
+    """Peak rate for the inputs' type: the dense tensor-core rate for bf16,
+    the f32 rate outside the tensor cores for f32."""
+    return BF16_OPS_PER_S if dtype == BF16 else F32_OPS_PER_S
+
+
+def _agree(got, want, tol, what, rtol=None):
+    """|got - want| <= tol + rtol * |want| everywhere (rtol defaults to tol);
+    returns the max error."""
+    rtol = tol if rtol is None else rtol
+    g, w = got.float(), want.float()
+    require(g.shape == w.shape and bool(torch.isfinite(g).all()),
+            f"{what}: shape {tuple(g.shape)} or non-finite values")
+    err = (g - w).abs()
+    require(bool((err <= tol + rtol * w.abs()).all()),
+            f"{what}: max err {float(err.max()):.3e}")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def _attn_inputs(g, dev, b, h, sq, skv, dh, dv, dtype):
+    return [torch.randn(*s, generator=g, device=dev).to(dtype)
+            for s in ((b, h, sq, dh), (b, h, skv, dh), (b, h, skv, dv))]
+
+
+def _decode_inputs(g, dev, b, h, s, dh, dv, dtype):
+    return (torch.randn(b, h, dh, generator=g, device=dev, dtype=dtype),
+            torch.randn(b, s, h, dh, generator=g, device=dev, dtype=dtype),
+            torch.randn(b, s, h, dv, generator=g, device=dev, dtype=dtype))
+
+
+def _bag_ids(g, dev, v, b, l):
+    """Bag lengths seeded in [0, L], the rest -1; bag 0 is all pads."""
+    idx = torch.randint(0, v, (b, l), generator=g, device=dev,
+                        dtype=torch.int32)
+    n = torch.randint(0, l + 1, (b,), generator=g, device=dev)
+    n[0] = 0
+    idx[torch.arange(l, device=dev)[None, :] >= n[:, None]] = -1
+    return idx
+
+
+def check_off_path(dev, big_v):
+    """Each kernel against its plain version at the check shapes, through
+    the ops entry points; returns the max error per kernel."""
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    require(not torch.backends.cuda.matmul.allow_tf32,
+            "the plain versions' f32 products must not run in TF32")
+    g = torch.Generator(device=dev).manual_seed(16)
+    errs = dict(flash_attention=0.0, flash_decode=0.0, embedding_bag=0.0)
+    for b, h, sq, skv, dh, dv, causal, dt in ATTN_CHECKS:
+        q, k, v = _attn_inputs(g, dev, b, h, sq, skv, dh, dv, dt)
+        got = ops.flash_attention(q, k, v, causal=causal)
+        want = fa.flash_attention_plain(q, k, v, causal=causal)
+        what = f"flash_attention {(b, h, sq, skv, dh, dv, causal, dt)}"
+        errs["flash_attention"] = max(errs["flash_attention"], _agree(
+            got, want, ATTN_TOL[dt], what))
+        require(got.dtype == dt, f"{what}: dtype {got.dtype}")
+        if causal and sq > skv:
+            require(bool((got[:, :, : sq - skv] == 0).all()),
+                    f"{what}: empty rows are not 0")
+    for b, h, s, dh, dv, dt, lens in DECODE_CHECKS:
+        q, k, v = _decode_inputs(g, dev, b, h, s, dh, dv, dt)
+        length = (torch.randint(1, s + 1, (b,), generator=g, device=dev)
+                  if lens is None else torch.tensor(lens, device=dev))
+        got = ops.flash_decode(q, k, v, length=length)
+        want = fa.flash_decode_plain(q, k, v, length=length)
+        what = f"flash_decode {(b, h, s, dh, dv, dt, lens)}"
+        errs["flash_decode"] = max(errs["flash_decode"], _agree(
+            got, want, ATTN_TOL[dt], what))
+        if lens is not None:
+            require(bool((got[0] == 0).all()), f"{what}: length 0 is not 0")
+    bags = [(v, d, b, l, torch.randint(-1, v, (b, l), generator=g, device=dev,
+                                       dtype=torch.int32))
+            for v, d, b, l in BAG_CHECKS]
+    bags += [(v, d, b, l, _bag_ids(g, dev, v, b, l))
+             for v, d, b, l in ((big_v, 18, 512, 100), (big_v, 18, 70, 33))]
+    for v, d, b, l, idx in bags:
+        table = torch.randn(v, d, generator=g, device=dev)
+        idx[1] = -1  # an all-pad bag in every case
+        for mode in ("sum", "mean"):
+            got = ops.embedding_bag(table, idx, mode=mode)
+            want = eb.embedding_bag_plain(table, idx, mode=mode)
+            what = f"embedding_bag V={v} D={d} B={b} L={l} {mode}"
+            errs["embedding_bag"] = max(errs["embedding_bag"], _agree(
+                got, want, BAG_TOL, what))
+            require(bool((got[1] == 0).all()), f"{what}: all-pad bag")
+    return errs
+
+
+def off_path(dev, sizes, rehearse):
+    """Phase 6's path: each ops entry point at the full widths of the
+    configurations it serves, launches counted from 0; each output held
+    against the plain version; then each timed beside its bound, its plain
+    version and the one library call that computes the same function."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import embedding_bag as eb
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    cases = []
+    for role, b, h, s, d, dt in sizes["attn"]:
+        q, k, v = _attn_inputs(g, dev, b, h, s, s, d, d, dt)
+        item = q.element_size()
+        nbytes = item * (q.numel() + k.numel() + v.numel() + q.numel())
+        nops = 2 * (d + d) * b * h * s * (s + 1) // 2  # valid causal pairs
+        cases.append(dict(
+            kernel="flash_attention", role=role, shape=dict(
+                B=b, H=h, Sq=s, Skv=s, dh=d, dv=d, dtype=str(dt), causal=True),
+            bound=bound(nbytes, nops, _ops_rate(dt)),
+            run=lambda q=q, k=k, v=v: ops.flash_attention(q, k, v),
+            plain=lambda q=q, k=k, v=v: fa.flash_attention_plain(q, k, v),
+            library=lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True),
+            library_name="F.scaled_dot_product_attention(is_causal=True)",
+            tol=MAIN_TOL[dt]))
+    role, b, h, s, d, dt = sizes["decode"]
+    q, k, v = _decode_inputs(g, dev, b, h, s, d, d, dt)
+    length = torch.randint(1, s + 1, (b,), generator=g, device=dev,
+                           dtype=torch.int32)
+    valid = int(length.sum())
+    item = q.element_size()
+    mask = (torch.arange(s, device=dev)[None, :] < length[:, None])[:, None,
+                                                                    None]
+    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+    cases.append(dict(
+        kernel="flash_decode", role=role, shape=dict(
+            B=b, H=h, S=s, dh=d, dv=d, dtype=str(dt), valid_keys=valid),
+        bound=bound(item * (valid * h * 2 * d + 2 * b * h * d) + 4 * b,
+                    2 * 2 * d * h * valid, _ops_rate(dt)),
+        run=lambda: ops.flash_decode(q, k, v, length=length),
+        plain=lambda: fa.flash_decode_plain(q, k, v, length=length),
+        library=lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kt, vt, attn_mask=mask)[:, :, 0],
+        library_name="F.scaled_dot_product_attention, (B, 1, 1, S) bool mask",
+        tol=MAIN_TOL[dt]))
+    v_rows, d = sizes["bag_table"]
+    table = torch.randn(v_rows, d, generator=g, device=dev)
+    for role, b, l in sizes["bag"]:
+        idx = _bag_ids(g, dev, v_rows, b, l)
+        rows = int((idx >= 0).sum())
+        # the yardstick's inputs are built outside the timed call: pads read
+        # row 0 with weight 0; the mean weights each row by 1 / max(count, 1)
+        valid = (idx >= 0).float()
+        lib_idx = idx.clamp(min=0)
+        weights = dict(sum=valid, mean=valid / valid.sum(-1, keepdim=True)
+                       .clamp(min=1))
+        for mode in ("sum", "mean"):
+            cases.append(dict(
+                kernel="embedding_bag", role=role, shape=dict(
+                    V=v_rows, D=d, B=b, L=l, mode=mode, valid_rows=rows),
+                bound=bound(4 * (rows * d + b * l + b * d), rows * d,
+                            F32_OPS_PER_S),
+                run=lambda idx=idx, mode=mode: ops.embedding_bag(
+                    table, idx, mode=mode),
+                plain=lambda idx=idx, mode=mode: eb.embedding_bag_plain(
+                    table, idx, mode=mode),
+                library=lambda li=lib_idx, w=weights[mode]: F.embedding_bag(
+                    li, table, mode="sum", per_sample_weights=w),
+                library_name="F.embedding_bag(mode='sum', per_sample_weights="
+                             + ("(idx >= 0))" if mode == "sum" else
+                                "(idx >= 0) / max(count, 1))"),
+                tol=(BAG_TOL, BAG_TOL)))
+
+    fa.reset_launches()
+    eb.reset_launches()  # the path starts here
+    outs = [c["run"]() for c in cases]
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    launches = dict(**fa.launches, **eb.launches)  # read just after the path
+    if not rehearse:
+        for name, n in launches.items():
+            require(n > 0, f"{name} was never launched on phase 6's path")
+
+    rows = []
+    for c, out in zip(cases, outs):
+        what = f"{c['kernel']} {c['role']}"
+        row = dict(kernel=c["kernel"], role=c["role"], **c["shape"])
+        row["bound_ms"], row["bound_by"] = c["bound"]
+        want = c["plain"]()
+        atol, rtol = row["tol"] = c["tol"]
+        row["ref_rms"] = float(want.float().square().mean().sqrt())
+        row["max_abs_err"] = _agree(out, want, atol, what, rtol=rtol)
+        # how far the yardstick's own rounding is from the plain version
+        row["library"] = c["library_name"]
+        row["library_max_abs_diff"] = float(
+            (c["library"]().float() - want.float()).abs().max())
+        del out, want
+        if not rehearse:
+            row["ms"] = time_ms(c["run"])
+            row["plain_ms"] = time_ms(c["plain"], reps=5, inner=2)
+            row["library_ms"] = time_ms(c["library"])
+        rows.append(row)
+        log("  " + json.dumps(row))
+    return rows, launches
+
+
+# --------------------------------------------------------------------------
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=171_332,
@@ -749,7 +991,13 @@ def main() -> int:
                      timing={16: ((4, 8),), 48: ((4, 20),)},
                      local_timing={16: ((4, 8),), 48: ((4, 8),)},
                      shapes=((4, 16, 8),), cn=600, cd=8, cD=32, cq=4, quotas=(20, 60), bn=300,
-                     fn=800, fq=8)
+                     fn=800, fq=8,
+                     attn=(("sfr-mistral-7b layer, toy", 1, 2, 64, 16, BF16),
+                           ("bge-micro-like layer, toy", 4, 2, 32, 16, F32)),
+                     decode=("decode, toy", 2, 2, 128, 16, BF16),
+                     bag_table=(4096, 18),
+                     bag=(("din train_batch, toy", 256, 100),
+                          ("din serve_p99, toy", 16, 100)))
     else:
         # timing shapes: build wave (B=1024), stage-1 wave, stage-2 wave,
         # stage-2 entry wave (K = Q/2 seeds), re-rank scoring wave (K = Q)
@@ -759,7 +1007,19 @@ def main() -> int:
                      local_timing={384: ((256, 64),), 4096: ((256, 64),)},
                      shapes=((1024, 256, 64), (256, 500, 64), (256, 1000, 64),
                              (256, 1000, 500)), cn=8192, cd=384, cD=4096, cq=16,
-                     quotas=(100, 1000), bn=2048, fn=args.n, fq=256)
+                     quotas=(100, 1000), bn=2048, fn=args.n, fq=256,
+                     # phase 6 at the configurations' widths: one attention
+                     # layer (causal prefill) of each tower; decode at
+                     # decode_32k's cache with batch 128 cut to 8 (one KV head
+                     # per query head: 68.7 GB of KV at 128); DIN's bag
+                     attn=(("prefill, one sfr-mistral-7b layer", 1, 32, 4096,
+                            128, BF16),
+                           ("one bge-micro-like layer", 256, 6, 512, 64, F32)),
+                     decode=("sfr-mistral-7b at decode_32k, B 128 cut to 8", 8,
+                             32, 32768, 128, BF16),
+                     bag_table=(1 << 20, 18),
+                     bag=(("din train_batch", 65536, 100),
+                          ("din serve_p99", 512, 100)))
 
     t0 = time.perf_counter()
     log("phase 2: kernels vs plain versions")
@@ -798,6 +1058,15 @@ def main() -> int:
     report["sharded"] = sharded
     report["phase5_s"] = time.perf_counter() - t0
 
+    t0 = time.perf_counter()
+    log("phase 6: the kernels off the search path (ops entry points)")
+    off_errs = check_off_path(dev, sizes["bag_table"][0])
+    log(f"  checks vs plain: max |kernel - plain| {json.dumps(off_errs)}")
+    off_rows, off_launches = off_path(dev, sizes, rehearse)
+    report["off_path"] = dict(checks=off_errs, rows=off_rows,
+                              launches=off_launches)
+    report["phase6_s"] = time.perf_counter() - t0
+
     kernels = [
         dict(name="gather_score", route="cuda",
              source="src/repro_torch/kernels/csrc/l2_topk.cu",
@@ -821,6 +1090,23 @@ def main() -> int:
              bound_ms=m_timed["bound_ms"], bound_by=m_timed["bound_by"],
              library_ms=m_timed.get("library_ms")),
     ]
+    # the headline row of each off-path kernel: the first of its path's cases
+    # (sfr-mistral-7b prefill, decode_32k, DIN train_batch sum)
+    for name, src, replaces in (
+            ("flash_attention", "flash_attention", "flash_attention.py:76"),
+            ("flash_decode", "flash_attention", "flash_attention.py:163"),
+            ("embedding_bag", "embedding_bag", "embedding_bag.py:45")):
+        row = next(r for r in off_rows if r["kernel"] == name)
+        kernels.append(dict(
+            name=name, route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{src}.cu",
+            replaces=f"src/repro/kernels/{replaces}",
+            launches=off_launches[name],
+            max_abs_err=max([off_errs[name]] + [
+                r["max_abs_err"] for r in off_rows if r["kernel"] == name]),
+            ms=row.get("ms"), plain_ms=row.get("plain_ms"),
+            bound_ms=row["bound_ms"], bound_by=row["bound_by"],
+            library_ms=row.get("library_ms")))
     report["kernels"] = kernels
     report["smoke_s"] = time.perf_counter() - t_start
     log(f"smoke finished in {report['smoke_s']:.1f} s (from start of main)")

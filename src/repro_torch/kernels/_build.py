@@ -3,7 +3,8 @@
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library with
 a plain C interface and loaded with :mod:`ctypes` — no PyTorch headers, so a
 build takes seconds. Libraries are cached under the build directory by a hash
-of their source and flags; all sources compile in parallel, one ``nvcc`` each.
+of their source, the shared headers (``csrc/*.cuh``) and the flags; all
+sources compile in parallel, one ``nvcc`` each.
 
 The build directory is ``$REPRO_TORCH_BUILD_DIR`` when set, else ``build/``
 at the root of the checkout. Nothing here runs on the CPU path: the kernel
@@ -49,6 +50,8 @@ def _nvcc() -> str:
 
 def _target(src: Path) -> Path:
     h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     return build_dir() / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 

@@ -47,12 +47,11 @@
 //   the stable oracle ref.merge_pool_batch_ref, and an all-masked wave is an
 //   exact no-op. No 128-lane padding (that was the TPU's vector width).
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <stdint.h>
 #include <cstring>
+
+#include "common.cuh"
 
 namespace {
 
@@ -61,9 +60,7 @@ constexpr int kWarps = 8;  // lanes (warps) per gather block
 enum Metric { kL2 = 0, kSqEuclidean = 1, kIp = 2, kCosine = 3 };
 enum RowType { kF32 = 0, kBF16 = 1, kF16 = 2, kI8 = 3, kE4M3 = 4, kE5M2 = 5 };
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
+// to_f of the quantized types (the float ones are in common.cuh)
 __device__ __forceinline__ float to_f(int8_t x) { return static_cast<float>(x); }
 __device__ __forceinline__ float to_f(__nv_fp8_e4m3 x) { return static_cast<float>(x); }
 __device__ __forceinline__ float to_f(__nv_fp8_e5m2 x) { return static_cast<float>(x); }
@@ -87,12 +84,6 @@ struct Acc {
     if (!MM && metric == kCosine) a1 = __fmaf_rn(r, r, a1);
   }
 };
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
 
 // The arguments of both gather kernels. n_rows is N for gather_score and
 // n_local for the shard-local kernel, whose block starts at global row

@@ -1,4 +1,4 @@
-"""Dispatch layer for the search kernels — one backend knob per op.
+"""Dispatch layer for the kernels — one backend knob per search op.
 
 ``backend=`` is ``"ref" | "matmul"`` or a resolved
 :class:`~repro_torch.kernels.backend.Backend`. The backend picks the form of
@@ -7,6 +7,13 @@ the hand-written kernels of :mod:`repro_torch.kernels.l2_topk` on every
 backend, a CPU tensor runs their plain versions. Ops that gather corpus rows
 take a raw (N, dim) tensor or a prebuilt ``CorpusView`` — build the view
 outside any hot loop so the norms are computed once per corpus.
+
+:func:`flash_attention`, :func:`flash_decode` and :func:`embedding_bag` are
+re-exported from their kernel modules. They take the JAX ops' keywords and
+follow the same device rule. They compute the
+Pallas kernels' function (JAX's ``backend="pallas"``): a row with no valid
+key gives 0, not the oracle's NaN. JAX's ``block_q`` / ``block_k`` are TPU
+tiling and are not taken; the CUDA kernels choose their own tiles.
 """
 from __future__ import annotations
 
@@ -15,6 +22,9 @@ import torch
 from repro_torch.kernels import l2_topk as _lt
 from repro_torch.kernels.backend import (Backend, CorpusView, as_corpus_view,
                                          corpus_rows, resolve_backend)
+from repro_torch.kernels.embedding_bag import embedding_bag  # noqa: F401
+from repro_torch.kernels.flash_attention import (  # noqa: F401
+    flash_attention, flash_decode)
 
 
 def _view_for(corpus, be: Backend, caller: str):
@@ -133,3 +143,4 @@ def merge_pool_batch(pool_ids, pool_dists, expanded, cand_ids, cand_dists):
     """
     return _lt.merge_pool_batch(pool_ids, pool_dists, expanded, cand_ids,
                                 cand_dists)
+

@@ -1,14 +1,69 @@
-"""Plain PyTorch oracles for the search kernels (the correctness contract).
+"""Plain PyTorch oracles for the kernels (the correctness contract).
 
 Each ``<name>_ref`` is the definition its Hopper kernel must match, written
-as the JAX package's ``repro.kernels.ref`` writes it. These are also the
-plain versions the kernel wrappers run on CPU tensors.
+as the JAX package's ``repro.kernels.ref`` writes it. The search oracles are
+also the plain versions the kernel wrappers run on CPU tensors. The flash
+and bag oracles keep the JAX ref's own edge behaviour (NaN for a row with no
+valid key, the bag summed in the table's dtype); their kernels compute the
+Pallas kernels' function instead, whose plain versions live beside them.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 _EPS = 1e-12
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True,
+                        sm_scale: float | None = None) -> torch.Tensor:
+    """q (B, H, Sq, dh); k, v (B, H, Skv, dh|dv) -> (B, H, Sq, dv).
+
+    Plain softmax; causal keys are aligned bottom-right (queries sit at the
+    end of the KV window), and a row with no valid key is NaN.
+    """
+    sq, dh = q.shape[2], q.shape[3]
+    skv = k.shape[2]
+    sm_scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(dh)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
+    if causal:
+        mask = (torch.arange(skv, device=q.device)[None, :]
+                <= torch.arange(sq, device=q.device)[:, None] + (skv - sq))
+        s = torch.where(mask[None, None], s, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                     length, sm_scale: float | None = None) -> torch.Tensor:
+    """One query token: q (B, H, dh); k, v (B, S, H, dh|dv) -> (B, H, dv).
+
+    ``length`` is an int or (B,): keys at or past it are masked. A row of
+    length 0 is NaN.
+    """
+    dh = q.shape[2]
+    s = k.shape[1]
+    sm_scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(dh)
+    logits = torch.einsum("bhd,bshd->bhs", q.float(), k.float()) * sm_scale
+    valid = (torch.arange(s, device=q.device)[None, None, :]
+             < torch.as_tensor(length, device=q.device).reshape(-1, 1, 1))
+    logits = torch.where(valid, logits, float("-inf"))
+    p = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhs,bshd->bhd", p, v.float()).to(q.dtype)
+
+
+def embedding_bag_ref(table: torch.Tensor, idx: torch.Tensor,
+                      mode: str = "sum") -> torch.Tensor:
+    """table (V, D); idx (B, L) with -1 padding -> (B, D) reduced bags, in
+    the table's dtype throughout."""
+    rows = table[idx.clamp(min=0).long()]
+    mask = (idx >= 0).to(table.dtype)
+    out = (rows * mask[..., None]).sum(dim=1)
+    if mode == "mean":
+        out = out / mask.sum(-1, keepdim=True).clamp(min=1.0)
+    return out
 
 
 def _score_rows(rows: torch.Tensor, queries: torch.Tensor, ids: torch.Tensor,

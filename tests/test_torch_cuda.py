@@ -11,9 +11,13 @@ import torch
 
 from repro_torch.core import beam, distances
 from repro_torch.distributed import sharding
-from repro_torch.kernels import backend, l2_topk, ops
+from repro_torch.kernels import backend, embedding_bag, flash_attention, l2_topk, ops
 
 METRICS = ["l2", "sqeuclidean", "ip", "cosine"]
+# kernel vs plain: the JAX kernel tests' tolerances (2e-5 f32, 2e-2 bf16,
+# 1e-5 for the bag in f32); f16 within its own rounding
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2, torch.float16: 2e-3}
+BAG_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 2e-3}
 
 
 @pytest.fixture
@@ -234,3 +238,119 @@ def test_sharded_search_matches_unsharded_on_card(dev, backend_):
     waves = l2_topk.launches["beam_merge_topk"]
     assert waves > 1 and l2_topk.launches["gather_score"] == 0
     assert l2_topk.launches["gather_score_local"] == 4 * waves
+
+
+def _randn(g, *shape, dtype=torch.float32):
+    return torch.randn(*shape, generator=g).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,sq,skv,dh,dv,causal,dtype", [
+    (2, 4, 128, 128, 64, 64, True, torch.float32),
+    (1, 2, 96, 96, 32, 32, True, torch.float32),
+    (2, 2, 64, 256, 32, 32, False, torch.float32),
+    (1, 1, 128, 128, 128, 128, True, torch.bfloat16),
+    (1, 2, 33, 65, 16, 16, True, torch.float32),
+    (1, 2, 64, 64, 48, 32, True, torch.float32),       # dv != dh
+    (1, 2, 70, 70, 192, 128, True, torch.bfloat16),    # MLA widths
+    (2, 1, 100, 37, 64, 64, True, torch.float32),      # Sq > Skv: 63 empty rows
+    (1, 2, 50, 80, 256, 256, False, torch.float16),    # widest head
+])
+def test_flash_attention_kernel_vs_plain(dev, b, h, sq, skv, dh, dv, causal,
+                                         dtype):
+    g = torch.Generator().manual_seed(sq + skv + dh + dv)
+    q, k, v = (_randn(g, *s, dtype=dtype) for s in
+               ((b, h, sq, dh), (b, h, skv, dh), (b, h, skv, dv)))
+    want = flash_attention.flash_attention_plain(q, k, v, causal=causal)
+    before = flash_attention.launches["flash_attention"]
+    got = ops.flash_attention(q.to(dev), k.to(dev), v.to(dev), causal=causal)
+    assert flash_attention.launches["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == (b, h, sq, dv)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol,
+                               atol=tol)
+    if causal and sq > skv:
+        assert (got[:, :, : sq - skv] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh,dv", [(64, 64), (128, 128), (192, 128)])
+def test_flash_decode_kernel_vs_plain(dev, dtype, dh, dv):
+    """S = 100 (no tile divides it) with lengths 0, 1, S, past S and one in
+    between; a length-0 row is 0."""
+    b, h, s = 5, 3, 100
+    g = torch.Generator().manual_seed(dh + dv)
+    q = _randn(g, b, h, dh, dtype=dtype)
+    k = _randn(g, b, s, h, dh, dtype=dtype)
+    v = _randn(g, b, s, h, dv, dtype=dtype)
+    lens = torch.tensor([0, 1, s, s + 3, 37], dtype=torch.int32)
+    want = flash_attention.flash_decode_plain(q, k, v, length=lens)
+    before = flash_attention.launches["flash_decode"]
+    got = ops.flash_decode(q.to(dev), k.to(dev), v.to(dev), length=lens.to(dev))
+    assert flash_attention.launches["flash_decode"] == before + 1
+    assert got.dtype == dtype and got.shape == (b, h, dv)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol,
+                               atol=tol)
+    assert (got[0] == 0).all()
+    # an int length is every row's; past S it clamps to S
+    full = ops.flash_decode(q.to(dev), k.to(dev), v.to(dev), length=s)
+    assert torch.equal(full[2:4], got[2:4])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+@pytest.mark.parametrize("d", [18, 40])
+def test_embedding_bag_kernel_vs_plain(dev, dtype, mode, d):
+    """D = 18 (DIN's width, rows not 16-byte aligned) and D = 40 (two column
+    chunks); bags of length 0 (all pads), 1 and L, L not a multiple of 32."""
+    g = torch.Generator().manual_seed(d + len(mode))
+    v_rows, b, l = 5000, 37, 45
+    table = _randn(g, v_rows, d, dtype=dtype)
+    idx = torch.randint(-1, v_rows, (b, l), generator=g, dtype=torch.int32)
+    idx[0] = -1
+    idx[1] = -1
+    idx[1, 7] = 3
+    idx[2] = torch.randint(0, v_rows, (l,), generator=g)
+    want = embedding_bag.embedding_bag_plain(table, idx, mode=mode)
+    before = embedding_bag.launches["embedding_bag"]
+    got = ops.embedding_bag(table.to(dev), idx.to(dev), mode=mode)
+    assert embedding_bag.launches["embedding_bag"] == before + 1
+    assert got.dtype == dtype and got.shape == (b, d)
+    tol = BAG_TOL[dtype]
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol,
+                               atol=tol)
+    assert (got[0] == 0).all()
+    assert torch.equal(got[1].cpu(), table[3])
+
+
+@pytest.mark.cuda
+def test_attention_and_bag_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    x = torch.zeros((1, 2, 8, 16), device=dev)
+    strided = x.transpose(2, 3).contiguous().transpose(2, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_attention(x, strided, x)
+    with pytest.raises(ValueError, match="tensors on"):
+        ops.flash_attention(x, x.cpu(), x)
+    wide = torch.zeros((1, 1, 4, 300), device=dev)
+    with pytest.raises(ValueError, match="head dims"):
+        ops.flash_attention(wide, wide, wide)
+    q = torch.zeros((2, 2, 16), device=dev)
+    kv = torch.zeros((2, 5, 2, 16), device=dev)
+    with pytest.raises(ValueError, match="tensors on"):
+        ops.flash_decode(q, kv.cpu(), kv, length=3)
+    with pytest.raises(ValueError, match="length on"):
+        ops.flash_decode(q, kv, kv, length=torch.tensor([3, 4]))
+    table = torch.zeros((10, 18), device=dev)
+    idx = torch.zeros((3, 4), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.embedding_bag(table.t().contiguous().t(), idx)
+    with pytest.raises(ValueError, match="tensors on"):
+        ops.embedding_bag(table, idx.cpu())
+    # an id past the table is a caller error: NaN for its bag, no stray read
+    idx[1, 2] = 10
+    out = ops.embedding_bag(table, idx)
+    assert torch.isnan(out[1]).all() and (out[0] == 0).all()

@@ -206,3 +206,27 @@ def test_sorted_set_ops_match_jax():
     np.testing.assert_array_equal(
         tops.sorted_set_unique_count(_t(sets)).numpy(),
         np.asarray(jops.sorted_set_unique_count(jnp.asarray(sets))))
+
+
+def test_build_cache_key_covers_shared_headers(tmp_path, monkeypatch):
+    from repro_torch.kernels import _build
+
+    src = tmp_path / "k.cu"
+    src.write_text('#include "common.cuh"\n')
+    (tmp_path / "common.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path / "build"))
+    before = _build._target(src)
+    assert _build._target(src) == before
+    (tmp_path / "common.cuh").write_text("// two\n")
+    assert _build._target(src) != before
+
+
+def test_kernel_sources_include_only_shipped_headers():
+    import re
+
+    from repro_torch.kernels import _build
+
+    for src in _build.CSRC.glob("*.cu"):
+        for name in re.findall(r'#include "([^"]+)"', src.read_text()):
+            assert (_build.CSRC / name).is_file(), (src.name, name)
