@@ -10,6 +10,9 @@ Phases (any failure exits nonzero and prints no result line):
    (cached under ``build/``);
 2. each hand-written kernel against its plain PyTorch version on the card, at
    the slice's shapes, with median times (CUDA events), bounds and yardsticks;
+   the merge also on rows the engine never makes (unsorted pool, NaN, signed
+   zeros, K > P), bit for bit, and its device time alone by CUDA-graph
+   replay beside the eager times;
 3. cross-check of the whole slice at N=8192 (dims 384/4096): the same graph
    searched on the card and with ``device="cpu"``, and two N=2048 builds
    from one initial graph;
@@ -26,7 +29,9 @@ Phases (any failure exits nonzero and prints no result line):
    version at the JAX sweep shapes and the edge cases, then once at the
    full widths of the configurations it serves (sfr-mistral-7b and
    bge-micro-like attention layers, decode at a 32k cache, DIN's bag), with
-   times beside the bound, the plain version and the library call.
+   times beside the bound, the plain version and the library call; the
+   16-bit attention rows must launch the tensor-core route, the f32 rows the
+   SIMT one.
 
 Ends with a JSON line of every ported kernel and the result line
 ``{"ok": true, "device": {...}}``. Needs one CUDA device; imports no JAX.
@@ -89,6 +94,33 @@ def time_ms(fn, reps=11, inner=10, warmup=3):
         e.record()
         e.synchronize()
         times.append(s.elapsed_time(e) / inner)
+    return statistics.median(times)
+
+
+def time_graph_ms(fn, reps=11, inner=10):
+    """Per-call device time of ``fn`` (ms) with the host's launch work taken
+    out: ``inner`` calls captured once in a CUDA graph, the graph replayed
+    between CUDA events, the median over ``reps``. For calls that take the
+    host longer to launch than the device to run, where :func:`time_ms`
+    measures the host."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        graph.replay()
+        e.record()
+        e.synchronize()
+        times.append(s.elapsed_time(e) / inner)
+    del graph
     return statistics.median(times)
 
 
@@ -314,10 +346,53 @@ def _merge_inputs(dev, b, p, k, g):
     return pi, pd, pf, ci, cd
 
 
+def _bit_equal(a, b):
+    """torch.equal, with f32 compared bit for bit (NaN equals its own copy,
+    -0.0 differs from +0.0)."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def _merge_edges(dev, g):
+    """Rows the engine never hands in: an unsorted pool, NaN and -0.0/+0.0
+    distances in both runs, K > P, and P + K that is no power of two.
+    Each is (pool ids, dists, flags, candidate ids, dists)."""
+    cases = []
+    for b, p, k in ((5, 100, 37), (3, 20, 77), (4, 256, 64), (2, 1, 1)):
+        pi, pd, pf, ci, cd = _merge_inputs(dev, b, p, k, g)
+        cases.append((pi, pd, pf, ci, cd))  # sorted pool
+        perm = torch.argsort(torch.rand(b, p, generator=g, device=dev), 1)
+        cases.append((pi.gather(1, perm), pd.gather(1, perm),
+                      pf.gather(1, perm), ci, cd))  # unsorted pool
+        # NaN and signed zeros: a sorted pool (NaN last) and an unsorted one
+        zd = pd.clone()
+        zd[:, : p // 3] = -0.0
+        zd[:, p // 3: 2 * p // 3] = 0.0
+        zd[:, -1:] = float("nan")
+        zc = cd.clone()
+        zc[:, ::3] = -0.0
+        zc[:, 2::7] = 0.0
+        zc[:, ::5] = float("nan")  # with P = 1, NaN meets NaN
+        cases.append((pi, zd, pf, ci, zc))
+        cases.append((pi.flip(1), zd.flip(1), pf.flip(1), ci, zc))
+    return cases
+
+
 def check_merge(dev, shapes, rehearse):
     from repro_torch.kernels import l2_topk, ref
 
     g = torch.Generator(device=dev).manual_seed(12)
+    for i, (pi, pd, pf, ci, cd) in enumerate(_merge_edges(dev, g)):
+        got = l2_topk.merge_pool_batch(pi, pd, pf, ci, cd)
+        want = ref.merge_pool_batch_ref(pi, pd, pf, ci, cd)
+        for name, x, y in zip(("ids", "dists", "flags"), got, want):
+            require(_bit_equal(x, y), f"merge edge case {i} "
+                    f"(P={pi.shape[1]}, K={ci.shape[1]}) {name} differs")
+        got = l2_topk.beam_merge_topk(pi, pd, ci, cd)
+        want = ref.beam_merge_topk_ref(pi, pd, ci, cd)
+        require(_bit_equal(got[0], want[0]) and _bit_equal(got[1], want[1]),
+                f"beam_merge_topk edge case {i} differs")
     rows_out, timed = [], None
     for b, p, k in shapes:
         pi, pd, pf, ci, cd = _merge_inputs(dev, b, p, k, g)
@@ -326,20 +401,25 @@ def check_merge(dev, shapes, rehearse):
         for name, x, y in zip(("ids", "dists", "flags"), got, want):
             require(torch.equal(x, y), f"merge ({p},{k}) {name} differs")
         require(torch.equal(got[0][0], pi[0]) and torch.equal(got[2][0], pf[0]))
-        n_pad = 1 << (p + k - 1).bit_length()
-        m = n_pad.bit_length() - 1
+        # the function's bytes: each row's ids, dists and flags read once,
+        # P of each written; the work of any one sort is not the function's
         nbytes = b * (p + k) * 8 + b * p + b * p * 9
         row = dict(P=p, K=k, B=b)
-        row["bound_ms"], row["bound_by"] = bound(
-            nbytes, b * (n_pad // 2) * m * (m + 1) // 2)
+        row["bound_ms"], row["bound_by"] = bound(nbytes, 0)
         if not rehearse:
-            row["ms"] = time_ms(lambda: l2_topk.merge_pool_batch(
-                pi, pd, pf, ci, cd))
+            # ms, plain_ms, library_ms: as the engine calls them, one eager
+            # call after another (at these shapes the host's launch work is
+            # most of it); device_ms, library_device_ms: the device's time
+            # alone, by CUDA-graph replay
+            merge = lambda: l2_topk.merge_pool_batch(pi, pd, pf, ci, cd)
+            cat = torch.cat([pd, cd], dim=1)
+            lib = lambda: torch.sort(cat, dim=1, stable=True)
+            row["ms"] = time_ms(merge)
             row["plain_ms"] = time_ms(lambda: ref.merge_pool_batch_ref(
                 pi, pd, pf, ci, cd))
-            cat = torch.cat([pd, cd], dim=1)
-            row["library_ms"] = time_ms(
-                lambda: torch.sort(cat, dim=1, stable=True))
+            row["library_ms"] = time_ms(lib)
+            row["device_ms"] = time_graph_ms(merge)
+            row["library_device_ms"] = time_graph_ms(lib)
         rows_out.append(row)
         if (p, k) == (1000, 64):
             timed = row
@@ -719,10 +799,11 @@ def sharded_slice(dev, ph4, quotas, rehearse):
 # --------------------------------------------------------------------------
 # phase 6: the kernels off the search path
 # --------------------------------------------------------------------------
-F32, BF16 = torch.float32, torch.bfloat16
+F32, BF16, F16 = torch.float32, torch.bfloat16, torch.float16
 # the JAX kernel tests' tolerances (assert_allclose with atol = rtol = tol),
-# for the check shapes, whose outputs are about 0.2
-ATTN_TOL = {F32: 2e-5, BF16: 2e-2}
+# for the check shapes, whose outputs are about 0.2; f16 within its own
+# rounding (the port's card tests)
+ATTN_TOL = {F32: 2e-5, BF16: 2e-2, F16: 2e-3}
 BAG_TOL = 1e-5
 # (atol, rtol) of the full-width rows. An attention output there averages
 # thousands of keys and is about 0.01 to 0.03, so a bf16 atol of 2e-2 would
@@ -731,13 +812,26 @@ BAG_TOL = 1e-5
 MAIN_TOL = {F32: (2e-5, 2e-5), BF16: (1e-3, 1e-2)}
 
 # check shapes: the JAX sweeps (tests/test_kernels.py), bf16, dv != dh
-# (DeepSeek-V3's MLA 192/128 included) and Sq > Skv causal (empty rows)
+# (DeepSeek-V3's MLA 192/128 included) and Sq > Skv causal (empty rows);
+# then the tensor-core route's edges in bf16 and f16: lengths that are no
+# multiple of 64 or 128, Sq > Skv, non-causal, 192/128, 256, a head of 24
+# (padded to 64 by the copy) and the smoke configs' 16 and 8, a 20-wide
+# head (no multiple of 8: the SIMT route)
 ATTN_CHECKS = [  # B, H, Sq, Skv, dh, dv, causal, dtype
     (2, 4, 128, 128, 64, 64, True, F32), (1, 2, 96, 96, 32, 32, True, F32),
     (2, 2, 64, 256, 32, 32, False, F32), (1, 1, 128, 128, 128, 128, True, BF16),
     (1, 2, 33, 65, 16, 16, True, F32), (1, 2, 64, 64, 48, 32, True, F32),
     (2, 4, 128, 128, 64, 64, True, BF16), (1, 2, 70, 70, 192, 128, True, F32),
     (1, 2, 70, 70, 192, 128, True, BF16), (2, 1, 100, 37, 64, 64, True, F32),
+    (2, 3, 70, 70, 128, 128, True, BF16), (2, 3, 70, 70, 128, 128, True, F16),
+    (2, 1, 100, 37, 128, 128, True, BF16), (2, 1, 300, 37, 64, 64, True, F16),
+    (1, 2, 100, 37, 64, 64, False, BF16), (1, 2, 200, 333, 128, 128, False, F16),
+    (1, 2, 300, 300, 192, 128, True, F16), (1, 2, 300, 300, 256, 256, True, BF16),
+    (1, 2, 150, 200, 256, 256, False, F16), (2, 2, 257, 257, 24, 24, True, BF16),
+    (1, 2, 130, 130, 16, 16, True, BF16), (1, 2, 77, 77, 8, 8, True, F16),
+    (1, 2, 70, 70, 20, 20, True, BF16), (1, 2, 129, 200, 256, 256, True, F32),
+    # more (head, query tile) items than SMs: blocks walk several
+    (4, 8, 600, 400, 64, 64, False, BF16), (4, 8, 600, 400, 64, 64, True, F16),
 ]
 # B, H, S, dh, dv, dtype, lengths (None: seeded in [1, S]); S = 1000 and 333
 # are multiples of no tile
@@ -751,9 +845,9 @@ BAG_CHECKS = [(200, 32, 8, 10), (64, 128, 4, 5), (1000, 16, 16, 30)]  # V, D, B,
 
 
 def _ops_rate(dtype):
-    """Peak rate for the inputs' type: the dense tensor-core rate for bf16,
-    the f32 rate outside the tensor cores for f32."""
-    return BF16_OPS_PER_S if dtype == BF16 else F32_OPS_PER_S
+    """Peak rate for the inputs' type: the dense tensor-core rate for bf16
+    and f16, the f32 rate outside the tensor cores for f32."""
+    return BF16_OPS_PER_S if dtype in (BF16, F16) else F32_OPS_PER_S
 
 
 def _agree(got, want, tol, what, rtol=None):
@@ -803,9 +897,13 @@ def check_off_path(dev, big_v):
     errs = dict(flash_attention=0.0, flash_decode=0.0, embedding_bag=0.0)
     for b, h, sq, skv, dh, dv, causal, dt in ATTN_CHECKS:
         q, k, v = _attn_inputs(g, dev, b, h, sq, skv, dh, dv, dt)
+        route = f"flash_attention_{fa._attention_route(dt, dh, dv)}"
+        before = fa.launches[route]
         got = ops.flash_attention(q, k, v, causal=causal)
         want = fa.flash_attention_plain(q, k, v, causal=causal)
         what = f"flash_attention {(b, h, sq, skv, dh, dv, causal, dt)}"
+        require(dev.type != "cuda" or fa.launches[route] == before + 1,
+                f"{what}: did not launch {route}")
         errs["flash_attention"] = max(errs["flash_attention"], _agree(
             got, want, ATTN_TOL[dt], what))
         require(got.dtype == dt, f"{what}: dtype {got.dtype}")
@@ -919,18 +1017,32 @@ def off_path(dev, sizes, rehearse):
 
     fa.reset_launches()
     eb.reset_launches()  # the path starts here
-    outs = [c["run"]() for c in cases]
+    outs, routes = [], []
+    for c in cases:
+        before = dict(fa.launches)
+        outs.append(c["run"]())
+        routes.append([n for n in fa.launches if fa.launches[n] > before[n]])
     if dev.type == "cuda":
         torch.cuda.synchronize()
     launches = dict(**fa.launches, **eb.launches)  # read just after the path
     if not rehearse:
         for name, n in launches.items():
             require(n > 0, f"{name} was never launched on phase 6's path")
+        # the full-width 16-bit rows on the tensor cores, the f32 rows on the
+        # SIMT route
+        for c, r in zip(cases, routes):
+            if c["kernel"] == "flash_attention":
+                want_route = ("flash_attention_simt" if c["shape"]["dtype"]
+                              == str(F32) else "flash_attention_wgmma")
+                require(r == [want_route], f"{c['role']} launched {r}, "
+                        f"not {want_route}")
 
     rows = []
-    for c, out in zip(cases, outs):
+    for c, out, r in zip(cases, outs, routes):
         what = f"{c['kernel']} {c['role']}"
         row = dict(kernel=c["kernel"], role=c["role"], **c["shape"])
+        if c["kernel"] == "flash_attention":
+            row["route"] = r
         row["bound_ms"], row["bound_by"] = c["bound"]
         want = c["plain"]()
         atol, rtol = row["tol"] = c["tol"]
@@ -985,6 +1097,10 @@ def main() -> int:
         report["build_kernels_s"] = time.perf_counter() - t0
         log(f"  kernels built in {report['build_kernels_s']:.3f} s "
             f"(nvcc {_build.last_build_seconds:.3f} s) into {_build.build_dir()}")
+        report["ptxas"] = _build.resources()
+        for lib, kerns in report["ptxas"].items():
+            for name, res in kerns.items():
+                log(f"  {lib}: {name}: {res}")
 
     if rehearse:
         sizes = dict(n=3000, dims=(16, 48), ks=(8, 20), b=4,
@@ -1088,12 +1204,17 @@ def main() -> int:
              launches=full["launches"]["beam_merge_topk"], max_abs_err=m_err,
              ms=m_timed.get("ms"), plain_ms=m_timed.get("plain_ms"),
              bound_ms=m_timed["bound_ms"], bound_by=m_timed["bound_by"],
-             library_ms=m_timed.get("library_ms")),
+             library_ms=m_timed.get("library_ms"),
+             # the device's time alone (graph replay); ms is eager, as for
+             # every other kernel
+             device_ms=m_timed.get("device_ms"),
+             library_device_ms=m_timed.get("library_device_ms")),
     ]
     # the headline row of each off-path kernel: the first of its path's cases
     # (sfr-mistral-7b prefill, decode_32k, DIN train_batch sum)
     for name, src, replaces in (
-            ("flash_attention", "flash_attention", "flash_attention.py:76"),
+            ("flash_attention", "flash_attention_wgmma",
+             "flash_attention.py:76"),
             ("flash_decode", "flash_attention", "flash_attention.py:163"),
             ("embedding_bag", "embedding_bag", "embedding_bag.py:45")):
         row = next(r for r in off_rows if r["kernel"] == name)
@@ -1101,7 +1222,8 @@ def main() -> int:
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{src}.cu",
             replaces=f"src/repro/kernels/{replaces}",
-            launches=off_launches[name],
+            launches=sum(n for k, n in off_launches.items()
+                         if k == name or k.startswith(name + "_")),
             max_abs_err=max([off_errs[name]] + [
                 r["max_abs_err"] for r in off_rows if r["kernel"] == name]),
             ms=row.get("ms"), plain_ms=row.get("plain_ms"),

@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -83,6 +84,39 @@ def build_all() -> dict[str, Path]:
         msg = "\n".join(f"{src}:\n{log}" for src, log in failed)
         raise RuntimeError(f"nvcc failed:\n{msg}")
     return {stem: so for stem, (_, so) in targets.items()}
+
+
+def resources() -> dict[str, dict[str, str]]:
+    """Per library, per kernel: what ``-Xptxas -v`` reported when it was
+    built (registers, spill bytes, barriers, and any advisory such as
+    serialized wgmma), read from the build logs."""
+    out = {}
+    for src in sorted(CSRC.glob("*.cu")):
+        log = _target(src).with_suffix(".log")
+        if not log.exists():
+            continue
+        kernels, name = {}, None
+        for line in log.read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            adv = re.search(r"(Performance Loss.*) in the function '(\w+)'", line)
+            if m:
+                name = m.group(1)
+            elif adv:
+                kernels[adv.group(2)] = (kernels.get(adv.group(2), "") + " "
+                                         + adv.group(1)).strip()
+            elif name and ("spill" in line or "Used" in line):
+                kernels[name] = (kernels.get(name, "") + " " + line.split(
+                    ":", 1)[-1].strip()).strip()
+        names = list(kernels)
+        try:  # demangled names, where the toolkit has its filter
+            filt = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
+            plain = subprocess.run([filt, *names], capture_output=True,
+                                   text=True, timeout=60).stdout.splitlines()
+            names = plain if len(plain) == len(names) else names
+        except OSError:
+            pass
+        out[src.stem] = dict(zip(names, kernels.values()))
+    return out
 
 
 def load(stem: str) -> ctypes.CDLL:

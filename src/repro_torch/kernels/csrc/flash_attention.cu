@@ -7,24 +7,29 @@
 // f32, bf16 or f16 (one type for q, k and v), accumulation is f32, the
 // output is in the inputs' type. Index arithmetic is size_t throughout.
 //
-// flash_attention — replaces repro/kernels/flash_attention.py:flash_attention
-//   (Pallas body _flash_fwd_kernel), reached through ops.flash_attention.
-//   q (BH, Sq, dh), k (BH, Skv, dh), v (BH, Skv, dv) -> (BH, Sq, dv). Key j
-//   is valid for query i iff j < Skv and, when causal, j <= i + Skv - Sq
-//   (queries sit at the end of the KV window: bottom-right alignment).
-//   Bound: operations, 2 * (dh + dv) per valid (query, key) pair; at the
-//   prefill widths that is far above the bytes of q, k, v and the output.
-//   Design: one block per (bh, 64-query tile), 256 threads as 16 x 16; thread
-//   (ty, tx) owns query rows ty + 16a and key columns tx + 16b (a, b < 4) of
-//   the 64 x 64 score tile, and value columns tx + 16c of the output. The Q
-//   tile is staged once in shared memory as f32; each 64-key K and V tile is
-//   staged, the scores are computed from shared memory (rows padded by one
-//   float against bank conflicts), the online (m, l) are updated with row
-//   reductions over the 16 lanes of a half-warp, P goes through shared
-//   memory, and acc += P V accumulates in registers. Causal tiles past the
-//   tile's last query are skipped. f32 SIMT arithmetic: no tensor cores yet.
-//   Shared memory is (64 (dh + 1) * 2 + 64 dv + 64 * 65) floats, 115 KB at
-//   dh = dv = 128 and 213 KB at 256, so the launch opts in above 48 KB.
+// flash_attention (SIMT route) — replaces repro/kernels/flash_attention.py:
+//   flash_attention (Pallas body _flash_fwd_kernel), reached through
+//   ops.flash_attention for f32 and for the 16-bit shapes the tensor-core
+//   route (flash_attention_wgmma.cu) does not take (a head dim that is no
+//   multiple of 8). q (BH, Sq, dh), k (BH, Skv, dh), v (BH, Skv, dv) ->
+//   (BH, Sq, dv). Key j is valid for query i iff j < Skv and, when causal,
+//   j <= i + Skv - Sq (queries sit at the end of the KV window: bottom-right
+//   alignment).
+//   Bound: operations, 2 * (dh + dv) per valid (query, key) pair, at the
+//   card's f32 rate outside the tensor cores for f32 (no TF32: the f32
+//   checks hold it to 2e-5).
+//   Design: register-blocked f32 SIMT. One block per (bh, BQ-query tile),
+//   BQ = 128 where two blocks still fit an SM's shared memory, else 64; 256
+//   threads as 16 x 16. Thread (ty, tx) owns the RM = BQ / 16 query rows
+//   ty * RM + a and the keys tx * 4 + b of each 64-key tile (an RM x 4 score
+//   micro-tile), and the value columns 64 c + tx * 4 + e. Q is staged once
+//   and each K tile per step, both transposed (head dim major), so a thread
+//   reads its rows and its keys as float4 broadcasts: RM / 4 + 1 16-byte
+//   loads per 4 RM FMAs. P goes through shared memory row-major and V is
+//   read as float4, RM + 4 NCG loads per 16 RM NCG FMAs of O += P V. The
+//   online (m, l) follow the Pallas kernel (expf, masked scores -1e30, their
+//   weight 0); tiles past the block's last query are skipped.
+//   Shared memory: (BQ dh + 64 dh + 64 * 64 NCG + BQ * 68) floats.
 //
 // flash_decode — replaces repro/kernels/flash_attention.py:flash_decode
 //   (Pallas body _flash_decode_kernel), reached through ops.flash_decode.
@@ -63,153 +68,205 @@ __device__ __forceinline__ float half_sum(float v) {
 }
 
 // --------------------------------------------------------------------------
-// flash_attention
+// flash_attention, SIMT route
 // --------------------------------------------------------------------------
-constexpr int kBQ = 64;        // query rows per tile
 constexpr int kBK = 64;        // keys per tile
 constexpr int kThreads = 256;  // 16 x 16
-constexpr int kLdp = kBK + 1;  // padded P row
+constexpr int kLdp = kBK + 4;  // P row (float4-aligned)
 
-size_t attention_smem(int dh, int dv) {
-  return static_cast<size_t>(kBQ * (dh + 1) + kBK * (dh + 1) + kBK * dv + kBQ * kLdp) *
-         sizeof(float);
+size_t attention_smem(int bq, int dh, int ncg) {
+  return static_cast<size_t>(bq * dh + kBK * dh + kBK * 64 * ncg + bq * kLdp) * sizeof(float);
 }
 
-template <typename T, int NC>
+// four consecutive elements of a row from d on, as f32 (zeros past `n`);
+// VEC: one 16- or 8-byte load, the caller guarantees alignment and n % 4 == 0
+template <typename T, bool VEC>
+__device__ __forceinline__ void load4(const T* p, int d, int n, float (&x)[4]) {
+  if (VEC) {
+    if (sizeof(T) == 4) {
+      const float4 f = *reinterpret_cast<const float4*>(p + d);
+      x[0] = f.x; x[1] = f.y; x[2] = f.z; x[3] = f.w;
+    } else {
+      const uint2 u = *reinterpret_cast<const uint2*>(p + d);
+      const T* h = reinterpret_cast<const T*>(&u);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[e] = to_f(h[e]);
+    }
+  } else {
+    T raw[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) raw[e] = d + e < n ? p[d + e] : zero<T>();
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[e] = to_f(raw[e]);
+  }
+}
+
+// rows [row0, row0 + rows) of a (n_rows, D) matrix, transposed into
+// dst[d * rows + r] (zeros past n_rows); consecutive threads take
+// consecutive rows, so the stores are conflict-free
+template <typename T, bool VEC>
+__device__ __forceinline__ void stage_t(float* dst, const T* src, int row0, int rows, int n_rows,
+                                        int D) {
+  const int d4 = (D + 3) / 4;
+  for (int i = threadIdx.x; i < rows * d4; i += kThreads) {
+    const int r = i % rows, d = (i / rows) * 4;
+    float x[4] = {0.f, 0.f, 0.f, 0.f};
+    if (row0 + r < n_rows) load4<T, VEC>(src + static_cast<size_t>(row0 + r) * D, d, D, x);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (d + e < D) dst[(d + e) * rows + r] = x[e];
+  }
+}
+
+template <typename T, int RM, int NCG, bool VEC>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int Sq, int Skv,
-                       int dh, int dv, float scale, int causal) {
-  extern __shared__ float smem[];
-  const int ldq = dh + 1;
-  float* q_s = smem;               // kBQ x ldq
-  float* k_s = q_s + kBQ * ldq;    // kBK x ldq
-  float* v_s = k_s + kBK * ldq;    // kBK x dv
-  float* p_s = v_s + kBK * dv;     // kBQ x kLdp
+flash_attention_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v, T* __restrict__ out, int Sq, int Skv,
+                            int dh, int dv, float scale, int causal) {
+  constexpr int BQ = 16 * RM, VW = 64 * NCG;
+  extern __shared__ float4 smem4[];
+  float* qt = reinterpret_cast<float*>(smem4);  // dh x BQ
+  float* kt = qt + BQ * dh;                      // dh x kBK
+  float* vs = kt + kBK * dh;                     // kBK x VW
+  float* ps = vs + kBK * VW;                     // BQ x kLdp
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const size_t bh = blockIdx.x;
-  const int q0 = blockIdx.y * kBQ;
+  const int q0 = blockIdx.y * BQ;
   const int offset = Skv - Sq;
-  const T* qg = q + bh * Sq * dh;
   const T* kg = k + bh * Skv * dh;
   const T* vg = v + bh * Skv * dv;
 
-  for (int i = tid; i < kBQ * dh; i += kThreads) {
-    const int r = i / dh, c = i - r * dh;
-    const T x = q0 + r < Sq ? qg[static_cast<size_t>(q0 + r) * dh + c] : zero<T>();
-    q_s[r * ldq + c] = to_f(x);
-  }
-  float m[4], l[4], acc[4][NC];
+  stage_t<T, VEC>(qt, q + bh * Sq * dh, q0, BQ, Sq, dh);
+  float m[RM], l[RM], acc[RM][NCG][4];
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
+  for (int a = 0; a < RM; ++a) {
     m[a] = kNegInf;
     l[a] = 0.f;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) acc[a][c] = 0.f;
+    for (int c = 0; c < NCG; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[a][c][e] = 0.f;
   }
 
-  // keys past the tile's last query (q0 + kBQ - 1 + offset) are masked for
+  // keys past the tile's last query (q0 + BQ - 1 + offset) are masked for
   // every row of the tile
-  const int k_end = causal ? min(Skv, q0 + kBQ + offset) : Skv;
+  const int k_end = causal ? min(Skv, q0 + BQ + offset) : Skv;
   for (int k0 = 0; k0 < k_end; k0 += kBK) {
     __syncthreads();  // Q staged; the previous tile's K, V, P consumed
-    for (int i = tid; i < kBK * dh; i += kThreads) {
-      const int r = i / dh, c = i - r * dh;
-      const T x = k0 + r < Skv ? kg[static_cast<size_t>(k0 + r) * dh + c] : zero<T>();
-      k_s[r * ldq + c] = to_f(x);
-    }
-    for (int i = tid; i < kBK * dv; i += kThreads) {
-      const int r = i / dv, c = i - r * dv;
-      const T x = k0 + r < Skv ? vg[static_cast<size_t>(k0 + r) * dv + c] : zero<T>();
-      v_s[r * dv + c] = to_f(x);
+    stage_t<T, VEC>(kt, kg, k0, kBK, Skv, dh);
+    for (int i = tid; i < kBK * (VW / 4); i += kThreads) {
+      const int r = i / (VW / 4), c = (i - r * (VW / 4)) * 4;
+      float x[4] = {0.f, 0.f, 0.f, 0.f};
+      if (k0 + r < Skv && c < dv) load4<T, VEC>(vg + static_cast<size_t>(k0 + r) * dv, c, dv, x);
+      *reinterpret_cast<float4*>(vs + r * VW + c) = make_float4(x[0], x[1], x[2], x[3]);
     }
     __syncthreads();
 
-    float s[4][4];
+    float s[RM][4];
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+    for (int a = 0; a < RM; ++a)
 #pragma unroll
       for (int b = 0; b < 4; ++b) s[a][b] = 0.f;
+#pragma unroll 2
     for (int d = 0; d < dh; ++d) {
-      float qa[4], kb[4];
+      const float4 kb = *reinterpret_cast<const float4*>(kt + d * kBK + tx * 4);
+      float qa[RM];
 #pragma unroll
-      for (int a = 0; a < 4; ++a) qa[a] = q_s[(ty + 16 * a) * ldq + d];
+      for (int a4 = 0; a4 < RM / 4; ++a4) {
+        const float4 f = *reinterpret_cast<const float4*>(qt + d * BQ + ty * RM + a4 * 4);
+        qa[a4 * 4] = f.x; qa[a4 * 4 + 1] = f.y; qa[a4 * 4 + 2] = f.z; qa[a4 * 4 + 3] = f.w;
+      }
 #pragma unroll
-      for (int b = 0; b < 4; ++b) kb[b] = k_s[(tx + 16 * b) * ldq + d];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) s[a][b] = fmaf(qa[a], kb[b], s[a][b]);
+      for (int a = 0; a < RM; ++a) {
+        s[a][0] = fmaf(qa[a], kb.x, s[a][0]);
+        s[a][1] = fmaf(qa[a], kb.y, s[a][1]);
+        s[a][2] = fmaf(qa[a], kb.z, s[a][2]);
+        s[a][3] = fmaf(qa[a], kb.w, s[a][3]);
+      }
     }
 
+    const bool full = k0 + kBK <= Skv && (!causal || k0 + kBK - 1 <= q0 + offset);
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int qpos = q0 + ty + 16 * a + offset;
+    for (int a = 0; a < RM; ++a) {
+      const int qpos = q0 + ty * RM + a + offset;
       bool ok[4];
       float mx = kNegInf;
 #pragma unroll
       for (int b = 0; b < 4; ++b) {
-        const int kpos = k0 + tx + 16 * b;
-        ok[b] = kpos < Skv && (!causal || kpos <= qpos);
+        const int kpos = k0 + tx * 4 + b;
+        ok[b] = full || (kpos < Skv && (!causal || kpos <= qpos));
         s[a][b] = ok[b] ? s[a][b] * scale : kNegInf;
         mx = fmaxf(mx, s[a][b]);
       }
       const float m_new = fmaxf(m[a], half_max(mx));
       const float corr = expf(m[a] - m_new);
-      float rs = 0.f;
+      float p[4];
 #pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const float p = ok[b] ? expf(s[a][b] - m_new) : 0.f;
-        rs += p;
-        p_s[(ty + 16 * a) * kLdp + tx + 16 * b] = p;
-      }
-      l[a] = l[a] * corr + half_sum(rs);
+      for (int b = 0; b < 4; ++b) p[b] = ok[b] ? expf(s[a][b] - m_new) : 0.f;
+      *reinterpret_cast<float4*>(ps + (ty * RM + a) * kLdp + tx * 4) =
+          make_float4(p[0], p[1], p[2], p[3]);
+      l[a] = l[a] * corr + ((p[0] + p[1]) + (p[2] + p[3]));  // this thread's keys
       m[a] = m_new;
 #pragma unroll
-      for (int c = 0; c < NC; ++c) acc[a][c] *= corr;
+      for (int c = 0; c < NCG; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[a][c][e] *= corr;
     }
     __syncthreads();
 
-    for (int j = 0; j < kBK; ++j) {
-      float pa[4];
+#pragma unroll 2
+    for (int j = 0; j < kBK; j += 4) {
+      float4 pa[RM];
 #pragma unroll
-      for (int a = 0; a < 4; ++a) pa[a] = p_s[(ty + 16 * a) * kLdp + j];
+      for (int a = 0; a < RM; ++a)
+        pa[a] = *reinterpret_cast<const float4*>(ps + (ty * RM + a) * kLdp + j);
 #pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int col = tx + 16 * c;
-        const float vv = col < dv ? v_s[j * dv + col] : 0.f;
+      for (int jj = 0; jj < 4; ++jj) {
 #pragma unroll
-        for (int a = 0; a < 4; ++a) acc[a][c] = fmaf(pa[a], vv, acc[a][c]);
+        for (int c = 0; c < NCG; ++c) {
+          const float4 vv = *reinterpret_cast<const float4*>(vs + (j + jj) * VW + c * 64 + tx * 4);
+#pragma unroll
+          for (int a = 0; a < RM; ++a) {
+            const float pj = jj == 0 ? pa[a].x : jj == 1 ? pa[a].y : jj == 2 ? pa[a].z : pa[a].w;
+            acc[a][c][0] = fmaf(pj, vv.x, acc[a][c][0]);
+            acc[a][c][1] = fmaf(pj, vv.y, acc[a][c][1]);
+            acc[a][c][2] = fmaf(pj, vv.z, acc[a][c][2]);
+            acc[a][c][3] = fmaf(pj, vv.w, acc[a][c][3]);
+          }
+        }
       }
     }
   }
 
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int row = q0 + ty + 16 * a;
+  for (int a = 0; a < RM; ++a) {
+    const float den = fmaxf(half_sum(l[a]), 1e-30f);
+    const int row = q0 + ty * RM + a;
     if (row >= Sq) continue;
-    const float den = fmaxf(l[a], 1e-30f);
     T* o = out + (bh * Sq + row) * dv;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int col = tx + 16 * c;
-      if (col < dv) store(o + col, acc[a][c] / den);
-    }
+    for (int c = 0; c < NCG; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = c * 64 + tx * 4 + e;
+        if (col < dv) store(o + col, acc[a][c][e] / den);
+      }
   }
 }
 
-template <typename T, int NC>
+template <typename T, int RM, int NCG>
 cudaError_t launch_attention_t(const void* q, const void* k, const void* v, void* out,
                                int BH, int Sq, int Skv, int dh, int dv, float scale,
-                               int causal, cudaStream_t stream) {
-  const size_t smem = attention_smem(dh, dv);
-  auto kernel = flash_attention_kernel<T, NC>;
+                               int causal, bool vec, cudaStream_t stream) {
+  const size_t smem = attention_smem(16 * RM, dh, NCG);
+  auto kernel = vec ? flash_attention_simt_kernel<T, RM, NCG, true>
+                    : flash_attention_simt_kernel<T, RM, NCG, false>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
-  const dim3 grid(BH, (Sq + kBQ - 1) / kBQ);
+  const dim3 grid(BH, (Sq + 16 * RM - 1) / (16 * RM));
   kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(q),
                                            static_cast<const T*>(k),
                                            static_cast<const T*>(v), static_cast<T*>(out),
@@ -217,15 +274,26 @@ cudaError_t launch_attention_t(const void* q, const void* k, const void* v, void
   return cudaGetLastError();
 }
 
+// 128-query tiles where two blocks fit an SM's 228 KB and the accumulator
+// stays at 64 registers, else 64
+constexpr size_t kTwoBlocks = 113 * 1024;
+
 template <typename T>
 cudaError_t launch_attention_dv(const void* q, const void* k, const void* v, void* out,
                                 int BH, int Sq, int Skv, int dh, int dv, float scale,
-                                int causal, cudaStream_t s) {
-  if (dv <= 16) return launch_attention_t<T, 1>(q, k, v, out, BH, Sq, Skv, dh, dv, scale, causal, s);
-  if (dv <= 32) return launch_attention_t<T, 2>(q, k, v, out, BH, Sq, Skv, dh, dv, scale, causal, s);
-  if (dv <= 64) return launch_attention_t<T, 4>(q, k, v, out, BH, Sq, Skv, dh, dv, scale, causal, s);
-  if (dv <= 128) return launch_attention_t<T, 8>(q, k, v, out, BH, Sq, Skv, dh, dv, scale, causal, s);
-  return launch_attention_t<T, 16>(q, k, v, out, BH, Sq, Skv, dh, dv, scale, causal, s);
+                                int causal, bool vec, cudaStream_t s) {
+  const int ncg = (dv + 63) / 64;
+#define LAUNCH(RM, NCG) \
+  launch_attention_t<T, RM, NCG>(q, k, v, out, BH, Sq, Skv, dh, dv, scale, causal, vec, s)
+  if (ncg <= 2 && attention_smem(128, dh, ncg) <= kTwoBlocks)
+    return ncg == 1 ? LAUNCH(8, 1) : LAUNCH(8, 2);
+  switch (ncg) {
+    case 1: return LAUNCH(4, 1);
+    case 2: return LAUNCH(4, 2);
+    case 3: return LAUNCH(4, 3);
+    default: return LAUNCH(4, 4);
+  }
+#undef LAUNCH
 }
 
 // --------------------------------------------------------------------------
@@ -340,24 +408,28 @@ cudaError_t launch_decode_nj(const void* q, const void* k, const void* v, const 
 extern "C" {
 
 // q (BH, Sq, dh), k (BH, Skv, dh), v (BH, Skv, dv), out (BH, Sq, dv), all of
-// dtype; dh, dv <= 256. Returns the launch's cudaGetLastError() (or the
-// shared-memory opt-in's error).
-int flash_attention_launch(const void* q, const void* k, const void* v, void* out, int dtype,
-                           int BH, int Sq, int Skv, int dh, int dv, float scale, int causal,
-                           void* stream) {
+// dtype; dh, dv <= 256. Rows are read four elements at a time when dh and dv
+// are multiples of 4 and the bases 16-byte aligned. Returns the launch's
+// cudaGetLastError() (or the shared-memory opt-in's error).
+int flash_attention_simt_launch(const void* q, const void* k, const void* v, void* out,
+                                int dtype, int BH, int Sq, int Skv, int dh, int dv,
+                                float scale, int causal, void* stream) {
   if (BH == 0 || Sq == 0 || dv == 0) return 0;
   if (dh > kMaxHeadDim || dv > kMaxHeadDim) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec = dh % 4 == 0 && dv % 4 == 0 &&
+                   (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                    reinterpret_cast<uintptr_t>(v)) % 16 == 0;
   switch (dtype) {
     case kF32:
-      return static_cast<int>(
-          launch_attention_dv<float>(q, k, v, out, BH, Sq, Skv, dh, dv, scale, causal, s));
+      return static_cast<int>(launch_attention_dv<float>(q, k, v, out, BH, Sq, Skv, dh, dv,
+                                                         scale, causal, vec, s));
     case kBF16:
       return static_cast<int>(launch_attention_dv<__nv_bfloat16>(q, k, v, out, BH, Sq, Skv,
-                                                                 dh, dv, scale, causal, s));
+                                                                 dh, dv, scale, causal, vec, s));
     case kF16:
-      return static_cast<int>(
-          launch_attention_dv<__half>(q, k, v, out, BH, Sq, Skv, dh, dv, scale, causal, s));
+      return static_cast<int>(launch_attention_dv<__half>(q, k, v, out, BH, Sq, Skv, dh, dv,
+                                                          scale, causal, vec, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -36,16 +36,26 @@
 //
 // beam_merge — replaces repro/kernels/l2_topk.py:beam_merge_topk (Pallas
 //   bodies _merge_kernel, _xor_permute), reached through
-//   ops.merge_pool_batch. Per row: sort (pool ‖ candidates), keep the best P,
-//   the pool's expanded flags riding along.
-//   Bound: bytes (the row's ids, dists and flags read once, P written);
-//   the sort is O(n log^2 n) compare-exchanges in shared memory.
-//   Design: one block per row; 64-bit keys (order-preserving image of the
-//   f32 distance, input position) in dynamic shared memory, bitonic network
-//   padded to a power of two with keys that sort after every real lane.
-//   Ordering by position makes the merge stable: ids, dists and flags equal
-//   the stable oracle ref.merge_pool_batch_ref, and an all-masked wave is an
-//   exact no-op. No 128-lane padding (that was the TPU's vector width).
+//   ops.merge_pool_batch. Per row: the best P of (pool ‖ candidates), the
+//   pool's expanded flags riding along.
+//   Bound: bytes (the row's ids, dists and flags read once, P of each
+//   written).
+//   Design: one block per row; each lane gets a 64-bit key (order-preserving
+//   image of the f32 distance, input position), so the order is total and
+//   stable: ids, dists and flags equal the stable oracle
+//   ref.merge_pool_batch_ref, and an all-masked wave is an exact no-op.
+//   The engine only ever hands in a sorted pool (it starts all +inf and
+//   every later pool is this merge's output), so the block first checks
+//   that the pool's keys are non-decreasing (__syncthreads_and). If they
+//   are, only the K candidates are sorted (a bitonic network over the next
+//   power of two, in one warp when that is <= 64 lanes), and every element
+//   goes straight to its output rank: pool lane i to i + #(candidates below
+//   it), sorted candidate j to j + #(pool keys below it), each count a
+//   binary search of the other run; ranks >= P are dropped. That is O(P + K)
+//   work and two block barriers. An unsorted pool (the public
+//   beam_merge_topk takes any) runs the full bitonic network of
+//   (pool ‖ candidates) padded to a power of two, in the same kernel: the
+//   branch follows the data, so the function stays total.
 
 #include <cuda_fp8.h>
 #include <stdint.h>
@@ -244,6 +254,48 @@ __device__ __forceinline__ uint32_t dist_key(float d) {
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
+// a lane past the real ones: after every real key, NaN included, in
+// position order
+constexpr unsigned long long kPadKey = 0xffffffffull << 32;
+
+__device__ __forceinline__ unsigned long long merge_key(float d, int pos) {
+  return (static_cast<unsigned long long>(dist_key(d)) << 32) | static_cast<uint32_t>(pos);
+}
+
+// ascending bitonic sort of a[0, n), n a power of two, by `lanes` threads
+// numbered t; one warp (WARP) or the whole block syncs after each pass
+template <bool WARP>
+__device__ void bitonic_sort(unsigned long long* a, int n, int t, int lanes) {
+  for (int size = 2; size <= n; size <<= 1) {
+    for (int j = size >> 1; j > 0; j >>= 1) {
+      for (int p = t; p < (n >> 1); p += lanes) {
+        const int i = 2 * j * (p / j) + (p % j);
+        const int l = i + j;
+        const bool up = (i & size) == 0;
+        const unsigned long long x = a[i], y = a[l];
+        if ((x > y) == up) {
+          a[i] = y;
+          a[l] = x;
+        }
+      }
+      if (WARP) __syncwarp();
+      else __syncthreads();
+    }
+  }
+}
+
+// #{i < n : a[i] < key} for ascending a
+__device__ __forceinline__ int count_below(const unsigned long long* a, int n,
+                                           unsigned long long key) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (a[mid] < key) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
 __global__ void beam_merge_kernel(const int* __restrict__ pool_ids,
                                   const float* __restrict__ pool_dists,
                                   const uint8_t* __restrict__ pool_flags,
@@ -252,53 +304,74 @@ __global__ void beam_merge_kernel(const int* __restrict__ pool_ids,
                                   int* __restrict__ out_ids,
                                   float* __restrict__ out_dists,
                                   uint8_t* __restrict__ out_flags, int P, int K,
-                                  int n_pad) {
-  extern __shared__ unsigned long long keys[];
+                                  int k_pad, int n_pad) {
+  extern __shared__ unsigned long long keys[];  // pool [0, P), candidates after
+  unsigned long long* cand = keys + P;
   const size_t row = blockIdx.x;
-  const int n = P + K;
   const int* pi = pool_ids + row * P;
   const float* pd = pool_dists + row * P;
+  const uint8_t* pf = pool_flags ? pool_flags + row * P : nullptr;
   const int* ci = cand_ids + row * K;
   const float* cd = cand_dists + row * K;
-
-  for (int i = threadIdx.x; i < n_pad; i += blockDim.x) {
-    uint32_t key;
-    if (i < P) key = dist_key(pd[i]);
-    else if (i < n) key = dist_key(cd[i - P]);
-    else key = 0xffffffffu;  // padding: position i >= n sorts after NaNs too
-    keys[i] = (static_cast<unsigned long long>(key) << 32) | static_cast<uint32_t>(i);
-  }
-  __syncthreads();
-
-  const int half = n_pad >> 1;
-  for (int size = 2; size <= n_pad; size <<= 1) {
-    for (int j = size >> 1; j > 0; j >>= 1) {
-      for (int p = threadIdx.x; p < half; p += blockDim.x) {
-        const int i = 2 * j * (p / j) + (p % j);
-        const int l = i + j;
-        const bool up = (i & size) == 0;
-        const unsigned long long a = keys[i], c = keys[l];
-        if ((a > c) == up) {
-          keys[i] = c;
-          keys[l] = a;
-        }
-      }
-      __syncthreads();
-    }
-  }
-
   int* oi = out_ids + row * P;
   float* od = out_dists + row * P;
+  uint8_t* of = out_flags ? out_flags + row * P : nullptr;
+
+  bool sorted = true;
+  for (int i = threadIdx.x; i < P; i += blockDim.x) {
+    const uint32_t key = dist_key(pd[i]);
+    keys[i] = (static_cast<unsigned long long>(key) << 32) | static_cast<uint32_t>(i);
+    if (i > 0 && dist_key(pd[i - 1]) > key) sorted = false;
+  }
+  for (int j = threadIdx.x; j < k_pad; j += blockDim.x)
+    cand[j] = j < K ? merge_key(cd[j], P + j) : (kPadKey | static_cast<uint32_t>(P + j));
+
+  if (__syncthreads_and(sorted)) {
+    if (k_pad <= 64) {
+      if (threadIdx.x < 32) bitonic_sort<true>(cand, k_pad, threadIdx.x, 32);
+    } else {
+      bitonic_sort<false>(cand, k_pad, threadIdx.x, blockDim.x);
+    }
+    __syncthreads();
+    // a candidate's position is above every pool position, so a candidate
+    // lands before pool lane i only if its distance is strictly smaller
+    for (int i = threadIdx.x; i < P; i += blockDim.x) {
+      const int r = i + count_below(cand, K, keys[i]);
+      if (r < P) {
+        oi[r] = pi[i];
+        od[r] = pd[i];
+        if (of) of[r] = pf ? pf[i] : 0;
+      }
+    }
+    for (int j = threadIdx.x; j < K; j += blockDim.x) {
+      const unsigned long long key = cand[j];
+      const int r = j + count_below(keys, P, key);
+      if (r < P) {
+        const int c = static_cast<int>(key & 0xffffffffull) - P;
+        oi[r] = ci[c];
+        od[r] = cd[c];
+        if (of) of[r] = 0;
+      }
+    }
+    return;
+  }
+
+  // unsorted pool: the full network over n_pad lanes (P + K <= n_pad, so
+  // every lane past n_pad is padding)
+  for (int i = P + k_pad + threadIdx.x; i < n_pad; i += blockDim.x)
+    keys[i] = kPadKey | static_cast<uint32_t>(i);
+  __syncthreads();
+  bitonic_sort<false>(keys, n_pad, threadIdx.x, blockDim.x);
   for (int t = threadIdx.x; t < P; t += blockDim.x) {
     const int pos = static_cast<int>(keys[t] & 0xffffffffull);
     if (pos < P) {
       oi[t] = pi[pos];
       od[t] = pd[pos];
-      if (out_flags) out_flags[row * P + t] = pool_flags ? pool_flags[row * P + pos] : 0;
+      if (of) of[t] = pf ? pf[pos] : 0;
     } else {
       oi[t] = ci[pos - P];
       od[t] = cd[pos - P];
-      if (out_flags) out_flags[row * P + t] = 0;
+      if (of) of[t] = 0;
     }
   }
 }
@@ -335,13 +408,18 @@ int gather_score_local_launch(const void* rows, int row_type, const float* meta,
 
 // pool (B, P) ids/dists/flags (flags nullable), cand (B, K) ids/dists;
 // out (B, P) ids/dists/flags (flags nullable). n_pad: power of two >= P + K.
+// Shared memory: max(n_pad, P + k_pad) 8-byte keys, k_pad the power of two
+// >= K (the wrapper checks that against MAX_MERGE_PAD).
 int beam_merge_launch(const int* pool_ids, const float* pool_dists,
                       const uint8_t* pool_flags, const int* cand_ids,
                       const float* cand_dists, int* out_ids, float* out_dists,
                       uint8_t* out_flags, int B, int P, int K, int n_pad,
                       void* stream) {
   if (B == 0 || P == 0) return 0;
-  const size_t smem = static_cast<size_t>(n_pad) * sizeof(unsigned long long);
+  int k_pad = 1;
+  while (k_pad < K) k_pad <<= 1;
+  const int lanes = n_pad > P + k_pad ? n_pad : P + k_pad;
+  const size_t smem = static_cast<size_t>(lanes) * sizeof(unsigned long long);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         beam_merge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -353,7 +431,7 @@ int beam_merge_launch(const int* pool_ids, const float* pool_dists,
   if (threads > 512) threads = 512;
   beam_merge_kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       pool_ids, pool_dists, pool_flags, cand_ids, cand_dists, out_ids, out_dists,
-      out_flags, P, K, n_pad);
+      out_flags, P, K, k_pad, n_pad);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,14 +1,21 @@
 """Attention forward (prefill) and single-token decode kernels.
 
-Two hand-written Hopper kernels (``csrc/flash_attention.cu``, CUDA C++ for
-``sm_90a``), each with its plain PyTorch version beside it:
+Hand-written Hopper kernels (CUDA C++ for ``sm_90a``), each with its plain
+PyTorch version beside it:
 
 * :func:`flash_attention` replaces the Pallas ``repro.kernels.
   flash_attention.flash_attention``: tiled online-softmax attention, causal
   or not, with the queries at the end of the KV window (bottom-right causal
   alignment) and dv ≠ dh allowed. Bound by operations (2·(dh+dv) per valid
-  query-key pair). One block per 64-query tile, 64-key K/V tiles staged in
-  shared memory as f32, f32 SIMT arithmetic.
+  query-key pair). Two routes, chosen by :func:`_attention_route` from the
+  dtype and head dims alone:
+
+  - ``"wgmma"`` (``csrc/flash_attention_wgmma.cu``), bf16/f16 with dh and
+    dv multiples of 8: both products on the tensor cores (``wgmma``), f32
+    accumulation, 128-query tiles taken most work first (the last tile
+    first when causal);
+  - ``"simt"`` (``csrc/flash_attention.cu``), f32 and every other 16-bit
+    shape: register-blocked f32 SIMT arithmetic.
 * :func:`flash_decode` replaces the Pallas ``flash_decode``: one query token
   per (batch, head) against a KV cache with a valid length per batch row.
   Bound by the bytes of the valid K/V prefix. One block per (batch, head),
@@ -39,8 +46,10 @@ NEG_INF = -1e30
 MAX_HEAD_DIM = 256
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
-#: kernel launches since the last :func:`reset_launches`, by kernel name
-launches = {"flash_attention": 0, "flash_decode": 0}
+#: kernel launches since the last :func:`reset_launches`, by kernel name;
+#: each route of :func:`flash_attention` counts under its own
+launches = {"flash_attention_wgmma": 0, "flash_attention_simt": 0,
+            "flash_decode": 0}
 
 
 def reset_launches() -> None:
@@ -54,12 +63,25 @@ def _lib():
     lib = _build.load("flash_attention")
     if not getattr(lib, "_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_attention_launch.argtypes = [p, p, p, p, i, i, i, i, i, i, f,
-                                               i, p]
-        lib.flash_attention_launch.restype = i
+        lib.flash_attention_simt_launch.argtypes = [p, p, p, p, i, i, i, i, i,
+                                                    i, f, i, p]
+        lib.flash_attention_simt_launch.restype = i
         lib.flash_decode_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, f,
                                             p]
         lib.flash_decode_launch.restype = i
+        lib._typed = True
+    return lib
+
+
+def _wgmma_lib():
+    from repro_torch.kernels import _build
+
+    lib = _build.load("flash_attention_wgmma")
+    if not getattr(lib, "_typed", False):
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.flash_attention_wgmma_launch.argtypes = [p, p, p, p, i, i, i, i, i,
+                                                     i, f, i, p]
+        lib.flash_attention_wgmma_launch.restype = i
         lib._typed = True
     return lib
 
@@ -91,6 +113,17 @@ def _weights(s: torch.Tensor, valid: torch.Tensor):
 # --------------------------------------------------------------------------
 # attention forward
 # --------------------------------------------------------------------------
+def _attention_route(dtype: torch.dtype, dh: int, dv: int) -> str:
+    """Which kernel runs a CUDA call: ``"wgmma"`` (tensor cores) for bf16 or
+    f16 with dh and dv multiples of 8 in [8, 256] (a row of 16-bit elements
+    is then a multiple of 16 bytes, the copy engine's stride rule), else
+    ``"simt"``."""
+    if dtype in (torch.bfloat16, torch.float16) and all(
+            0 < d <= MAX_HEAD_DIM and d % 8 == 0 for d in (dh, dv)):
+        return "wgmma"
+    return "simt"
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True,
                           sm_scale: float | None = None) -> torch.Tensor:
@@ -127,13 +160,24 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, sm_scale=scale)
     out = torch.empty((b, h, sq, dv), dtype=q.dtype, device=q.device)
+    route = _attention_route(q.dtype, dh, dv)
     with torch.cuda.device(q.device):
-        err = _lib().flash_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPE[q.dtype], b * h, sq, skv, dh, dv, scale, int(causal),
-            torch.cuda.current_stream(q.device).cuda_stream)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if route == "wgmma":
+            if any(t.data_ptr() % 16 for t in (q, k, v, out)):
+                raise ValueError("flash_attention: the tensor-core route needs "
+                                 "16-byte aligned q, k, v")
+            err = _wgmma_lib().flash_attention_wgmma_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                _DTYPE[q.dtype], b * h, sq, skv, dh, dv, scale, int(causal),
+                stream)
+        else:
+            err = _lib().flash_attention_simt_launch(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                _DTYPE[q.dtype], b * h, sq, skv, dh, dv, scale, int(causal),
+                stream)
     _raise_on("flash_attention", err)
-    launches["flash_attention"] += 1
+    launches[f"flash_attention_{route}"] += 1
     return out
 
 

@@ -16,9 +16,12 @@ Three hand-written Hopper kernels (``csrc/l2_topk.cu``, CUDA C++ for
   equal it bit for bit; foreign and padding lanes give 0.0 and load no row.
   Bound by the owned lanes' rows.
 * :func:`beam_merge_topk` / :func:`merge_pool_batch` replace the Pallas
-  ``beam_merge_topk``: per row a bitonic sort of (pool ‖ candidates) on the
-  key (distance, input position) in shared memory — stable, so it equals
-  ``ref.merge_pool_batch_ref`` exactly. Bound by the row's bytes.
+  ``beam_merge_topk``: per row the best P of (pool ‖ candidates) on the key
+  (distance, input position) in shared memory — stable, so it equals
+  ``ref.merge_pool_batch_ref`` exactly. A sorted pool (every pool the
+  engine hands in) is merged with the sorted candidates by rank; any other
+  pool runs a full bitonic sort, chosen inside the kernel from the data.
+  Bound by the row's bytes.
 
 Dispatch is by device only: a CUDA tensor launches the kernel (or raises),
 a CPU tensor runs the plain version. Each launch adds one to
@@ -38,7 +41,7 @@ _METRIC_CODE = {"l2": 0, "sqeuclidean": 1, "ip": 2, "cosine": 3}
 _ROW_TYPE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
              torch.int8: 3, torch.float8_e4m3fn: 4, torch.float8_e5m2: 5}
 
-#: largest merge network: 8-byte keys in dynamic shared memory (128 KB)
+#: most merge lanes: 8-byte keys in dynamic shared memory (128 KB)
 MAX_MERGE_PAD = 16384
 #: largest query staged in shared memory without opting in (48 KB of f32)
 MAX_GATHER_DIM = 12288
@@ -53,7 +56,13 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
+_typed_lib = None
+
+
 def _lib():
+    global _typed_lib
+    if _typed_lib is not None:
+        return _typed_lib
     from repro_torch.kernels import _build
 
     lib = _build.load("l2_topk")
@@ -69,7 +78,13 @@ def _lib():
                                           p]
         lib.beam_merge_launch.restype = i
         lib._typed = True
+    _typed_lib = lib
     return lib
+
+
+def _stream(t: torch.Tensor) -> int:
+    """The raw handle of the current stream on ``t``'s card."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def _check_layout(name: str, *tensors: torch.Tensor) -> None:
@@ -204,7 +219,7 @@ def gather_score(rows: torch.Tensor, queries: torch.Tensor, ids: torch.Tensor,
         meta.shape[1] if meta is not None else 0, int(matmul),
         queries.data_ptr(), ids.data_ptr(), out.data_ptr(), b, k,
         rows.shape[0], dim, _METRIC_CODE[metric], vec,
-        torch.cuda.current_stream(rows.device).cuda_stream)
+        _stream(rows))
     _raise_on("gather_score", err)
     launches["gather_score"] += 1
     return out
@@ -261,15 +276,21 @@ def gather_score_local(rows: torch.Tensor, queries: torch.Tensor,
             meta.shape[1] if meta is not None else 0, int(matmul),
             queries.data_ptr(), ids.data_ptr(), out.data_ptr(), b, k,
             rows.shape[0], offset, dim, _METRIC_CODE[metric], vec,
-            torch.cuda.current_stream(rows.device).cuda_stream)
+            _stream(rows))
     _raise_on("gather_score_local", err)
     launches["gather_score_local"] += 1
     return out
 
 
 # --------------------------------------------------------------------------
-# stable bitonic pool merge
+# stable pool merge
 # --------------------------------------------------------------------------
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    if x.dtype == torch.float32 and x.is_contiguous():
+        return x
+    return x.float().contiguous()
+
+
 def _merge(pool_ids, pool_dists, flags, cand_ids, cand_dists):
     """Dispatch: the kernel on CUDA, the plain version (the stable oracle of
     ``ref``) on CPU. Both sort an f32 copy of the distances and hand them back
@@ -288,11 +309,16 @@ def _merge(pool_ids, pool_dists, flags, cand_ids, cand_dists):
     if pool_ids.dtype != torch.int32 or cand_ids.dtype != torch.int32:
         raise ValueError("beam_merge_topk: ids must be int32")
     n_pad = 1 << max(p + k - 1, 0).bit_length()
-    if n_pad > MAX_MERGE_PAD:
-        raise ValueError(f"beam_merge_topk: network of {n_pad} lanes exceeds "
+    # the kernel's keys: the full network, or the pool beside the
+    # candidates padded to a power of two, whichever is more
+    lanes = max(n_pad, p + (1 << max(k - 1, 0).bit_length()))
+    if lanes > MAX_MERGE_PAD:
+        raise ValueError(f"beam_merge_topk: {lanes} merge lanes exceed "
                          f"the shared-memory limit ({MAX_MERGE_PAD})")
-    pd = pool_dists.float().contiguous()
-    cd = cand_dists.float().contiguous()
+    # the host's work per call is most of the call's time at the engine's
+    # shapes: no conversion, copy or allocation that is not needed
+    pd = _f32(pool_dists)
+    cd = _f32(cand_dists)
     if flags is not None:
         if flags.dtype != torch.bool or flags.shape != (b, p):
             raise ValueError("beam_merge_topk: flags must be (B, P) bool")
@@ -308,18 +334,18 @@ def _merge(pool_ids, pool_dists, flags, cand_ids, cand_dists):
         return oi, od.to(dtype), of
     if pool_ids.device.type != "cuda":
         raise ValueError(f"beam_merge_topk: unsupported device {pool_ids.device}")
-    oi = torch.empty((b, p), dtype=torch.int32, device=pool_ids.device)
-    od = torch.empty((b, p), dtype=torch.float32, device=pool_ids.device)
+    oi = torch.empty_like(pool_ids)
+    od = torch.empty_like(pd)
     of = None if flags is None else torch.empty_like(flags)
     err = _lib().beam_merge_launch(
         pool_ids.data_ptr(), pd.data_ptr(),
         flags.data_ptr() if flags is not None else None,
         cand_ids.data_ptr(), cd.data_ptr(), oi.data_ptr(), od.data_ptr(),
         of.data_ptr() if of is not None else None, b, p, k, n_pad,
-        torch.cuda.current_stream(pool_ids.device).cuda_stream)
+        _stream(pool_ids))
     _raise_on("beam_merge_topk", err)
     launches["beam_merge_topk"] += 1
-    return oi, od.to(dtype), of
+    return oi, (od if dtype == torch.float32 else od.to(dtype)), of
 
 
 def beam_merge_topk(beam_ids, beam_dists, cand_ids, cand_dists):

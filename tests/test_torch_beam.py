@@ -135,3 +135,61 @@ def test_bitmap_scatter_or_ignores_padding_lanes():
     mark = torch.tensor([[False, True, False, True]])
     out = tbeam._scored_scatter(bitmap, ids, mark)
     assert out.tolist() == [[True, False, False, True] + [False] * 4]
+
+
+def _sorted_by_kernel_key(d):
+    """Non-decreasing in the merge kernel's key order: -0.0 and +0.0 equal,
+    NaN after +inf."""
+    a, b = d[:, :-1], d[:, 1:]
+    return bool((torch.isnan(b) | (~torch.isnan(a) & (a <= b))).all())
+
+
+def _spy_commits(monkeypatch):
+    pools = []
+    commit = tbeam.commit_scores
+
+    def spy(state, safe, keep, dists):
+        out = commit(state, safe, keep, dists)
+        pools.append(out.pool_dists.clone())
+        return out
+
+    monkeypatch.setattr(tbeam, "commit_scores", spy)
+    return pools
+
+
+@pytest.mark.parametrize("expand_width", [1, 2])
+@pytest.mark.parametrize("dedup", ["bitmap", "sorted"])
+def test_every_committed_pool_is_sorted(monkeypatch, dedup, expand_width):
+    """The fast path of the merge kernel takes a pool whose keys are
+    non-decreasing: every pool the engine commits is, from the all-+inf
+    start on, for both dedup backends."""
+    pools = _spy_commits(monkeypatch)
+    n = 130
+    adj, emb, qs = _random_graph(seed=3, n=n)
+    entries = np.broadcast_to(np.array([0, n // 2, n - 1], np.int32), (5, 3))
+    _torch_search(adj, emb, qs, entries, n_points=n, beam_width=8,
+                  pool_size=16, quota=40, expand_width=expand_width,
+                  max_steps=200, dedup=dedup)
+    assert len(pools) > 2
+    assert all(_sorted_by_kernel_key(p) for p in pools)
+
+
+def test_every_committed_pool_is_sorted_sharded(monkeypatch):
+    """The same at shards=2 (pools replicated, the merge on the first
+    device)."""
+    from repro_torch.distributed import sharding
+
+    pools = _spy_commits(monkeypatch)
+    n = 97
+    adj, emb, qs = _random_graph(seed=4, n=n)
+    entries = np.zeros((5, 2), np.int32)
+    entries[:, 1] = n - 1
+    for dedup in ("bitmap", "sorted"):
+        tbeam.sharded_greedy_search(
+            torch.from_numpy(emb), torch.from_numpy(adj), torch.from_numpy(qs),
+            torch.from_numpy(entries), shards=2, metric="l2",
+            mesh=sharding.search_mesh(2, devices=["cpu"] * 2), beam_width=6,
+            pool_size=12, quota=30, dedup=dedup, device="cpu")
+    assert len(pools) > 4
+    assert all(_sorted_by_kernel_key(p) for p in pools)
+

@@ -11,7 +11,8 @@ import torch
 
 from repro_torch.core import beam, distances
 from repro_torch.distributed import sharding
-from repro_torch.kernels import backend, embedding_bag, flash_attention, l2_topk, ops
+from repro_torch.kernels import (backend, embedding_bag, flash_attention,
+                                 l2_topk, ops, ref)
 
 METRICS = ["l2", "sqeuclidean", "ip", "cosine"]
 # kernel vs plain: the JAX kernel tests' tolerances (2e-5 f32, 2e-2 bf16,
@@ -103,6 +104,56 @@ def test_merge_kernel_vs_plain(dev, shape):
     half = ops.merge_pool_batch(pi.to(dev), pd.to(dev).half(), pf.to(dev),
                                 ci.to(dev), cd.to(dev).half())
     assert half[1].dtype == torch.float16
+
+
+def _bit_equal(a, b):
+    """torch.equal, with f32 compared bit for bit (NaN equals its own copy,
+    -0.0 differs from +0.0)."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def _merge_rows(seed, b, p, k, order):
+    """A (B, P) pool and (B, K) wave: ``sorted`` as the engine hands it in,
+    ``unsorted`` (a shuffled pool), or ``zeros_nan`` (signed zeros and NaN in
+    both runs, the pool still sorted in the kernel's key order)."""
+    g = torch.Generator().manual_seed(seed)
+    pi = torch.randint(0, 10_000, (b, p), generator=g, dtype=torch.int32)
+    pd = torch.sort(torch.randint(0, 30, (b, p), generator=g).float(), 1).values
+    pf = torch.rand(b, p, generator=g) < 0.5
+    ci = torch.randint(0, 10_000, (b, k), generator=g, dtype=torch.int32)
+    cd = torch.randint(0, 30, (b, k), generator=g).float()
+    if order == "unsorted":
+        perm = torch.argsort(torch.rand(b, p, generator=g), 1)
+        pi, pd, pf = pi.gather(1, perm), pd.gather(1, perm), pf.gather(1, perm)
+    elif order == "zeros_nan":
+        pd[:, : p // 2] = -0.0
+        pd[:, p // 2: p // 2 + 1] = 0.0
+        pd[:, -1] = float("nan")
+        cd[:, ::2] = 0.0
+        cd[:, 1::3] = -0.0
+        cd[:, ::5] = float("nan")
+    return pi, pd, pf, ci, cd
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["sorted", "unsorted", "zeros_nan"])
+@pytest.mark.parametrize("p,k", [(100, 37), (20, 77), (1, 1), (300, 212),
+                                 (1000, 64)])
+def test_merge_kernel_edge_rows(dev, p, k, order):
+    """K > P, P + K no power of two, one lane, an unsorted pool (the full
+    network) and NaN / signed zeros: torch.equal to the stable oracle."""
+    rows = _merge_rows(p * 7 + k, 4, p, k, order)
+    want = ref.merge_pool_batch_ref(*rows)
+    got = ops.merge_pool_batch(*(a.to(dev) for a in rows))
+    for w, x in zip(want, got):
+        assert _bit_equal(x.cpu(), w)
+    pi, pd, _, ci, cd = rows
+    want = ref.beam_merge_topk_ref(pi, pd, ci, cd)
+    got = ops.beam_merge_topk(pi.to(dev), pd.to(dev), ci.to(dev), cd.to(dev))
+    for w, x in zip(want, got):
+        assert _bit_equal(x.cpu(), w)
 
 
 @pytest.mark.cuda
@@ -255,6 +306,25 @@ def _randn(g, *shape, dtype=torch.float32):
     (1, 2, 70, 70, 192, 128, True, torch.bfloat16),    # MLA widths
     (2, 1, 100, 37, 64, 64, True, torch.float32),      # Sq > Skv: 63 empty rows
     (1, 2, 50, 80, 256, 256, False, torch.float16),    # widest head
+    # the tensor-core route's edges: lengths no multiple of 64 or 128,
+    # Sq > Skv causal, non-causal, 192/128, 256, a head padded from 24, the
+    # smoke configs' 16 and 8; and a 16-bit head of 20 (the SIMT route)
+    (2, 3, 70, 70, 128, 128, True, torch.bfloat16),
+    (2, 3, 70, 70, 128, 128, True, torch.float16),
+    (2, 1, 100, 37, 128, 128, True, torch.bfloat16),
+    (2, 1, 300, 37, 64, 64, True, torch.float16),
+    (1, 2, 100, 37, 64, 64, False, torch.bfloat16),
+    (1, 2, 200, 333, 128, 128, False, torch.float16),
+    (1, 2, 300, 300, 192, 128, True, torch.float16),
+    (1, 2, 300, 300, 256, 256, True, torch.bfloat16),
+    (2, 2, 257, 257, 24, 24, True, torch.bfloat16),
+    (1, 2, 130, 130, 16, 16, True, torch.bfloat16),
+    (1, 2, 77, 77, 8, 8, True, torch.float16),
+    (1, 2, 70, 70, 20, 20, True, torch.bfloat16),
+    # more (head, query tile) items than SMs, so blocks walk several: every
+    # item is computed once, in the kernel's own order, causal and not
+    (4, 8, 600, 400, 64, 64, False, torch.bfloat16),
+    (4, 8, 600, 400, 64, 64, True, torch.float16),
 ])
 def test_flash_attention_kernel_vs_plain(dev, b, h, sq, skv, dh, dv, causal,
                                          dtype):
@@ -262,15 +332,32 @@ def test_flash_attention_kernel_vs_plain(dev, b, h, sq, skv, dh, dv, causal,
     q, k, v = (_randn(g, *s, dtype=dtype) for s in
                ((b, h, sq, dh), (b, h, skv, dh), (b, h, skv, dv)))
     want = flash_attention.flash_attention_plain(q, k, v, causal=causal)
-    before = flash_attention.launches["flash_attention"]
+    route = f"flash_attention_{flash_attention._attention_route(dtype, dh, dv)}"
+    before = flash_attention.launches[route]
     got = ops.flash_attention(q.to(dev), k.to(dev), v.to(dev), causal=causal)
-    assert flash_attention.launches["flash_attention"] == before + 1
+    assert flash_attention.launches[route] == before + 1
     assert got.dtype == dtype and got.shape == (b, h, sq, dv)
     tol = ATTN_TOL[dtype]
     torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol,
                                atol=tol)
     if causal and sq > skv:
         assert (got[:, :, : sq - skv] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bf16_at_full_precision(dev, causal):
+    """Rows with few keys (the start of a causal window) weigh a handful of
+    values: bf16 P would cost several output ulps there. The tensor-core
+    route carries P as hi + lo and is held at the smoke's full-width limit
+    (atol 1e-3, rtol 1e-2)."""
+    g = torch.Generator().manual_seed(5)
+    q, k, v = (_randn(g, 1, 4, 640, 128, dtype=torch.bfloat16)
+               for _ in range(3))
+    want = flash_attention.flash_attention_plain(q, k, v, causal=causal)
+    got = ops.flash_attention(q.to(dev), k.to(dev), v.to(dev), causal=causal)
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=1e-2,
+                               atol=1e-3)
 
 
 @pytest.mark.cuda
