@@ -11,8 +11,10 @@ Phases (any failure exits nonzero and prints no result line):
 2. each hand-written kernel against its plain PyTorch version on the card, at
    the slice's shapes, with median times (CUDA events), bounds and yardsticks;
    the merge also on rows the engine never makes (unsorted pool, NaN, signed
-   zeros, K > P), bit for bit, and its device time alone by CUDA-graph
-   replay beside the eager times;
+   zeros, K > P), bit for bit; beside the eager times (``ms``), the device's
+   time alone by CUDA-graph replay (``device_ms``): for the gathers over a
+   rotation of id sets whose rows exceed the L2 cache, so they come from
+   HBM as in a search;
 3. cross-check of the whole slice at N=8192 (dims 384/4096): the same graph
    searched on the card and with ``device="cpu"``, and two N=2048 builds
    from one initial graph;
@@ -28,7 +30,8 @@ Phases (any failure exits nonzero and prints no result line):
    ``ops.flash_decode`` and ``ops.embedding_bag``: each against its plain
    version at the JAX sweep shapes and the edge cases, then once at the
    full widths of the configurations it serves (sfr-mistral-7b and
-   bge-micro-like attention layers, decode at a 32k cache, DIN's bag), with
+   bge-micro-like attention layers, decode at a 32k cache at batch 8 and,
+   full, at batch 1, DIN's bag), with
    times beside the bound, the plain version and the library call; the
    16-bit attention rows must launch the tensor-core route, the f32 rows the
    SIMT one.
@@ -42,6 +45,7 @@ from __future__ import annotations
 import argparse
 import itertools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -61,6 +65,7 @@ F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
 
 CROSS_RTOL = 1e-5  # near-tie allowance between the card and the CPU
+L2_BYTES = 50e6  # the H100's L2 cache
 
 # cluster size of the generator's defaults (n=4096, n_clusters=64): kept as
 # N grows, so the D-neighbourhoods stay as local as at the default size
@@ -122,6 +127,24 @@ def time_graph_ms(fn, reps=11, inner=10):
         times.append(s.elapsed_time(e) / inner)
     del graph
     return statistics.median(times)
+
+
+def time_cold_ms(fn, g, dev, n, b, k, set_bytes):
+    """Device time of ``fn(ids)`` (ms, :func:`time_graph_ms`) over a rotation
+    of (b, k) id sets drawn from all n corpus rows, enough sets that more
+    than twice the L2 cache's bytes of rows pass between two uses of one
+    set: each call reads its rows from HBM, as a search's waves do.
+    ``set_bytes`` is the bytes of rows one call reads. The rows a call can
+    read must also exceed the L2 by far: the local gather at dim 384 reads
+    one shard's rows (66 MB at S=4, 1.3x the L2), sets repeat them, and part
+    of its time is L2 reads, so its ``device_ms`` is below a cold one."""
+    count = max(2, math.ceil(2 * L2_BYTES / set_bytes) + 1)
+    sets = [torch.randint(0, n, (b, k), generator=g, device=dev,
+                          dtype=torch.int32) for _ in range(count)]
+    it = itertools.cycle(sets)
+    # a whole number of rotations per replay, so no set follows itself
+    return time_graph_ms(lambda: fn(next(it)),
+                         inner=count * max(1, 10 // count))
 
 
 def bound(nbytes, nops, ops_per_s=F32_OPS_PER_S):
@@ -201,10 +224,16 @@ def check_gather(dev, n, dims, ks, b, timing, rehearse):
             nbytes = tb * tk * dim * 4 + tb * dim * 4 + 2 * tb * tk * 4
             row["bound_ms"], row["bound_by"] = bound(nbytes, 3 * tb * tk * dim)
             if not rehearse:
+                # ms: eager on one id set, as every kernel's ms, so its rows
+                # may come from L2; device_ms: HBM-cold by graph replay
                 row["ms"] = time_ms(lambda: l2_topk.gather_score(
                     corpus, qt, live, metric="l2"))
                 row["plain_ms"] = time_ms(lambda: l2_topk.gather_score_plain(
                     corpus, qt, live, metric="l2"), reps=5, inner=2)
+                row["device_ms"] = time_cold_ms(
+                    lambda ids: l2_topk.gather_score(corpus, qt, ids,
+                                                     metric="l2"),
+                    g, dev, n, tb, tk, tb * tk * dim * 4)
             rows_out.append(row)
             if timed is None and dim == max(dims):
                 timed = row  # the stage-2 wave
@@ -317,8 +346,13 @@ def check_gather_local(dev, n, dims, ks, b, timing, rehearse):
                     cell["plain_ms"] = time_ms(
                         lambda: l2_topk.gather_score_local_plain(
                             blk, qt, live, off, metric="l2"), reps=5, inner=2)
+                    cell["device_ms"] = time_cold_ms(
+                        lambda ids: l2_topk.gather_score_local(
+                            blk, qt, ids, off, metric="l2"),
+                        g, dev, n, tb, tk, owned * dim * 4)
                 per.append(cell)
-            for key in ("owned_lanes", "bound_ms", "ms", "plain_ms"):
+            for key in ("owned_lanes", "bound_ms", "ms", "plain_ms",
+                        "device_ms"):
                 if key in per[0]:
                     row[key] = statistics.fmean(c[key] for c in per)
             row["bound_by"] = per[0]["bound_by"]
@@ -841,6 +875,18 @@ DECODE_CHECKS = [
     (3, 2, 1000, 128, 128, BF16, (0, 1, 1000)),
     (3, 2, 333, 192, 128, BF16, (0, 1, 333)),
 ]
+# the split-KV grid's edges (B, H, S, dh, dv, dtype): each row of a case
+# takes one of the lengths 0, 1, chunk - 1, chunk, chunk + 1, S and past S
+# (decode_split's chunk for S and B*H); S below one chunk and S no multiple
+# of it, B*H = 1 and B*H past 132, 1024-key chunks (B*H = 256, S = 8193), the
+# vector path (rows of 16-byte multiples: 24/40 too) and the scalar one
+# (18/30)
+DECODE_EDGES = [
+    (7, 2, 1000, 128, 128, BF16), (7, 2, 1000, 24, 40, F16),
+    (7, 2, 1000, 18, 30, F32), (7, 2, 1000, 192, 128, F32),
+    (2, 1, 40, 64, 64, BF16), (1, 1, 777, 128, 128, F32),
+    (8, 20, 700, 64, 64, BF16), (8, 32, 8193, 16, 16, F16),
+]
 BAG_CHECKS = [(200, 32, 8, 10), (64, 128, 4, 5), (1000, 16, 16, 30)]  # V, D, B, L
 
 
@@ -921,6 +967,26 @@ def check_off_path(dev, big_v):
             got, want, ATTN_TOL[dt], what))
         if lens is not None:
             require(bool((got[0] == 0).all()), f"{what}: length 0 is not 0")
+    for b, h, s, dh, dv, dt in DECODE_EDGES:
+        q, k, v = _decode_inputs(g, dev, b, h, s, dh, dv, dt)
+        c = fa.decode_split(s, b * h)[0]
+        edges = [0, 1, c - 1, c, c + 1, s, s + 7]
+        lens = [edges[(i + 6) % len(edges)] for i in range(b)]
+        what = f"flash_decode edge {(b, h, s, dh, dv, dt)} chunk {c}"
+        outs = []
+        for length in (torch.tensor(lens, device=dev, dtype=torch.int32),
+                       c + 1):
+            before = fa.launches["flash_decode"]
+            outs.append(ops.flash_decode(q, k, v, length=length))
+            require(dev.type != "cuda"
+                    or fa.launches["flash_decode"] == before + 1,
+                    f"{what}: not one launch per call")
+            want = fa.flash_decode_plain(q, k, v, length=length)
+            errs["flash_decode"] = max(errs["flash_decode"], _agree(
+                outs[-1], want, ATTN_TOL[dt], f"{what} length {length}"))
+        empty = torch.tensor(lens, device=dev) == 0
+        require(bool((outs[0][empty] == 0).all()),
+                f"{what} lens {lens}: length 0 is not 0")
     bags = [(v, d, b, l, torch.randint(-1, v, (b, l), generator=g, device=dev,
                                        dtype=torch.int32))
             for v, d, b, l in BAG_CHECKS]
@@ -967,26 +1033,32 @@ def off_path(dev, sizes, rehearse):
                 q, k, v, is_causal=True),
             library_name="F.scaled_dot_product_attention(is_causal=True)",
             tol=MAIN_TOL[dt]))
-    role, b, h, s, d, dt = sizes["decode"]
-    q, k, v = _decode_inputs(g, dev, b, h, s, d, d, dt)
-    length = torch.randint(1, s + 1, (b,), generator=g, device=dev,
-                           dtype=torch.int32)
-    valid = int(length.sum())
-    item = q.element_size()
-    mask = (torch.arange(s, device=dev)[None, :] < length[:, None])[:, None,
-                                                                    None]
-    kt, vt = k.transpose(1, 2), v.transpose(1, 2)
-    cases.append(dict(
-        kernel="flash_decode", role=role, shape=dict(
-            B=b, H=h, S=s, dh=d, dv=d, dtype=str(dt), valid_keys=valid),
-        bound=bound(item * (valid * h * 2 * d + 2 * b * h * d) + 4 * b,
-                    2 * 2 * d * h * valid, _ops_rate(dt)),
-        run=lambda: ops.flash_decode(q, k, v, length=length),
-        plain=lambda: fa.flash_decode_plain(q, k, v, length=length),
-        library=lambda: F.scaled_dot_product_attention(
-            q[:, :, None], kt, vt, attn_mask=mask)[:, :, 0],
-        library_name="F.scaled_dot_product_attention, (B, 1, 1, S) bool mask",
-        tol=MAIN_TOL[dt]))
+    for role, b, h, s, d, dt, full in sizes["decode"]:
+        q, k, v = _decode_inputs(g, dev, b, h, s, d, d, dt)
+        length = (torch.full((b,), s, device=dev, dtype=torch.int32) if full
+                  else torch.randint(1, s + 1, (b,), generator=g, device=dev,
+                                     dtype=torch.int32))
+        valid = int(length.sum())
+        item = q.element_size()
+        mask = (torch.arange(s, device=dev)[None, :] < length[:, None])[
+            :, None, None]
+        kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+        cases.append(dict(
+            kernel="flash_decode", role=role, shape=dict(
+                B=b, H=h, S=s, dh=d, dv=d, dtype=str(dt), valid_keys=valid,
+                chunk=fa.decode_split(s, b * h)[0]),
+            bound=bound(item * (valid * h * 2 * d + 2 * b * h * d) + 4 * b,
+                        2 * 2 * d * h * valid, _ops_rate(dt)),
+            run=lambda q=q, k=k, v=v, n=length: ops.flash_decode(
+                q, k, v, length=n),
+            plain=lambda q=q, k=k, v=v, n=length: fa.flash_decode_plain(
+                q, k, v, length=n),
+            library=lambda q=q, kt=kt, vt=vt, mask=mask:
+                F.scaled_dot_product_attention(
+                    q[:, :, None], kt, vt, attn_mask=mask)[:, :, 0],
+            library_name="F.scaled_dot_product_attention, (B, 1, 1, S) bool "
+                         "mask",
+            tol=MAIN_TOL[dt]))
     v_rows, d = sizes["bag_table"]
     table = torch.randn(v_rows, d, generator=g, device=dev)
     for role, b, l in sizes["bag"]:
@@ -1110,7 +1182,9 @@ def main() -> int:
                      fn=800, fq=8,
                      attn=(("sfr-mistral-7b layer, toy", 1, 2, 64, 16, BF16),
                            ("bge-micro-like layer, toy", 4, 2, 32, 16, F32)),
-                     decode=("decode, toy", 2, 2, 128, 16, BF16),
+                     decode=(("decode, toy", 2, 2, 128, 16, BF16, False),
+                             ("decode, toy, full cache", 1, 2, 128, 16, BF16,
+                              True)),
                      bag_table=(4096, 18),
                      bag=(("din train_batch, toy", 256, 100),
                           ("din serve_p99, toy", 16, 100)))
@@ -1127,12 +1201,16 @@ def main() -> int:
                      # phase 6 at the configurations' widths: one attention
                      # layer (causal prefill) of each tower; decode at
                      # decode_32k's cache with batch 128 cut to 8 (one KV head
-                     # per query head: 68.7 GB of KV at 128); DIN's bag
+                     # per query head: 68.7 GB of KV at 128), lengths drawn
+                     # in [1, S], and at batch 1 with the full cache (the
+                     # fewest (b, h) rows); DIN's bag
                      attn=(("prefill, one sfr-mistral-7b layer", 1, 32, 4096,
                             128, BF16),
                            ("one bge-micro-like layer", 256, 6, 512, 64, F32)),
-                     decode=("sfr-mistral-7b at decode_32k, B 128 cut to 8", 8,
-                             32, 32768, 128, BF16),
+                     decode=(("sfr-mistral-7b at decode_32k, B 128 cut to 8",
+                              8, 32, 32768, 128, BF16, False),
+                             ("sfr-mistral-7b at decode_32k, B=1, full cache",
+                              1, 32, 32768, 128, BF16, True)),
                      bag_table=(1 << 20, 18),
                      bag=(("din train_batch", 65536, 100),
                           ("din serve_p99", 512, 100)))
@@ -1190,14 +1268,15 @@ def main() -> int:
              launches=full["launches"]["gather_score"], max_abs_err=g_err,
              ms=g_timed.get("ms"), plain_ms=g_timed.get("plain_ms"),
              bound_ms=g_timed["bound_ms"], bound_by=g_timed["bound_by"],
-             library_ms=None),
+             library_ms=None, device_ms=g_timed.get("device_ms")),
         dict(name="gather_score_local", route="cuda",
              source="src/repro_torch/kernels/csrc/l2_topk.cu",
              replaces="src/repro/kernels/l2_topk.py:256",
              launches=sharded["launches"]["gather_score_local"],
              max_abs_err=l_err, ms=l_timed.get("ms"),
              plain_ms=l_timed.get("plain_ms"), bound_ms=l_timed["bound_ms"],
-             bound_by=l_timed["bound_by"], library_ms=None),
+             bound_by=l_timed["bound_by"], library_ms=None,
+             device_ms=l_timed.get("device_ms")),
         dict(name="beam_merge_topk", route="cuda",
              source="src/repro_torch/kernels/csrc/l2_topk.cu",
              replaces="src/repro/kernels/l2_topk.py:355",

@@ -37,13 +37,29 @@
 //   key s of batch row b is valid iff s < clamp(lens[b], 0, S).
 //   Bound: bytes, the valid prefix of K and V (len * (dh + dv) * itemsize
 //   per (b, h)); two flops per element read.
-//   Design: one block per (b, h), eight warps; warp w takes keys w, w + 8,
-//   ... in order, four keys in flight (K and V rows loaded before use), each
-//   lane holding head-dim elements lane + 32j of q, k, v and its acc. A key's
-//   score is a warp sum; each warp keeps its own online (m, l, acc), and the
-//   eight are combined through shared memory at the end. No split over S
-//   across blocks yet.
+//   Design: split-KV ("flash-decoding"). The grid is (B*H, n_split): B*H on
+//   x, whose limit is 2^31 - 1, the splits on y. The wrapper picks the
+//   chunk of keys per block from S and B*H alone (flash_attention.
+//   decode_split: 1024 keys, halved down to 64 until the grid has ~1024
+//   blocks), never from the lengths, which stay on the card. A block whose
+//   chunk starts at or past its row's length returns at once. In a block,
+//   groups of G lanes take one key each: on the vector path (rows of dh and
+//   dv a multiple of 16 bytes, k and v 16-byte aligned) each lane loads
+//   16-byte pieces, so a bf16 row of 128 is one half-warp load; any other
+//   head width loads one element a lane over a whole warp. Each group keeps
+//   four keys' K and V rows in flight: plain unrolled loads, issued before
+//   any is used (a cp.async ring would add shared-memory traffic and
+//   barriers for no more bytes in flight). At ~64 registers a thread eight
+//   blocks of 128 threads fit an SM: 8 x 8 groups x 4 keys x 512 B = 128 KB
+//   in flight for bf16 heads of 128, several times the ~25 KB that HBM's
+//   latency needs. A group reduces each score over its G lanes and keeps
+//   its own online (m, l, acc), rescaled once per four keys. The block
+//   merges its groups in shared memory and writes the split's (m, l,
+//   acc[dv]) in f32 to a workspace; a second kernel, one block per (b, h),
+//   rescales the live splits' partials by exp(m_i - max m) and divides by
+//   max(l, 1e-30).
 
+#include <cstring>
 #include <stdint.h>
 
 #include "common.cuh"
@@ -297,110 +313,283 @@ cudaError_t launch_attention_dv(const void* q, const void* k, const void* v, voi
 }
 
 // --------------------------------------------------------------------------
-// flash_decode
+// flash_decode: a split-KV pass, then a combine
 // --------------------------------------------------------------------------
-constexpr int kDecodeWarps = 8;
-constexpr int kDecodeUnroll = 4;  // keys in flight per warp
+constexpr int kDecodeWarps = 4;
+constexpr int kDecodeUnroll = 4;  // keys in flight per lane group
+constexpr int kCombineThreads = 128;
+constexpr int kMaxSplits = 4096;  // the combine keeps a weight per split in shared memory
 
-template <typename T, int NJ>
-__global__ void __launch_bounds__(kDecodeWarps * 32)
-flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const int* __restrict__ lens,
-                    T* __restrict__ out, int H, int S, int dh, int dv, float scale) {
-  __shared__ float m_s[kDecodeWarps], l_s[kDecodeWarps];
-  __shared__ float acc_s[kDecodeWarps][kMaxHeadDim];
-  const size_t bh = blockIdx.x;
-  const size_t b = bh / H, h = bh - b * H;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int len = min(max(lens[b], 0), S);
-  // key s of this (b, h) sits at kb + s * ks: keys are H heads apart
-  const size_t ks = static_cast<size_t>(H) * dh, vs = static_cast<size_t>(H) * dv;
-  const T* kb = k + (b * S * H + h) * dh;
-  const T* vb = v + (b * S * H + h) * dv;
+struct DecodeArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  const int* lens;  // (B,)
+  void* out;
+  float* part_acc;  // (B*H, n_split, dv) f32
+  float* part_ml;   // (B*H, n_split, 2) f32: the split's (m, l)
+  int H, S, dh, dv, chunk, n_split;
+  float scale;
+};
 
-  float qr[NJ], acc[NJ];
+__device__ __forceinline__ int decode_len(const DecodeArgs& a, size_t b) {
+  return min(max(a.lens[b], 0), a.S);
+}
+
+// What a lane loads of a key row at a time: 16 bytes (PER elements) on the
+// vector path, one element on the scalar path.
+template <typename T, bool VEC>
+struct Piece {
+  using type = uint4;
+  static constexpr int per = 16 / sizeof(T);
+};
+template <typename T>
+struct Piece<T, false> {
+  using type = T;
+  static constexpr int per = 1;
+};
+
+template <typename C>
+__device__ __forceinline__ C zero_piece() { return zero<C>(); }
+template <>
+__device__ __forceinline__ uint4 zero_piece<uint4>() { return make_uint4(0u, 0u, 0u, 0u); }
+
+template <typename T>
+__device__ __forceinline__ void unpack(const uint4& u, float* f) {
+  T e[16 / sizeof(T)];
+  memcpy(e, &u, sizeof(u));
 #pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    const int d = lane + 32 * j;
-    qr[j] = d < dh ? to_f(q[bh * dh + d]) : 0.f;
-    acc[j] = 0.f;
+  for (int j = 0; j < static_cast<int>(16 / sizeof(T)); ++j) f[j] = to_f(e[j]);
+}
+template <typename T>
+__device__ __forceinline__ void unpack(const T& x, float* f) { f[0] = to_f(x); }
+
+// sum over the G lanes of an aligned lane group
+template <int G>
+__device__ __forceinline__ float group_sum(float v) {
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// Block (bh, split) takes keys [split * chunk, min((split + 1) * chunk, len))
+// of row bh. Each group of G lanes takes one key at a time, kDecodeUnroll
+// keys in flight, and keeps its own online (m, l, acc); the block combines
+// its groups through shared memory and writes the split's partial. A split
+// at or past the row's length returns before it loads anything, and the
+// combine never reads it.
+template <typename T, bool VEC, int G, int N>
+__global__ void __launch_bounds__(kDecodeWarps * 32)
+flash_decode_split_kernel(const DecodeArgs a) {
+  using C = typename Piece<T, VEC>::type;
+  constexpr int PER = Piece<T, VEC>::per;
+  constexpr int GROUPS = kDecodeWarps * 32 / G;
+  constexpr int WIDTH = G * N * PER;  // the widest head this instance takes
+  __shared__ float m_s[GROUPS], l_s[GROUPS];
+  __shared__ float acc_s[GROUPS][WIDTH];
+
+  const size_t bh = blockIdx.x;
+  const int split = blockIdx.y;
+  const size_t b = bh / a.H, h = bh - b * a.H;
+  const int len = decode_len(a, b);
+  const int start = split * a.chunk;
+  if (start >= len) return;
+  const int end = min(start + a.chunk, len);
+  const int group = threadIdx.x / G, g = threadIdx.x % G;
+  const int dh = a.dh, dv = a.dv;
+  const int kpieces = dh / PER, vpieces = dv / PER;
+  // key s of this (b, h) starts s * ks elements past kb: keys are H heads apart
+  const size_t ks = static_cast<size_t>(a.H) * dh, vs = static_cast<size_t>(a.H) * dv;
+  const T* kb = static_cast<const T*>(a.k) + (b * a.S * a.H + h) * dh;
+  const T* vb = static_cast<const T*>(a.v) + (b * a.S * a.H + h) * dv;
+  const T* q = static_cast<const T*>(a.q) + bh * dh;
+
+  // piece n of lane g holds elements (g + G n) * PER + j of q, k, v and acc
+  float qf[N][PER], acc[N][PER];
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int d = (g + G * n) * PER + j;
+      qf[n][j] = d < dh ? to_f(q[d]) : 0.f;
+      acc[n][j] = 0.f;
+    }
   }
   float m = kNegInf, l = 0.f;
-  for (int base = 0; base < len; base += kDecodeWarps * kDecodeUnroll) {
-    // all loads first, in the keys' type; converted when used
-    T kr[kDecodeUnroll][NJ], vr[kDecodeUnroll][NJ];
+  for (int base = start; base < end; base += GROUPS * kDecodeUnroll) {
+    // all loads first, raw; converted when used
+    C kr[kDecodeUnroll][N], vr[kDecodeUnroll][N];
 #pragma unroll
     for (int u = 0; u < kDecodeUnroll; ++u) {
-      const size_t s = base + u * kDecodeWarps + warp;
-      const bool ok = s < static_cast<size_t>(len);
+      const int s = base + u * GROUPS + group;
+      const bool ok = s < end;
+      const C* kp = reinterpret_cast<const C*>(kb + static_cast<size_t>(s) * ks);
+      const C* vp = reinterpret_cast<const C*>(vb + static_cast<size_t>(s) * vs);
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        const int d = lane + 32 * j;
-        kr[u][j] = ok && d < dh ? kb[s * ks + d] : zero<T>();
-        vr[u][j] = ok && d < dv ? vb[s * vs + d] : zero<T>();
+      for (int n = 0; n < N; ++n) {
+        const int c = g + G * n;
+        kr[u][n] = ok && c < kpieces ? __ldg(kp + c) : zero_piece<C>();
+        vr[u][n] = ok && c < vpieces ? __ldg(vp + c) : zero_piece<C>();
       }
     }
+    // scores of the group's keys (masked -1e30), then one rescale for all
+    float sc[kDecodeUnroll];
+    float m_new = m;
 #pragma unroll
     for (int u = 0; u < kDecodeUnroll; ++u) {
-      if (base + u * kDecodeWarps + warp >= len) break;  // warp-uniform
       float dot = 0.f;
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) dot = fmaf(qr[j], to_f(kr[u][j]), dot);
-      const float sc = warp_sum(dot) * scale;
-      const float m_new = fmaxf(m, sc);
-      const float p = expf(sc - m_new);
-      const float corr = expf(m - m_new);
-      l = l * corr + p;
+      for (int n = 0; n < N; ++n) {
+        float kf[PER];
+        unpack<T>(kr[u][n], kf);
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[j] = acc[j] * corr + p * to_f(vr[u][j]);
-      m = m_new;
+        for (int j = 0; j < PER; ++j) dot = fmaf(qf[n][j], kf[j], dot);
+      }
+      dot = group_sum<G>(dot) * a.scale;
+      sc[u] = base + u * GROUPS + group < end ? dot : kNegInf;
+      m_new = fmaxf(m_new, sc[u]);
     }
+    const float corr = expf(m - m_new);
+    l *= corr;
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+#pragma unroll
+      for (int j = 0; j < PER; ++j) acc[n][j] *= corr;
+    }
+#pragma unroll
+    for (int u = 0; u < kDecodeUnroll; ++u) {
+      if (base + u * GROUPS + group >= end) continue;  // uniform over the group
+      const float p = expf(sc[u] - m_new);
+      l += p;
+#pragma unroll
+      for (int n = 0; n < N; ++n) {
+        float vf[PER];
+        unpack<T>(vr[u][n], vf);
+#pragma unroll
+        for (int j = 0; j < PER; ++j) acc[n][j] = fmaf(p, vf[j], acc[n][j]);
+      }
+    }
+    m = m_new;
   }
 
-  if (lane == 0) {
-    m_s[warp] = m;
-    l_s[warp] = l;
+  if (g == 0) {
+    m_s[group] = m;
+    l_s[group] = l;
   }
 #pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    const int d = lane + 32 * j;
-    if (d < dv) acc_s[warp][d] = acc[j];
+  for (int n = 0; n < N; ++n) {
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int d = (g + G * n) * PER + j;
+      if (d < dv) acc_s[group][d] = acc[n][j];
+    }
   }
   __syncthreads();
+  // a group with no key has l = acc = 0 and m = -1e30: weight 0
   float mt = kNegInf;
 #pragma unroll
-  for (int w = 0; w < kDecodeWarps; ++w) mt = fmaxf(mt, m_s[w]);
+  for (int w = 0; w < GROUPS; ++w) mt = fmaxf(mt, m_s[w]);
+  const size_t part = bh * a.n_split + split;
   for (int d = threadIdx.x; d < dv; d += blockDim.x) {
-    float lt = 0.f, at = 0.f;
+    float at = 0.f;
 #pragma unroll
-    for (int w = 0; w < kDecodeWarps; ++w) {
-      const float c = expf(m_s[w] - mt);  // a warp with no key has l = acc = 0
-      lt += l_s[w] * c;
-      at += acc_s[w][d] * c;
-    }
-    store(out + bh * dv + d, at / fmaxf(lt, 1e-30f));
+    for (int w = 0; w < GROUPS; ++w) at = fmaf(acc_s[w][d], expf(m_s[w] - mt), at);
+    a.part_acc[part * dv + d] = at;
+  }
+  if (threadIdx.x == 0) {
+    float lt = 0.f;
+#pragma unroll
+    for (int w = 0; w < GROUPS; ++w) lt = fmaf(l_s[w], expf(m_s[w] - mt), lt);
+    a.part_ml[2 * part] = mt;
+    a.part_ml[2 * part + 1] = lt;
   }
 }
 
-template <typename T, int NJ>
-cudaError_t launch_decode_t(const void* q, const void* k, const void* v, const int* lens,
-                            void* out, int B, int H, int S, int dh, int dv, float scale,
-                            cudaStream_t stream) {
-  flash_decode_kernel<T, NJ><<<B * H, kDecodeWarps * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), lens,
-      static_cast<T*>(out), H, S, dh, dv, scale);
+// max (MAX) or sum of x over the block; every thread gets the result
+template <bool MAX>
+__device__ __forceinline__ float block_reduce(float x, float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float y = __shfl_xor_sync(0xffffffffu, x, off);
+    x = MAX ? fmaxf(x, y) : x + y;
+  }
+  if (lane == 0) red[warp] = x;
+  __syncthreads();
+  x = red[0];
+  for (int w = 1; w < static_cast<int>(blockDim.x >> 5); ++w) x = MAX ? fmaxf(x, red[w]) : x + red[w];
+  __syncthreads();  // red is written again by the next reduction
+  return x;
+}
+
+// One block per (b, h): the live splits' partials (m_i, l_i, acc_i),
+// rescaled by exp(m_i - max m) and summed, over max(l, 1e-30). A row of
+// length 0 has no live split and comes out 0.
+template <typename T>
+__global__ void __launch_bounds__(kCombineThreads)
+flash_decode_combine_kernel(const DecodeArgs a) {
+  extern __shared__ float w_s[];  // exp(m_i - max m) per live split
+  __shared__ float red_s[kCombineThreads / 32];
+  const size_t bh = blockIdx.x;
+  const int len = decode_len(a, bh / a.H);
+  const int n_live = static_cast<int>((static_cast<long long>(len) + a.chunk - 1) / a.chunk);
+  const float* ml = a.part_ml + bh * a.n_split * 2;
+  float mt = kNegInf;
+  for (int i = threadIdx.x; i < n_live; i += blockDim.x) mt = fmaxf(mt, ml[2 * i]);
+  mt = block_reduce<true>(mt, red_s);
+  float lt = 0.f;
+  for (int i = threadIdx.x; i < n_live; i += blockDim.x) {
+    const float c = expf(ml[2 * i] - mt);
+    w_s[i] = c;
+    lt = fmaf(ml[2 * i + 1], c, lt);
+  }
+  lt = block_reduce<false>(lt, red_s);  // its barrier also publishes w_s
+  const float denom = fmaxf(lt, 1e-30f);
+  const float* pa = a.part_acc + bh * a.n_split * a.dv;
+  T* out = static_cast<T*>(a.out) + bh * a.dv;
+  for (int d = threadIdx.x; d < a.dv; d += blockDim.x) {
+    float at = 0.f;
+#pragma unroll 4
+    for (int i = 0; i < n_live; ++i) at = fmaf(w_s[i], pa[static_cast<size_t>(i) * a.dv + d], at);
+    store(out + d, at / denom);
+  }
+}
+
+template <typename T, bool VEC, int G, int N>
+cudaError_t launch_decode_split(const DecodeArgs& a, int BH, cudaStream_t s) {
+  flash_decode_split_kernel<T, VEC, G, N>
+      <<<dim3(BH, a.n_split), kDecodeWarps * 32, 0, s>>>(a);
   return cudaGetLastError();
 }
 
+// The split pass, by head width: on the vector path G lanes of 16 bytes
+// cover the wider row (G = 8, 16 or 32; two pieces a lane for f32 rows past
+// 128), on the scalar path a warp with N elements a lane.
 template <typename T>
-cudaError_t launch_decode_nj(const void* q, const void* k, const void* v, const int* lens,
-                             void* out, int B, int H, int S, int dh, int dv, float scale,
-                             cudaStream_t s) {
-  const int width = dh > dv ? dh : dv;
-  if (width <= 32) return launch_decode_t<T, 1>(q, k, v, lens, out, B, H, S, dh, dv, scale, s);
-  if (width <= 64) return launch_decode_t<T, 2>(q, k, v, lens, out, B, H, S, dh, dv, scale, s);
-  if (width <= 128) return launch_decode_t<T, 4>(q, k, v, lens, out, B, H, S, dh, dv, scale, s);
-  return launch_decode_t<T, 8>(q, k, v, lens, out, B, H, S, dh, dv, scale, s);
+cudaError_t launch_decode_t(const DecodeArgs& a, int BH, bool vec, cudaStream_t s) {
+  if (a.n_split > 0) {
+    cudaError_t e = cudaSuccess;
+    const int width = a.dh > a.dv ? a.dh : a.dv;
+    if (vec) {
+      const int pieces = width * static_cast<int>(sizeof(T)) / 16;
+      if (pieces <= 8) e = launch_decode_split<T, true, 8, 1>(a, BH, s);
+      else if (pieces <= 16) e = launch_decode_split<T, true, 16, 1>(a, BH, s);
+      else if (pieces <= 32) e = launch_decode_split<T, true, 32, 1>(a, BH, s);
+      else if constexpr (sizeof(T) == 4) e = launch_decode_split<T, true, 32, 2>(a, BH, s);
+    } else if (width <= 32) {
+      e = launch_decode_split<T, false, 32, 1>(a, BH, s);
+    } else if (width <= 64) {
+      e = launch_decode_split<T, false, 32, 2>(a, BH, s);
+    } else if (width <= 128) {
+      e = launch_decode_split<T, false, 32, 4>(a, BH, s);
+    } else {
+      e = launch_decode_split<T, false, 32, 8>(a, BH, s);
+    }
+    if (e != cudaSuccess) return e;
+  }
+  flash_decode_combine_kernel<T>
+      <<<BH, kCombineThreads, static_cast<size_t>(a.n_split) * sizeof(float), s>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -435,23 +624,37 @@ int flash_attention_simt_launch(const void* q, const void* k, const void* v, voi
 }
 
 // q (B, H, dh), k (B, S, H, dh), v (B, S, H, dv), out (B, H, dv), all of
-// dtype; lens (B,) i32, clamped to [0, S]; dh, dv <= 256.
+// dtype; dh, dv <= 256. lens (B,) i32, clamped to [0, S]. work:
+// B*H*n_split*(dv + 2) f32 for the splits' partials, n_split =
+// ceil(S / chunk) <= 4096. Key rows load 16
+// bytes at a time when dh and dv rows are multiples of 16 bytes and k, v
+// are 16-byte aligned. Two launches (split pass, combine) on the stream;
+// returns the first error.
 int flash_decode_launch(const void* q, const void* k, const void* v, const int* lens,
-                        void* out, int dtype, int B, int H, int S, int dh, int dv,
-                        float scale, void* stream) {
+                        void* out, float* work, int dtype, int B, int H,
+                        int S, int dh, int dv, int chunk, int n_split, float scale,
+                        void* stream) {
   if (B == 0 || H == 0 || dv == 0) return 0;
-  if (dh > kMaxHeadDim || dv > kMaxHeadDim) return static_cast<int>(cudaErrorInvalidValue);
+  if (dh > kMaxHeadDim || dv > kMaxHeadDim || S < 0 || chunk <= 0 || n_split > kMaxSplits ||
+      n_split != static_cast<int>((static_cast<long long>(S) + chunk - 1) / chunk))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int BH = B * H;
+  const DecodeArgs a{q, k, v, lens, out, work,
+                     work + static_cast<size_t>(BH) * n_split * dv,
+                     H, S, dh, dv, chunk, n_split, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool aligned =
+      (reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16 == 0;
   switch (dtype) {
     case kF32:
-      return static_cast<int>(
-          launch_decode_nj<float>(q, k, v, lens, out, B, H, S, dh, dv, scale, s));
+      return static_cast<int>(launch_decode_t<float>(
+          a, BH, aligned && dh % 4 == 0 && dv % 4 == 0, s));
     case kBF16:
-      return static_cast<int>(
-          launch_decode_nj<__nv_bfloat16>(q, k, v, lens, out, B, H, S, dh, dv, scale, s));
+      return static_cast<int>(launch_decode_t<__nv_bfloat16>(
+          a, BH, aligned && dh % 8 == 0 && dv % 8 == 0, s));
     case kF16:
-      return static_cast<int>(
-          launch_decode_nj<__half>(q, k, v, lens, out, B, H, S, dh, dv, scale, s));
+      return static_cast<int>(launch_decode_t<__half>(
+          a, BH, aligned && dh % 8 == 0 && dv % 8 == 0, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

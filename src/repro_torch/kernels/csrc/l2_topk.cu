@@ -33,6 +33,14 @@
 //   Same forms and row types as gather_score. The 16-byte path is chosen
 //   from (dim, row type) alone, never from the block's address, so every
 //   shard splits its rows across the warp as the unsharded kernel does.
+//   Design: only owned lanes cost work. One block of 32 warps per (query,
+//   chunk of up to 256 of its K lanes) reads the chunk's ids, zeroes the
+//   lanes it does not own in one coalesced store, compacts the owned ones
+//   into shared memory (warp ballots), and leaves at once if it owns none
+//   (__syncthreads_count); otherwise it stages the query once and its
+//   warps run score_row over the owned lanes. At K = 64 and S = 4 that is
+//   B blocks, not 8B, each staging its query once, and every warp that
+//   runs scores a row it owns.
 //
 // beam_merge — replaces repro/kernels/l2_topk.py:beam_merge_topk (Pallas
 //   bodies _merge_kernel, _xor_permute), reached through
@@ -65,7 +73,15 @@
 
 namespace {
 
-constexpr int kWarps = 8;  // lanes (warps) per gather block
+constexpr int kWarps = 8;  // lanes (warps) per gather_score block
+// gather_score_local: K lanes per block, scoring warps per block (twice
+// the owned lanes of a K = 64 wave at S = 4, the sharded search's stage-2
+// wave, so there a warp rarely scores two rows), and the ints of shared
+// memory in front of the staged query (per-warp counts, then the compacted
+// lanes and rows; 544 ints keep the query 16-byte aligned)
+constexpr int kLocalLanes = 256;
+constexpr int kLocalWarps = 32;
+constexpr int kLocalSmemInts = kLocalWarps + 2 * kLocalLanes;
 
 enum Metric { kL2 = 0, kSqEuclidean = 1, kIp = 2, kCosine = 3 };
 enum RowType { kF32 = 0, kBF16 = 1, kF16 = 2, kI8 = 3, kE4M3 = 4, kE5M2 = 5 };
@@ -190,33 +206,65 @@ __global__ void gather_score_kernel(const GatherArgs a) {
 
 // gather_score_local: lane owned iff 0 <= id - offset < n_local. An owned
 // lane scores local row id - offset exactly as gather_score scores global
-// row id; a foreign or padding lane writes 0.0 (the identity of the sum
-// over shards) and loads no row, so the S launches of a wave read each
-// gathered row once in total.
+// row id (score_row); a foreign or padding lane writes +0.0 (the identity
+// of the sum over shards) and loads no row, so the S launches of a wave
+// read each gathered row once in total. Block (chunk c, query b) takes
+// lanes [c * kLocalLanes, ..) of query b (the design: file header).
 template <typename T, bool MM, bool QUANT>
-__global__ void gather_score_local_kernel(const GatherArgs a) {
-  extern __shared__ float q_s[];
-  const long long o = stage_query(a, q_s);
-  if (o < 0) return;
-  const int id = a.ids[o];
-  const int r = id < 0 ? -1 : id - a.offset;  // offset >= 0: no overflow
-  const bool lead = (threadIdx.x & 31) == 0;
-  if (r < 0 || r >= a.n_rows) {
-    if (lead) a.out[o] = 0.f;
-    return;
+__global__ void __launch_bounds__(kLocalWarps * 32)
+gather_score_local_kernel(const GatherArgs a) {
+  extern __shared__ float smem[];
+  int* count_s = reinterpret_cast<int*>(smem);  // owned lanes per warp
+  int* lane_s = count_s + kLocalWarps;          // owned lanes, in lane order
+  int* row_s = lane_s + kLocalLanes;            // and their local rows
+  float* q_s = smem + kLocalSmemInts;
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const size_t o0 = static_cast<size_t>(blockIdx.y) * a.K;
+  const int k = blockIdx.x * kLocalLanes + t;
+  const bool mine = t < kLocalLanes && k < a.K;
+  int r = -1;
+  if (mine) {
+    const int id = a.ids[o0 + k];
+    r = id < 0 ? -1 : id - a.offset;  // offset >= 0: no overflow
   }
-  const float d = score_row<T, MM, QUANT>(a, q_s, r);
-  if (lead) a.out[o] = d;
+  const bool owned = r >= 0 && r < a.n_rows;
+  if (mine && !owned) a.out[o0 + k] = 0.f;
+  const unsigned ballot = __ballot_sync(0xffffffffu, owned);
+  if (lane == 0) count_s[warp] = __popc(ballot);
+  const int n_owned = __syncthreads_count(owned);
+  if (n_owned == 0) return;
+  if (owned) {
+    int slot = __popc(ballot & ((1u << lane) - 1u));
+    for (int w = 0; w < warp; ++w) slot += count_s[w];
+    lane_s[slot] = k;
+    row_s[slot] = r;
+  }
+  const float* qg = a.queries + static_cast<size_t>(blockIdx.y) * a.dim;
+  for (int i = t; i < a.dim; i += blockDim.x) q_s[i] = qg[i];
+  __syncthreads();
+  for (int j = warp; j < n_owned; j += kLocalWarps) {
+    const float d = score_row<T, MM, QUANT>(a, q_s, row_s[j]);
+    if (lane == 0) a.out[o0 + lane_s[j]] = d;
+  }
 }
 
 template <bool LOCAL, typename T, bool MM, bool QUANT>
 cudaError_t launch_gather_t(const GatherArgs& a, cudaStream_t stream) {
-  dim3 grid((a.K + kWarps - 1) / kWarps, a.B);
-  size_t smem = static_cast<size_t>(a.dim) * sizeof(float);
-  if constexpr (LOCAL)
-    gather_score_local_kernel<T, MM, QUANT><<<grid, kWarps * 32, smem, stream>>>(a);
-  else
+  if constexpr (LOCAL) {
+    const dim3 grid((a.K + kLocalLanes - 1) / kLocalLanes, a.B);
+    const size_t smem = (kLocalSmemInts + static_cast<size_t>(a.dim)) * sizeof(float);
+    if (smem > 48 * 1024) {
+      const cudaError_t e = cudaFuncSetAttribute(gather_score_local_kernel<T, MM, QUANT>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 static_cast<int>(smem));
+      if (e != cudaSuccess) return e;
+    }
+    gather_score_local_kernel<T, MM, QUANT><<<grid, kLocalWarps * 32, smem, stream>>>(a);
+  } else {
+    const dim3 grid((a.K + kWarps - 1) / kWarps, a.B);
+    const size_t smem = static_cast<size_t>(a.dim) * sizeof(float);
     gather_score_kernel<T, MM, QUANT><<<grid, kWarps * 32, smem, stream>>>(a);
+  }
   return cudaGetLastError();
 }
 

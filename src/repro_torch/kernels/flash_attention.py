@@ -18,8 +18,10 @@ PyTorch version beside it:
     shape: register-blocked f32 SIMT arithmetic.
 * :func:`flash_decode` replaces the Pallas ``flash_decode``: one query token
   per (batch, head) against a KV cache with a valid length per batch row.
-  Bound by the bytes of the valid K/V prefix. One block per (batch, head),
-  its eight warps streaming keys with their own online softmax.
+  Bound by the bytes of the valid K/V prefix. Split-KV: each block takes a
+  chunk of one row's keys (:func:`decode_split`), 16-byte loads with four
+  keys in flight per lane group, and writes its partial softmax state; a
+  second kernel combines a row's partials.
 
 Both compute the Pallas kernels' function, which differs from the oracles
 ``ref.flash_attention_ref`` / ``ref.flash_decode_ref`` only on a row with no
@@ -38,7 +40,7 @@ import math
 
 import torch
 
-from repro_torch.kernels.l2_topk import _check_layout, _raise_on
+from repro_torch.kernels.l2_topk import _check_layout, _on, _raise_on, _stream
 
 #: the Pallas kernels' mask value: finite, so exp(m_prev - m_new) is never NaN
 NEG_INF = -1e30
@@ -66,8 +68,8 @@ def _lib():
         lib.flash_attention_simt_launch.argtypes = [p, p, p, p, i, i, i, i, i,
                                                     i, f, i, p]
         lib.flash_attention_simt_launch.restype = i
-        lib.flash_decode_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, f,
-                                            p]
+        lib.flash_decode_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
+                                            i, i, i, f, p]
         lib.flash_decode_launch.restype = i
         lib._typed = True
     return lib
@@ -184,6 +186,35 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 # --------------------------------------------------------------------------
 # decode
 # --------------------------------------------------------------------------
+#: keys per split-KV block: at most, and at least
+DECODE_CHUNK_MAX, DECODE_CHUNK_MIN = 1024, 64
+#: blocks a decode launch aims for at least: about one wave of 132 SMs with
+#: eight blocks resident on each (a block has ~64 registers a thread). Past
+#: that, larger chunks pay a block's start-up fewer times (PERF.md)
+DECODE_BLOCKS = 1024
+#: most splits per (batch, head): the combine keeps one f32 weight per split
+#: in shared memory
+DECODE_MAX_SPLITS = 4096
+
+
+def decode_split(s: int, bh: int) -> tuple[int, int]:
+    """(chunk, n_split) of the split-KV decode over S keys and B·H rows.
+
+    The chunk is a power of two, 1024 keys halved down to 64 while the grid
+    of ``bh * n_split`` blocks stays under :data:`DECODE_BLOCKS`, then
+    doubled while there are more than :data:`DECODE_MAX_SPLITS` splits; the
+    splits ``[i * chunk, min((i + 1) * chunk, S))`` cover every key once.
+    It depends on the shapes alone: the lengths live on the card, and
+    reading them would sync the stream in every decode step.
+    """
+    chunk = DECODE_CHUNK_MAX
+    while chunk > DECODE_CHUNK_MIN and bh * -(-s // chunk) < DECODE_BLOCKS:
+        chunk //= 2
+    while -(-s // chunk) > DECODE_MAX_SPLITS:
+        chunk *= 2
+    return chunk, -(-s // chunk)
+
+
 def _lengths(length, b: int, s: int, device: torch.device) -> torch.Tensor:
     """(B,) int32 valid lengths on ``device`` from an int or a (B,) tensor,
     clamped to [0, S]."""
@@ -192,6 +223,18 @@ def _lengths(length, b: int, s: int, device: torch.device) -> torch.Tensor:
                          f"{device}")
     lens = torch.as_tensor(length, device=device).to(torch.int32).reshape(-1)
     return lens.expand(b).clamp(0, s).contiguous()
+
+
+def _kernel_lengths(length, b: int, s: int,
+                    device: torch.device) -> torch.Tensor:
+    """(B,) int32 lengths for the kernels: a contiguous (B,) int32 tensor on
+    ``device`` as it is (the kernels clamp), anything else through
+    :func:`_lengths`."""
+    if (isinstance(length, torch.Tensor) and length.dtype == torch.int32
+            and length.shape == (b,) and length.device == device
+            and length.is_contiguous()):
+        return length
+    return _lengths(length, b, s, device)
 
 
 def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -215,7 +258,8 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     ``length`` (int or (B,), broadcast over heads) is the valid prefix of
     each batch row's cache, clamped to [0, S]. A CUDA ``length`` tensor
-    stays on the card; an int is copied there.
+    stays on the card (an int32 (B,) one is read as it is); an int is
+    copied there.
     """
     b, h, dh = q.shape
     s, dv = k.shape[1], v.shape[3]
@@ -226,13 +270,17 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = _scale(sm_scale, dh)
     if q.device.type == "cpu":
         return flash_decode_plain(q, k, v, length=length, sm_scale=scale)
-    lens = _lengths(length, b, s, q.device)
+    lens = _kernel_lengths(length, b, s, q.device)
+    chunk, n_split = decode_split(s, b * h)
     out = torch.empty((b, h, dv), dtype=q.dtype, device=q.device)
-    with torch.cuda.device(q.device):
+    # the splits' partials (m, l, acc[dv]) in f32, from the caching allocator
+    work = torch.empty(b * h * n_split * (dv + 2), dtype=torch.float32,
+                       device=q.device)
+    with _on(q):
         err = _lib().flash_decode_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
-            out.data_ptr(), _DTYPE[q.dtype], b, h, s, dh, dv, scale,
-            torch.cuda.current_stream(q.device).cuda_stream)
+            out.data_ptr(), work.data_ptr(), _DTYPE[q.dtype], b, h, s, dh, dv,
+            chunk, n_split, scale, _stream(q))
     _raise_on("flash_decode", err)
     launches["flash_decode"] += 1
     return out

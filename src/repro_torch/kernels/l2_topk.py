@@ -14,7 +14,8 @@ Three hand-written Hopper kernels (``csrc/l2_topk.cu``, CUDA C++ for
   the shard-local twin over one contiguous block of rows. Owned lanes run
   the same lane body as :func:`gather_score` on the local row, so they
   equal it bit for bit; foreign and padding lanes give 0.0 and load no row.
-  Bound by the owned lanes' rows.
+  Bound by the owned lanes' rows. Each block compacts the owned lanes of a
+  chunk of up to 256 and stages its query only when it owns one.
 * :func:`beam_merge_topk` / :func:`merge_pool_batch` replace the Pallas
   ``beam_merge_topk``: per row the best P of (pool ‖ candidates) on the key
   (distance, input position) in shared memory — stable, so it equals
@@ -29,6 +30,7 @@ a CPU tensor runs the plain version. Each launch adds one to
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -85,6 +87,23 @@ def _lib():
 def _stream(t: torch.Tensor) -> int:
     """The raw handle of the current stream on ``t``'s card."""
     return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+_NO_SWITCH = contextlib.nullcontext()
+
+
+def _on(t: torch.Tensor):
+    """The device context of a launch on ``t``: nothing when ``t``'s card is
+    already the current one (the common case; a switch costs host time on
+    every call), else a switch to it for the launch."""
+    i = t.get_device()
+    return _NO_SWITCH if i == torch.cuda.current_device() else torch.cuda.device(i)
+
+
+def _f32(x: torch.Tensor) -> torch.Tensor:
+    if x.dtype == torch.float32 and x.is_contiguous():
+        return x
+    return x.float().contiguous()
 
 
 def _check_layout(name: str, *tensors: torch.Tensor) -> None:
@@ -170,7 +189,7 @@ def _check_gather(name, rows, queries, ids, metric, meta, matmul):
                          f"match ids {tuple(ids.shape)} and dim {dim}")
     if meta is not None and (meta.dtype != torch.float32 or meta.shape[0] != n):
         raise ValueError(f"{name}: meta must be (rows, 2|4) float32")
-    queries = queries.float().contiguous()
+    queries = _f32(queries)
     _check_layout(name, rows, queries, ids,
                   *([meta] if meta is not None else []))
     if rows.device.type not in ("cpu", "cuda"):
@@ -213,13 +232,14 @@ def gather_score(rows: torch.Tensor, queries: torch.Tensor, ids: torch.Tensor,
                                   meta=meta, matmul=matmul)
     vec = _vec("gather_score", rows)
     out = torch.empty((b, k), dtype=torch.float32, device=rows.device)
-    err = _lib().gather_score_launch(
-        rows.data_ptr(), _ROW_TYPE[rows.dtype],
-        meta.data_ptr() if meta is not None else None,
-        meta.shape[1] if meta is not None else 0, int(matmul),
-        queries.data_ptr(), ids.data_ptr(), out.data_ptr(), b, k,
-        rows.shape[0], dim, _METRIC_CODE[metric], vec,
-        _stream(rows))
+    with _on(rows):
+        err = _lib().gather_score_launch(
+            rows.data_ptr(), _ROW_TYPE[rows.dtype],
+            meta.data_ptr() if meta is not None else None,
+            meta.shape[1] if meta is not None else 0, int(matmul),
+            queries.data_ptr(), ids.data_ptr(), out.data_ptr(), b, k,
+            rows.shape[0], dim, _METRIC_CODE[metric], vec,
+            _stream(rows))
     _raise_on("gather_score", err)
     launches["gather_score"] += 1
     return out
@@ -269,7 +289,7 @@ def gather_score_local(rows: torch.Tensor, queries: torch.Tensor,
                                         matmul=matmul)
     vec = _vec("gather_score_local", rows)
     out = torch.empty((b, k), dtype=torch.float32, device=rows.device)
-    with torch.cuda.device(rows.device):
+    with _on(rows):
         err = _lib().gather_score_local_launch(
             rows.data_ptr(), _ROW_TYPE[rows.dtype],
             meta.data_ptr() if meta is not None else None,
@@ -285,12 +305,6 @@ def gather_score_local(rows: torch.Tensor, queries: torch.Tensor,
 # --------------------------------------------------------------------------
 # stable pool merge
 # --------------------------------------------------------------------------
-def _f32(x: torch.Tensor) -> torch.Tensor:
-    if x.dtype == torch.float32 and x.is_contiguous():
-        return x
-    return x.float().contiguous()
-
-
 def _merge(pool_ids, pool_dists, flags, cand_ids, cand_dists):
     """Dispatch: the kernel on CUDA, the plain version (the stable oracle of
     ``ref``) on CPU. Both sort an f32 copy of the distances and hand them back
@@ -337,12 +351,13 @@ def _merge(pool_ids, pool_dists, flags, cand_ids, cand_dists):
     oi = torch.empty_like(pool_ids)
     od = torch.empty_like(pd)
     of = None if flags is None else torch.empty_like(flags)
-    err = _lib().beam_merge_launch(
-        pool_ids.data_ptr(), pd.data_ptr(),
-        flags.data_ptr() if flags is not None else None,
-        cand_ids.data_ptr(), cd.data_ptr(), oi.data_ptr(), od.data_ptr(),
-        of.data_ptr() if of is not None else None, b, p, k, n_pad,
-        _stream(pool_ids))
+    with _on(pool_ids):
+        err = _lib().beam_merge_launch(
+            pool_ids.data_ptr(), pd.data_ptr(),
+            flags.data_ptr() if flags is not None else None,
+            cand_ids.data_ptr(), cd.data_ptr(), oi.data_ptr(), od.data_ptr(),
+            of.data_ptr() if of is not None else None, b, p, k, n_pad,
+            _stream(pool_ids))
     _raise_on("beam_merge_topk", err)
     launches["beam_merge_topk"] += 1
     return oi, (od if dtype == torch.float32 else od.to(dtype)), of

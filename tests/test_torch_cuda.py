@@ -253,6 +253,60 @@ def test_gather_local_kernel_vs_plain(dev, rows, metric, shards):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shards", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("k", [1, 63, 64, 65, 256, 257, 1000])
+def test_gather_local_owned_lanes_any_width(dev, k, shards):
+    """Waves one lane wide to four chunks of 256 lanes, at 1 to 8 shards,
+    every form and row type: owned lanes torch.equal to gather_score,
+    every other lane +0.0, and the shards' sum the unsharded wave."""
+    corpus, qs, ids = _gather_inputs(seed=k + shards, n=301, dim=64, b=3, k=k)
+    metric = METRICS[(k + shards) % 4]
+    q, i = qs.to(dev), ids.to(dev)
+    for rows in ("float32", "bfloat16", "float16", "int8", "fp8",
+                 "fp8_e5m2"):
+        if rows in ("float32", "bfloat16", "float16"):
+            view = backend.as_corpus_view(corpus.to(getattr(torch, rows)))
+        else:
+            view = backend.as_corpus_view(corpus, quantize=rows)
+        gview = _to(view, dev)
+        blocks, n_local = _local_blocks(gview, shards)
+        meta = l2_topk.pack_row_meta(gview)
+        for mm, m in ((False, None if view.scales is None else meta),
+                      (True, meta)):
+            full = l2_topk.gather_score(gview.rows, q, i, metric=metric,
+                                        meta=m, matmul=mm)
+            total = None
+            for s, (r, bm) in enumerate(blocks):
+                off = s * n_local
+                got = l2_topk.gather_score_local(
+                    r, q, i, off, metric=metric,
+                    meta=bm if m is not None else None, matmul=mm)
+                owned = (i >= 0) & (i - off >= 0) & (i - off < n_local)
+                assert (got[~owned].view(torch.int32) == 0).all(), rows
+                assert torch.equal(got[owned], full[owned]), rows
+                total = got if total is None else total + got
+            total = torch.where(i >= 0, total, torch.inf)
+            assert torch.equal(total, full), (rows, mm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wave", ["foreign", "padding"])
+def test_gather_local_wave_with_no_owned_lane(dev, wave):
+    """Every block leaves before staging its query: the output is all +0.0
+    (bit for bit), and the launch counts once."""
+    corpus, qs, ids = _gather_inputs(seed=9, n=400, b=5, k=700)
+    c, q = corpus.to(dev), qs.to(dev)
+    # shard 1 of 2 owns rows [200, 400); this wave reads rows < 200 only
+    i = (ids.clamp(min=0) % 200 if wave == "foreign"
+         else torch.full_like(ids, -1)).to(dev)
+    before = l2_topk.launches["gather_score_local"]
+    out = l2_topk.gather_score_local(c[200:], q, i, 200, metric="l2")
+    assert l2_topk.launches["gather_score_local"] == before + 1
+    assert out.shape == (5, 700)
+    assert (out.view(torch.int32) == 0).all()
+
+
+@pytest.mark.cuda
 def test_gather_local_refuses_a_misaligned_block(dev):
     flat = torch.zeros(300 * 384 + 1, device=dev)
     rows = flat[1:].view(300, 384)  # 4 bytes past a 16-byte boundary
@@ -384,6 +438,61 @@ def test_flash_decode_kernel_vs_plain(dev, dtype, dh, dv):
     # an int length is every row's; past S it clamps to S
     full = ops.flash_decode(q.to(dev), k.to(dev), v.to(dev), length=s)
     assert torch.equal(full[2:4], got[2:4])
+
+
+def _decode_inputs(seed, b, h, s, dh, dv, dtype):
+    g = torch.Generator().manual_seed(seed)
+    return (_randn(g, b, h, dh, dtype=dtype), _randn(g, b, s, h, dh, dtype=dtype),
+            _randn(g, b, s, h, dv, dtype=dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("dh,dv", [(64, 64), (128, 128), (192, 128), (24, 40),
+                                   (18, 30)])
+def test_flash_decode_split_edge_lengths(dev, dtype, dh, dv):
+    """Lengths 0, 1, chunk - 1, chunk, chunk + 1, S and past S, with S no
+    multiple of the chunk. Rows of 16-byte multiples (24/40 too) take the
+    vector path, 18/30 the scalar one."""
+    b, h, s = 7, 2, 1000
+    c = flash_attention.decode_split(s, b * h)[0]
+    q, k, v = _decode_inputs(dh + dv, b, h, s, dh, dv, dtype)
+    lens = torch.tensor([0, 1, c - 1, c, c + 1, s, s + 9], dtype=torch.int32)
+    want = flash_attention.flash_decode_plain(q, k, v, length=lens)
+    before = flash_attention.launches["flash_decode"]
+    got = ops.flash_decode(q.to(dev), k.to(dev), v.to(dev), length=lens.to(dev))
+    assert flash_attention.launches["flash_decode"] == before + 1
+    assert got.dtype == dtype and got.shape == (b, h, dv)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol,
+                               atol=tol)
+    assert (got[0] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,s", [
+    (2, 1, 40),      # S below one chunk
+    (1, 1, 1000),    # B*H = 1
+    (3, 50, 700),    # B*H = 150, past 132 SMs
+    (8, 32, 8193),   # 1024-key chunks, S one past a multiple
+])
+def test_flash_decode_split_grids(dev, b, h, s):
+    """Every key valid (an int length, and a CUDA length tensor of S) and
+    seeded lengths, against the plain version; one launch per call."""
+    q, k, v = _decode_inputs(b + h + s, b, h, s, 64, 64, torch.bfloat16)
+    qd, kd, vd = q.to(dev), k.to(dev), v.to(dev)
+    tol = ATTN_TOL[torch.bfloat16]
+    g = torch.Generator().manual_seed(s)
+    seeded = torch.randint(0, s + 1, (b,), generator=g, dtype=torch.int32)
+    for length in (s, torch.full((b,), s, dtype=torch.int32), seeded):
+        want = flash_attention.flash_decode_plain(q, k, v, length=length)
+        dl = length.to(dev) if isinstance(length, torch.Tensor) else length
+        before = flash_attention.launches["flash_decode"]
+        got = ops.flash_decode(qd, kd, vd, length=dl)
+        assert flash_attention.launches["flash_decode"] == before + 1
+        torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol,
+                                   atol=tol)
 
 
 @pytest.mark.cuda
