@@ -34,7 +34,10 @@ Phases (any failure exits nonzero and prints no result line):
    full, at batch 1, DIN's bag), with
    times beside the bound, the plain version and the library call; the
    16-bit attention rows must launch the tensor-core route, the f32 rows the
-   SIMT one.
+   SIMT one. The bag is also checked at every row width and dtype, with its
+   bags split over several warps and not, on tables whose base is not
+   16-byte aligned, and with an id past the table (NaN); its timed rows
+   print the kernel's plan and the device time by CUDA-graph replay.
 
 Ends with a JSON line of every ported kernel and the result line
 ``{"ok": true, "device": {...}}``. Needs one CUDA device; imports no JAX.
@@ -838,7 +841,7 @@ F32, BF16, F16 = torch.float32, torch.bfloat16, torch.float16
 # for the check shapes, whose outputs are about 0.2; f16 within its own
 # rounding (the port's card tests)
 ATTN_TOL = {F32: 2e-5, BF16: 2e-2, F16: 2e-3}
-BAG_TOL = 1e-5
+BAG_TOL = {F32: 1e-5, BF16: 2e-2, F16: 2e-3}
 # (atol, rtol) of the full-width rows. An attention output there averages
 # thousands of keys and is about 0.01 to 0.03, so a bf16 atol of 2e-2 would
 # pass a wrong kernel: the limit is scaled to the data instead, and rtol
@@ -887,7 +890,19 @@ DECODE_EDGES = [
     (2, 1, 40, 64, 64, BF16), (1, 1, 777, 128, 128, F32),
     (8, 20, 700, 64, 64, BF16), (8, 32, 8193, 16, 16, F16),
 ]
-BAG_CHECKS = [(200, 32, 8, 10), (64, 128, 4, 5), (1000, 16, 16, 30)]  # V, D, B, L
+# V, D, B, L, dtype, the table's base in elements past an aligned one: the
+# JAX sweep's shapes; then every width from one element to five column chunks
+# (D = 10 xDeepFM's, 18 DIN's, 129 f32 past 32 loads a row) in each dtype,
+# with bags split over four warps (B = 512) and one warp a bag (B = 4096);
+# then views whose base is not 16-byte aligned: one row in (DIN's table
+# sliced as big[1:]) and one element in, where the loads narrow to an element
+BAG_CHECKS = [(200, 32, 8, 10, F32, 0), (64, 128, 4, 5, F32, 0),
+              (1000, 16, 16, 30, F32, 0)]
+BAG_CHECKS += [(5000, d, b, l, dt, 0) for d in (1, 10, 18, 40, 64, 129)
+               for dt in (F32, BF16, F16) for b, l in ((512, 100), (4096, 45))]
+BAG_CHECKS += [(5000, 18, 37, 45, F32, 18), (5000, 1, 37, 45, F32, 1),
+               (5000, 18, 512, 100, F16, 1), (5000, 40, 4096, 45, BF16, 1),
+               (5000, 64, 512, 100, F32, 1)]
 
 
 def _ops_rate(dtype):
@@ -987,21 +1002,44 @@ def check_off_path(dev, big_v):
         empty = torch.tensor(lens, device=dev) == 0
         require(bool((outs[0][empty] == 0).all()),
                 f"{what} lens {lens}: length 0 is not 0")
-    bags = [(v, d, b, l, torch.randint(-1, v, (b, l), generator=g, device=dev,
-                                       dtype=torch.int32))
-            for v, d, b, l in BAG_CHECKS]
-    bags += [(v, d, b, l, _bag_ids(g, dev, v, b, l))
+    bags = [(v, d, b, l, dt, off, torch.randint(
+        -1, v, (b, l), generator=g, device=dev, dtype=torch.int32))
+        for v, d, b, l, dt, off in BAG_CHECKS]
+    bags += [(v, d, b, l, F32, 0, _bag_ids(g, dev, v, b, l))
              for v, d, b, l in ((big_v, 18, 512, 100), (big_v, 18, 70, 33))]
-    for v, d, b, l, idx in bags:
-        table = torch.randn(v, d, generator=g, device=dev)
+    for v, d, b, l, dt, off, idx in bags:
+        flat = torch.randn(v * d + off, generator=g, device=dev).to(dt)
+        table = flat[off:].view(v, d)
         idx[1] = -1  # an all-pad bag in every case
+        plan = eb.table_plan(table, idx)
         for mode in ("sum", "mean"):
+            before = eb.launches["embedding_bag"]
             got = ops.embedding_bag(table, idx, mode=mode)
+            what = (f"embedding_bag V={v} D={d} B={b} L={l} {dt} base "
+                    f"+{off} {mode} {plan}")
+            require(dev.type != "cuda"
+                    or eb.launches["embedding_bag"] == before + 1,
+                    f"{what}: not one launch per call")
             want = eb.embedding_bag_plain(table, idx, mode=mode)
-            what = f"embedding_bag V={v} D={d} B={b} L={l} {mode}"
             errs["embedding_bag"] = max(errs["embedding_bag"], _agree(
-                got, want, BAG_TOL, what))
+                got, want, BAG_TOL[dt], what))
             require(bool((got[1] == 0).all()), f"{what}: all-pad bag")
+            require(torch.equal(ops.embedding_bag(table, idx, mode=mode), got),
+                    f"{what}: two calls differ")
+    if dev.type != "cuda":  # the plain version raises on an id >= V
+        return errs
+    # an id past the table makes its bag NaN, in any warp's slice of it
+    idx = _bag_ids(g, dev, big_v, 8, 100)
+    table = torch.randn(big_v, 18, generator=g, device=dev)
+    want = eb.embedding_bag_plain(table, idx)
+    idx[2, 0], idx[3, 99] = big_v, big_v + 7
+    got = ops.embedding_bag(table, idx)
+    require(bool(torch.isnan(got[2:4]).all()), "embedding_bag: an id >= V "
+            "does not give NaN")
+    keep = [0, 1, 4, 5, 6, 7]
+    errs["embedding_bag"] = max(errs["embedding_bag"], _agree(
+        got[keep], want[keep], BAG_TOL[F32], "embedding_bag, the other bags "
+        "beside an id >= V"))
     return errs
 
 
@@ -1073,7 +1111,8 @@ def off_path(dev, sizes, rehearse):
         for mode in ("sum", "mean"):
             cases.append(dict(
                 kernel="embedding_bag", role=role, shape=dict(
-                    V=v_rows, D=d, B=b, L=l, mode=mode, valid_rows=rows),
+                    V=v_rows, D=d, B=b, L=l, mode=mode, valid_rows=rows,
+                    plan=eb.table_plan(table, idx)._asdict()),
                 bound=bound(4 * (rows * d + b * l + b * d), rows * d,
                             F32_OPS_PER_S),
                 run=lambda idx=idx, mode=mode: ops.embedding_bag(
@@ -1085,7 +1124,7 @@ def off_path(dev, sizes, rehearse):
                 library_name="F.embedding_bag(mode='sum', per_sample_weights="
                              + ("(idx >= 0))" if mode == "sum" else
                                 "(idx >= 0) / max(count, 1))"),
-                tol=(BAG_TOL, BAG_TOL)))
+                tol=(BAG_TOL[F32], BAG_TOL[F32]), device_ms=True))
 
     fa.reset_launches()
     eb.reset_launches()  # the path starts here
@@ -1127,6 +1166,8 @@ def off_path(dev, sizes, rehearse):
         del out, want
         if not rehearse:
             row["ms"] = time_ms(c["run"])
+            if c.get("device_ms"):
+                row["device_ms"] = time_graph_ms(c["run"])
             row["plain_ms"] = time_ms(c["plain"], reps=5, inner=2)
             row["library_ms"] = time_ms(c["library"])
         rows.append(row)
@@ -1307,7 +1348,7 @@ def main() -> int:
                 r["max_abs_err"] for r in off_rows if r["kernel"] == name]),
             ms=row.get("ms"), plain_ms=row.get("plain_ms"),
             bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-            library_ms=row.get("library_ms")))
+            library_ms=row.get("library_ms"), device_ms=row.get("device_ms")))
     report["kernels"] = kernels
     report["smoke_s"] = time.perf_counter() - t_start
     log(f"smoke finished in {report['smoke_s']:.1f} s (from start of main)")

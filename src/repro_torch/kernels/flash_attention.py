@@ -163,8 +163,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_plain(q, k, v, causal=causal, sm_scale=scale)
     out = torch.empty((b, h, sq, dv), dtype=q.dtype, device=q.device)
     route = _attention_route(q.dtype, dh, dv)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
+    with _on(q):
+        stream = _stream(q)
         if route == "wgmma":
             if any(t.data_ptr() % 16 for t in (q, k, v, out)):
                 raise ValueError("flash_attention: the tensor-core route needs "

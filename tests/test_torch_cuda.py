@@ -499,28 +499,63 @@ def test_flash_decode_split_grids(dev, b, h, s):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 @pytest.mark.parametrize("mode", ["sum", "mean"])
-@pytest.mark.parametrize("d", [18, 40])
-def test_embedding_bag_kernel_vs_plain(dev, dtype, mode, d):
-    """D = 18 (DIN's width, rows not 16-byte aligned) and D = 40 (two column
-    chunks); bags of length 0 (all pads), 1 and L, L not a multiple of 32."""
-    g = torch.Generator().manual_seed(d + len(mode))
-    v_rows, b, l = 5000, 37, 45
-    table = _randn(g, v_rows, d, dtype=dtype)
+@pytest.mark.parametrize("d", [18, 40, 1, 10, 64, 129])
+@pytest.mark.parametrize("b,l", [(37, 45), (37, 1), (37, 100), (512, 1),
+                                 (512, 45), (512, 100), (4096, 1), (4096, 45),
+                                 (4096, 100)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_embedding_bag_kernel_vs_plain(dev, dtype, mode, d, b, l, offset):
+    """Widths from one element to past 32 loads a row (D = 18 is DIN's,
+    10 xDeepFM's, 129 f32 loops over five column chunks), batches that
+    split a bag over several warps (B = 37, 512) and that do not (4096); a
+    table at offset 1 element is a view whose base is not 16-byte aligned,
+    so the plan narrows its loads to one element. Bags of length 0 (all
+    pads), 1 and L; two calls give the same bits."""
+    g = torch.Generator().manual_seed(d + len(mode) + b + l + offset)
+    v_rows = 5000
+    flat = _randn(g, v_rows * d + offset, dtype=dtype).to(dev)
+    table = flat[offset:].view(v_rows, d)
     idx = torch.randint(-1, v_rows, (b, l), generator=g, dtype=torch.int32)
     idx[0] = -1
     idx[1] = -1
-    idx[1, 7] = 3
+    idx[1, l // 2] = 3
     idx[2] = torch.randint(0, v_rows, (l,), generator=g)
-    want = embedding_bag.embedding_bag_plain(table, idx, mode=mode)
+    idx = idx.to(dev)
+    plan = embedding_bag.table_plan(table, idx)
+    if offset:
+        assert plan.width == table.element_size()
+    want = embedding_bag.embedding_bag_plain(table.cpu(), idx.cpu(),
+                                             mode=mode)
     before = embedding_bag.launches["embedding_bag"]
-    got = ops.embedding_bag(table.to(dev), idx.to(dev), mode=mode)
+    got = ops.embedding_bag(table, idx, mode=mode)
     assert embedding_bag.launches["embedding_bag"] == before + 1
     assert got.dtype == dtype and got.shape == (b, d)
     tol = BAG_TOL[dtype]
     torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol,
                                atol=tol)
     assert (got[0] == 0).all()
-    assert torch.equal(got[1].cpu(), table[3])
+    assert torch.equal(got[1], table[3])
+    assert torch.equal(ops.embedding_bag(table, idx, mode=mode), got), plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+def test_embedding_bag_id_past_the_table_in_any_warp(dev, mode):
+    """B = 4 bags of L = 100 share each bag over four warps: an id >= V in
+    the first or the last warp's slice makes its whole bag NaN; the other
+    bags are as the plain version gives them."""
+    g = torch.Generator().manual_seed(4)
+    table = _randn(g, 300, 18).to(dev)
+    idx = torch.randint(-1, 300, (4, 100), generator=g,
+                        dtype=torch.int32).to(dev)
+    assert embedding_bag.table_plan(table, idx).warps_per_bag == 4
+    want = embedding_bag.embedding_bag_plain(table, idx, mode=mode)
+    idx[1, 99] = 300
+    idx[2, 0] = 10**6
+    got = ops.embedding_bag(table, idx, mode=mode)
+    assert torch.isnan(got[1:3]).all()
+    torch.testing.assert_close(got[[0, 3]], want[[0, 3]], rtol=1e-5,
+                               atol=1e-5)
 
 
 @pytest.mark.cuda
