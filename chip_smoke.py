@@ -37,7 +37,14 @@ Phases (any failure exits nonzero and prints no result line):
    SIMT one. The bag is also checked at every row width and dtype, with its
    bags split over several warps and not, on tables whose base is not
    16-byte aligned, and with an id past the table (NaN); its timed rows
-   print the kernel's plan and the device time by CUDA-graph replay.
+   print the kernel's plan and the device time by CUDA-graph replay;
+7. the cover-tree slice (the paper's second instantiation), on phase 4's
+   data: first at N=2048 (dims 384/4096) the tree built on the card must
+   equal the one built with ``device="cpu"``, and the descent on the card
+   the CPU descent and the NumPy oracle's D-call counts, near-ties aside;
+   then the tree built on the card from phase 4's ``corpus_d`` (T=3),
+   flattened, and searched under D at each Q (``search_corpus`` and
+   ``bimetric_search``), beside phase 4's bi-metric DiskANN runs.
 
 Ends with a JSON line of every ported kernel and the result line
 ``{"ok": true, "device": {...}}``. Needs one CUDA device; imports no JAX.
@@ -1176,6 +1183,320 @@ def off_path(dev, sizes, rehearse):
 
 
 # --------------------------------------------------------------------------
+# phase 7: the cover-tree slice
+# --------------------------------------------------------------------------
+CT_T = 3.0  # the JAX cover-tree benchmark's T (benchmarks/bench_covertree.py)
+CT_EPS = 0.5  # the descent's default
+
+
+def _oracle_margin(tree, dist_of, eps):
+    """Walk the NumPy oracle's descent (``covertree.search``, no quota) for
+    one query and return the least relative distance between a value it
+    tests and that test's threshold (the level filter and the ε stop): f32
+    rounding can flip a test only that close to its threshold."""
+    import numpy as np
+
+    memo = {}
+
+    def dq_of(ids):
+        new = [int(i) for i in ids if int(i) not in memo]
+        if new:
+            for i, v in zip(new, dist_of(np.asarray(new)) * tree.scale):
+                memo[i] = float(v)
+        return np.asarray([memo[int(i)] for i in ids])
+
+    q_i = tree.levels[0]
+    dq_of(q_i)
+    margin = math.inf
+    for j in range(tree.depth - 1):
+        two_i = tree.level_scales[j]
+        nxt = set(int(p) for p in q_i)
+        for p in q_i:
+            nxt.update(tree.children[j].get(int(p), []).tolist())
+        q = np.asarray(sorted(nxt))
+        dq = dq_of(q)
+        thr = dq.min() + two_i
+        margin = min(margin, float((np.abs(dq - thr) / thr).min()))
+        keep = dq <= thr
+        q_i = q[keep]
+        stop = two_i * (1.0 + 1.0 / eps)
+        margin = min(margin, abs(float(dq[keep].min()) - stop) / stop)
+        if dq[keep].min() >= stop:
+            break
+    return margin
+
+
+def _same_tree(a, b):
+    import numpy as np
+
+    return (a.scale == b.scale and a.level_scales == b.level_scales
+            and len(a.levels) == len(b.levels)
+            and all(np.array_equal(x, y) for x, y in zip(a.levels, b.levels))
+            and all(np.array_equal(x.parents, y.parents)
+                    and np.array_equal(x.indptr, y.indptr)
+                    and np.array_equal(x.kids, y.kids)
+                    for x, y in zip(a.children, b.children)))
+
+
+def cover_tree_cross(dev, n, dim_d, dim_D, n_queries):
+    """At N=n: the tree built on the card equals the one built with
+    ``device="cpu"``; the descent on the card equals the CPU descent, and
+    its D-call counts the NumPy oracle's, at an unbinding quota. A query
+    may differ only at a near-tie (phase 3's rule): two candidates at the
+    first differing rank within CROSS_RTOL of each other, or a test of the
+    oracle's descent within CROSS_RTOL of its threshold."""
+    import numpy as np
+
+    from repro_torch.core import covertree
+    from repro_torch.data.synthetic import make_dataset, proxy_quality_sweep
+
+    cpu = torch.device("cpu")
+    noise = {k: v for k, v in proxy_quality_sweep("bge-micro-like").items()
+             if k != "dim_d"}
+    data = make_dataset(n=n, n_queries=n_queries, dim_D=dim_D, dim_d=dim_d,
+                        n_clusters=max(1, n // POINTS_PER_CLUSTER), seed=3,
+                        device=dev, **noise)
+    out = {}
+    t0 = time.perf_counter()
+    tree = covertree.build(data.corpus_d, T=CT_T, device=dev)
+    out["build_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tree_cpu = covertree.build(data.corpus_d.cpu(), T=CT_T, device=cpu)
+    out["build_cpu_s"] = time.perf_counter() - t0
+    require(_same_tree(tree, tree_cpu), "cover tree: the card's build differs "
+            "from the CPU's")
+    flat = covertree.flatten(tree, device=dev)
+    flat_cpu = covertree.flatten(tree_cpu, device=cpu)
+    require(torch.equal(flat.children.cpu(), flat_cpu.children))
+    log(f"  cover tree N={n}: card build {out['build_s']:.3f} s, cpu "
+        f"{out['build_cpu_s']:.3f} s, covers "
+        f"{[len(c) for c in tree.levels]}, fanout {flat.fanout}: equal")
+
+    a = covertree.search_corpus(flat, data.corpus_D, data.queries_D,
+                                eps=CT_EPS, k=10, device=dev)
+    c = covertree.search_corpus(flat_cpu, data.corpus_D.cpu(),
+                                data.queries_D.cpu(), eps=CT_EPS, k=10,
+                                device=cpu)
+    x_D = data.corpus_D.cpu().double().numpy()
+    q_D = data.queries_D.cpu().double().numpy()
+    ids_a, ids_c = a.ids.cpu(), c.ids
+    calls_a, calls_c = a.n_calls.cpu(), c.n_calls
+    near = []
+    for b in range(n_queries):
+        def dist_of(ids, b=b):  # D in f64, as the oracle's tests use it
+            d = x_D[ids] - q_D[b]
+            return np.sqrt((d * d).sum(-1))
+
+        oids, _, ocalls = covertree.search(tree_cpu, dist_of, eps=CT_EPS, k=10)
+        for what, ia, ca, ib, cb in (
+                ("card vs cpu", ids_a[b], calls_a[b], ids_c[b], calls_c[b]),
+                ("card vs oracle", ids_a[b], calls_a[b], None, ocalls),
+                ("cpu vs oracle", ids_c[b], calls_c[b], None, ocalls)):
+            same_ids = ib is None or torch.equal(ia, ib)
+            if ib is None:  # the oracle's ids lead the engine's row
+                row = ia[ia >= 0].numpy()
+                same_ids = list(row) == list(oids[:len(row)])
+            if same_ids and int(ca) == int(cb):
+                continue
+            margin = _oracle_margin(tree_cpu, dist_of, CT_EPS)
+            gap = math.inf
+            if not same_ids:
+                other = (ib if ib is not None else torch.as_tensor(
+                    oids[:len(ia)]))
+                m = min(len(ia), len(other))
+                diff = (ia[:m] != other[:m]).nonzero()
+                if len(diff):
+                    i = int(diff[0])
+                    da, db = dist_of([int(ia[i]), int(other[i])])
+                    gap = abs(da - db) / max(da, db, 1e-30)
+            ok = min(gap, margin) <= CROSS_RTOL
+            log(f"  query {b} {what}: calls {int(ca)} / {int(cb)}, ids "
+                f"{'same' if same_ids else 'differ'}; rank gap {gap:.3e}, "
+                f"oracle's least test margin {margin:.3e} "
+                f"({'near-tie, allowed' if ok else 'NOT a near-tie'})")
+            require(ok, f"cover tree query {b} {what} differs beyond a "
+                    "near-tie")
+            near.append(dict(query=b, what=what, gap=gap, margin=margin))
+    log(f"  cover-tree descent: {n_queries} queries, card = cpu = oracle up "
+        f"to {len(near)} near-tie differences; mean D_calls "
+        f"{float(calls_a.float().mean()):.1f}")
+    out.update(N=n, covers=[len(c) for c in tree.levels], fanout=flat.fanout,
+               near_ties=near, mean_D_calls=float(calls_a.float().mean()))
+    return out
+
+
+def check_cover_wave(dev, tree, flat, data, quotas):
+    """One level wave of the full-size descent against the plain versions,
+    on the card's inputs at the path's shapes: the level whose child rows
+    are widest, ``wave_chunk(fanout)`` centers a query drawn from that
+    level's members (row 0 takes the widest row), so K = chunk x R lanes,
+    most of them -1 as in the slab rows. ``gather_score`` scores the wave
+    in the path's form (l2, f32 rows) within phase 2's f32 limit; the merge
+    takes it into pools of each Q (the best Q of another such wave, flags
+    drawn at random) and must equal its plain version exactly. Its launches
+    come after the path's counts are read."""
+    import numpy as np
+
+    from repro_torch.core import covertree
+    from repro_torch.kernels import backend, l2_topk, ref
+
+    b = data.queries_D.shape[0]
+    chunk = covertree.wave_chunk(flat.fanout)
+    t = int(np.argmax([np.diff(ch.indptr).max() for ch in tree.children]))
+    members = np.asarray(tree.levels[t])
+    rng = np.random.default_rng(17)
+    view = backend.as_corpus_view(data.corpus_D)
+    q = data.queries_D
+
+    def wave(first=None):
+        # distinct centers a row; slots past the level's members stay -1
+        c = np.full((b, chunk), -1)
+        m = min(chunk, len(members))
+        for i in range(b):
+            c[i, :m] = rng.choice(members, m, replace=False)
+        if first is not None and first not in c[0]:
+            c[0, 0] = first
+        c = torch.from_numpy(c).to(dev)
+        ids = flat.children[t][c.clamp(min=0)]
+        ids = torch.where((c >= 0)[:, :, None], ids, torch.full_like(ids, -1))
+        return ids.reshape(b, -1).contiguous()
+
+    def plain(ids):  # row slices: the whole (B, K, 4096) gather is 16 GB
+        return torch.cat([l2_topk.gather_score_plain(
+            data.corpus_D, q[i:i + 16], ids[i:i + 16], metric="l2")
+            for i in range(0, b, 16)])
+
+    ch = tree.children[t]
+    ids = wave(first=int(ch.parents[np.argmax(np.diff(ch.indptr))]))
+    got = l2_topk.gather_score(data.corpus_D, q, ids, metric="l2")
+    want = plain(ids)
+    fin = torch.isfinite(want)
+    require(torch.equal(fin, torch.isfinite(got)),
+            "cover-tree wave: gather_score masks other lanes than plain")
+    err = (got[fin] - want[fin]).abs()
+    lim = 1e-5 * torch.maximum(want[fin].abs(),
+                               _term_scale(view, q, ids, "l2")[fin])
+    g_err = float(err.max()) if err.numel() else 0.0
+    require(bool((err <= lim).all()),
+            f"cover-tree wave: gather_score max err {g_err:.3e}")
+    other = wave()
+    od, oi = torch.sort(plain(other), dim=1, stable=True)
+    oi = other.gather(1, oi)
+    out = dict(level=t, chunk=chunk, B=b, K=int(ids.shape[1]),
+               live_lanes=float((ids >= 0).float().mean()),
+               gather_max_abs_err=g_err, merge_shapes=[])
+    for p in quotas:
+        pd = od[:, :p].contiguous()
+        pi = torch.where(torch.isfinite(pd), oi[:, :p],
+                         torch.full_like(oi[:, :p], -1)).contiguous()
+        pf = torch.from_numpy(rng.random((b, p)) < 0.5).to(dev)
+        args = (pi, pd, pf, ids, got)
+        res = l2_topk.merge_pool_batch(*args)
+        for name, x, y in zip(("ids", "dists", "flags"), res,
+                              ref.merge_pool_batch_ref(*args)):
+            require(torch.equal(x, y), f"cover-tree wave: merge "
+                    f"({b},{p},{ids.shape[1]}) {name} differs")
+        out["merge_shapes"].append([b, p, int(ids.shape[1])])
+    log(f"  level wave check: level {t}, {chunk} centers a query, K "
+        f"{out['K']} ({out['live_lanes']:.4f} of lanes live): gather_score "
+        f"max err {g_err:.3e}, merge exact at {out['merge_shapes']}")
+    return out
+
+
+def cover_tree_slice(dev, ph4, diskann_runs, quotas, rehearse):
+    """Phase 4's data through the cover-tree instantiation: the tree built
+    on the card from d at T=3, flattened, then Algorithm 3 under D at each
+    Q through ``search_corpus`` (timed) and ``bimetric_search`` (the same
+    result, d_calls 0), beside phase 4's bi-metric DiskANN runs."""
+    from repro_torch.core import bimetric, covertree, metrics
+    from repro_torch.kernels import l2_topk
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    data, k, true_ids = ph4["data"], ph4["k"], ph4["true_ids"]
+    n = data.corpus_d.shape[0]
+    n_queries = data.queries_d.shape[0]
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    out = dict(N=n, T=CT_T, eps=CT_EPS)
+    l2_topk.reset_launches()  # the cover-tree path starts here
+    t0 = time.perf_counter()
+    tree = covertree.build(data.corpus_d, T=CT_T, device=dev)
+    out["build_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    flat = covertree.flatten(tree, device=dev)
+    sync()
+    out["flatten_s"] = time.perf_counter() - t0
+    out.update(depth=flat.depth, fanout=flat.fanout,
+               covers=[len(c) for c in tree.levels],
+               # each child row holds its parent: its width is the group's
+               level_fanout=[int(max(ch.indptr[1:] - ch.indptr[:-1]))
+                             for ch in tree.children],
+               table_bytes=flat.children.numel() * 4)
+    log(f"  build N={n}: {out['build_s']:.3f} s, flatten "
+        f"{out['flatten_s']:.3f} s; depth {flat.depth}, fanout {flat.fanout} "
+        f"(widest row per level {out['level_fanout']}), covers "
+        f"{out['covers']}, table {out['table_bytes']} bytes")
+    runs = []
+    for q in quotas:
+        before = dict(l2_topk.launches)
+        t0 = time.perf_counter()
+        res = covertree.search_corpus(flat, data.corpus_D, data.queries_D,
+                                      eps=CT_EPS, k=k, quota=q, device=dev)
+        sync()
+        dt = time.perf_counter() - t0
+        delta = {kk: l2_topk.launches[kk] - before[kk] for kk in before}
+        require(res.ids.shape == (n_queries, k))
+        require(int(res.n_calls.max()) <= q, ("cover tree", q))
+        scored = res.ids >= 0
+        require(bool(torch.isfinite(res.dists[scored]).all())
+                and bool(torch.isinf(res.dists[~scored]).all()),
+                "cover tree: non-finite distance on a scored rank")
+        bm = bimetric.bimetric_search(
+            None, None, flat, data.queries_d, data.queries_D, n_points=n,
+            quota=q, k=k, corpora=(data.corpus_d, data.corpus_D), eps=CT_EPS,
+            device=dev)
+        require(bool((bm.d_calls == 0).all()), "cover tree: d_calls != 0")
+        require(torch.equal(bm.ids, res.ids)
+                and torch.equal(bm.D_calls, res.n_calls),
+                "cover tree: bimetric_search differs from search_corpus")
+        waves = delta["beam_merge_topk"]
+        run = dict(Q=q, query_s=dt, qps=n_queries / dt,
+                   recall_at_10=float(metrics.recall_at_k(
+                       res.ids, true_ids).mean()),
+                   ndcg_at_10=float(metrics.ndcg_at_k(res.ids,
+                                                      true_ids).mean()),
+                   mean_D_calls=float(res.n_calls.float().mean()),
+                   max_D_calls=int(res.n_calls.max()), launches=delta,
+                   s_per_wave=dt / max(waves, 1))
+        dk = next(r for r in diskann_runs
+                  if r["method"] == "bimetric" and r["Q"] == q)
+        run["diskann"] = {kk: dk[kk] for kk in (
+            "query_s", "qps", "recall_at_10", "ndcg_at_10", "mean_D_calls",
+            "max_D_calls")}
+        log(f"  cover tree Q={q:5d}: {dt:.3f} s, {run['qps']:.1f} q/s, "
+            f"recall@10 {run['recall_at_10']:.4f}, nDCG@10 "
+            f"{run['ndcg_at_10']:.4f}, D_calls mean "
+            f"{run['mean_D_calls']:.1f} max {run['max_D_calls']}, launches "
+            f"{delta}, {run['s_per_wave']:.5f} s a wave")
+        log(f"    bi-metric DiskANN (phase 4) Q={q:5d}: {dk['query_s']:.3f} "
+            f"s, recall@10 {dk['recall_at_10']:.4f}, nDCG@10 "
+            f"{dk['ndcg_at_10']:.4f}, D_calls mean {dk['mean_D_calls']:.1f}")
+        runs.append(run)
+    launches = dict(l2_topk.launches)  # read just after the path
+    out.update(runs=runs, launches=launches)
+    if dev.type == "cuda":
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        log(f"  max_memory_allocated {out['max_memory_allocated']} bytes")
+    require(launches["gather_score_local"] == 0)
+    if not rehearse:
+        for name in ("gather_score", "beam_merge_topk"):
+            require(launches[name] > 0,
+                    f"{name} was never launched on the cover-tree path")
+    out["wave_check"] = check_cover_wave(dev, tree, flat, data, quotas)
+    return out
+
+
+# --------------------------------------------------------------------------
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=171_332,
@@ -1219,7 +1540,7 @@ def main() -> int:
         sizes = dict(n=3000, dims=(16, 48), ks=(8, 20), b=4,
                      timing={16: ((4, 8),), 48: ((4, 20),)},
                      local_timing={16: ((4, 8),), 48: ((4, 8),)},
-                     shapes=((4, 16, 8),), cn=600, cd=8, cD=32, cq=4, quotas=(20, 60), bn=300,
+                     shapes=((4, 16, 8),), cn=600, cd=8, cD=32, cq=4, quotas=(20, 60), bn=300, ctn=300,
                      fn=800, fq=8,
                      attn=(("sfr-mistral-7b layer, toy", 1, 2, 64, 16, BF16),
                            ("bge-micro-like layer, toy", 4, 2, 32, 16, F32)),
@@ -1238,7 +1559,7 @@ def main() -> int:
                      local_timing={384: ((256, 64),), 4096: ((256, 64),)},
                      shapes=((1024, 256, 64), (256, 500, 64), (256, 1000, 64),
                              (256, 1000, 500)), cn=8192, cd=384, cD=4096, cq=16,
-                     quotas=(100, 1000), bn=2048, fn=args.n, fq=256,
+                     quotas=(100, 1000), bn=2048, ctn=2048, fn=args.n, fq=256,
                      # phase 6 at the configurations' widths: one attention
                      # layer (causal prefill) of each tower; decode at
                      # decode_32k's cache with batch 128 cut to 8 (one KV head
@@ -1289,7 +1610,6 @@ def main() -> int:
     t0 = time.perf_counter()
     log("phase 5: the sharded slice (S shards on one device)")
     sharded = sharded_slice(dev, ph4, sizes["quotas"], rehearse)
-    del ph4
     report["sharded"] = sharded
     report["phase5_s"] = time.perf_counter() - t0
 
@@ -1302,11 +1622,22 @@ def main() -> int:
                               launches=off_launches)
     report["phase6_s"] = time.perf_counter() - t0
 
+    t0 = time.perf_counter()
+    log("phase 7: the cover-tree slice (on phase 4's data)")
+    ct_cross = cover_tree_cross(dev, sizes["ctn"], sizes["cd"], sizes["cD"],
+                                sizes["cq"])
+    ct = cover_tree_slice(dev, ph4, full["runs"], sizes["quotas"], rehearse)
+    del ph4
+    report["covertree"] = dict(cross=ct_cross, full=ct)
+    report["phase7_s"] = time.perf_counter() - t0
+
     kernels = [
         dict(name="gather_score", route="cuda",
              source="src/repro_torch/kernels/csrc/l2_topk.cu",
              replaces="src/repro/kernels/l2_topk.py:158",
-             launches=full["launches"]["gather_score"], max_abs_err=g_err,
+             launches=full["launches"]["gather_score"],
+             launches_covertree=ct["launches"]["gather_score"],
+             max_abs_err=max(g_err, ct["wave_check"]["gather_max_abs_err"]),
              ms=g_timed.get("ms"), plain_ms=g_timed.get("plain_ms"),
              bound_ms=g_timed["bound_ms"], bound_by=g_timed["bound_by"],
              library_ms=None, device_ms=g_timed.get("device_ms")),
@@ -1321,7 +1652,9 @@ def main() -> int:
         dict(name="beam_merge_topk", route="cuda",
              source="src/repro_torch/kernels/csrc/l2_topk.cu",
              replaces="src/repro/kernels/l2_topk.py:355",
-             launches=full["launches"]["beam_merge_topk"], max_abs_err=m_err,
+             launches=full["launches"]["beam_merge_topk"],
+             launches_covertree=ct["launches"]["beam_merge_topk"],
+             max_abs_err=m_err,
              ms=m_timed.get("ms"), plain_ms=m_timed.get("plain_ms"),
              bound_ms=m_timed["bound_ms"], bound_by=m_timed["bound_by"],
              library_ms=m_timed.get("library_ms"),

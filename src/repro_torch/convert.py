@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core.covertree import FlatCoverTree
 from repro_torch.core.vamana import VamanaConfig, VamanaIndex
 from repro_torch.kernels.backend import CorpusView, resolve_device
 
@@ -45,3 +46,15 @@ def corpus_view_from_numpy(rows, sq_norms, inv_norms, scales=None,
     return CorpusView(rows=conv(rows), sq_norms=conv(sq_norms),
                       inv_norms=conv(inv_norms), scales=conv(scales),
                       zero_points=conv(zero_points))
+
+
+def flat_cover_tree_from_numpy(children, radii, root_ids, scale, T, n,
+                               device=None) -> FlatCoverTree:
+    """A :class:`FlatCoverTree` from its fields (a flattened tree's
+    ``(depth-1, N, R)`` child table, radii and root ids as numpy arrays);
+    the child table goes to ``device``."""
+    return FlatCoverTree(
+        children=tensor_from_numpy(np.asarray(children, np.int32), device),
+        radii=np.array(radii, np.float64), root_ids=np.array(root_ids,
+                                                             np.int32),
+        scale=float(scale), T=float(T), n=int(n))

@@ -284,10 +284,25 @@ def active_mask(state: BatchedSearchState, *, beam_width, quota,
             & (state.n_steps < _per_query(max_steps, b, dev)))
 
 
+def reset_expanded(state: BatchedSearchState,
+                   rows) -> BatchedSearchState:
+    """Re-open the frontier of the masked ``rows`` (clear ``expanded``).
+
+    The cover-tree descent expands the same surviving centers again at the
+    next, finer level; between levels it clears their flags so
+    :func:`plan_step` sees the whole pool prefix afresh. ``rows`` is a (B,)
+    bool mask or a scalar; pools, dedup state and counters are untouched.
+    """
+    b = state.pool_ids.shape[0]
+    rows = torch.as_tensor(rows, dtype=torch.bool,
+                           device=state.expanded.device).expand(b)
+    return state._replace(expanded=state.expanded & ~rows[:, None])
+
+
 def plan_step(state: BatchedSearchState, adjacency: torch.Tensor, *,
               beam_width, quota, max_steps, expand_width=1,
               expand_cap: int | None = None, wave_dedup: bool = True,
-              shard: ShardCtx | None = None):
+              shard: ShardCtx | None = None, level=None):
     """One expansion wave: pick frontiers, gather fanout, mask to the quota.
 
     Returns ``(state', safe (B, E*R), keep (B, E*R), active (B,))``;
@@ -299,6 +314,13 @@ def plan_step(state: BatchedSearchState, adjacency: torch.Tensor, *,
     owners' bitmap answers and the scatter lands on the owners only; the
     rest of the plan runs on the replicated state, so the wave is the
     unsharded one.
+
+    ``level``, a (B,) int vector (or a scalar), switches the fanout table
+    from a flat ``(N, R)`` graph to a level-stacked ``(L, N, R)`` one: row b
+    reads ``adjacency[level[b], vertex]`` (the cover tree's child slabs).
+    ``wave_dedup=False`` skips the same-wave positional dedup, which is
+    safe only when the expanded rows' fanouts are disjoint (child slabs
+    partition the next level).
     """
     b, p = state.pool_ids.shape
     dev = state.pool_ids.device
@@ -329,7 +351,11 @@ def plan_step(state: BatchedSearchState, adjacency: torch.Tensor, *,
         has, state.pool_ids.gather(1, slot_pos.clamp(max=p - 1)),
         torch.full_like(slot_pos, -1, dtype=_I32))
 
-    nbrs = adjacency[verts.clamp(min=0).long()]  # (B, E, R)
+    if level is None:
+        nbrs = adjacency[verts.clamp(min=0).long()]  # (B, E, R)
+    else:
+        lev = _per_query(level, b, dev).long()
+        nbrs = adjacency[lev[:, None], verts.clamp(min=0).long()]
     nbrs = torch.where((verts >= 0)[:, :, None], nbrs,
                        torch.full_like(nbrs, -1))
     cand = nbrs.reshape(b, E * r)

@@ -1,6 +1,7 @@
-"""The paper's contribution: bi-metric two-stage search (§4), DiskANN form.
+"""The paper's contribution: bi-metric search (§4) in both instantiations.
 
-Given a graph built only with the cheap metric d (``vamana.build``):
+Given a graph built only with the cheap metric d (``vamana.build``), the
+DiskANN form runs two stages:
 
   stage 1 — greedy search with d; zero D calls; keeps the top-K seeds
             (paper default K = Q/2);
@@ -11,7 +12,9 @@ Given a graph built only with the cheap metric d (``vamana.build``):
 Both stages run the batched engine (``repro_torch.core.beam``). The metric
 callables are batched: ``fn(q (B, dim), ids (B, K)) -> (B, K)``, e.g.
 ``EmbeddingMetric.dists_batch``. Also the re-rank baseline
-(:func:`rerank_search`): top-Q by d, score all with D.
+(:func:`rerank_search`): top-Q by d, score all with D. A cover tree built
+on d (``covertree.build`` + ``covertree.flatten``) runs Algorithm 3's level
+descent under D instead (:func:`bimetric_search` with a ``FlatCoverTree``).
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from repro_torch.core import covertree
 from repro_torch.core.beam import (NO_QUOTA, batched_greedy_search,
                                    fused_dist_fn, sharded_greedy_search)
 from repro_torch.core.vamana import VamanaIndex
@@ -72,7 +76,7 @@ def _quota_arg(quota, dev):
 def bimetric_search(
     cheap_fn_batch: BatchFn | None,
     expensive_fn_batch: BatchFn | None,
-    index: VamanaIndex,
+    index: VamanaIndex | covertree.FlatCoverTree,
     q_cheap,
     q_expensive,
     *,
@@ -90,9 +94,10 @@ def bimetric_search(
     metric: str = "l2",
     backend=None,
     quantize=None,
+    eps: float = 0.5,
     device=None,
 ) -> BiMetricResult:
-    """Batched bi-metric search (the DiskANN instantiation).
+    """Batched bi-metric search.
 
     ``quota`` may be a (B,) vector (then ``n_seeds`` and ``beam_width_D``
     are required); each query freezes at its own budget. With
@@ -105,11 +110,36 @@ def bimetric_search(
     blocks on ``mesh`` (``beam.sharded_greedy_search``); the metrics must
     then be embedding-backed: pass ``corpora`` (the callables are ignored).
     The result is bit-exact against ``shards=1``.
+
+    ``index`` picks the instantiation: a ``VamanaIndex`` runs the DiskANN
+    form above; a ``covertree.FlatCoverTree`` (built offline on d) runs
+    Algorithm 3's level descent under D through the same engine, with no
+    stage 1 (``d_calls`` is 0: d's work was the tree build) and ``eps`` as
+    its accuracy knob. D is ``corpora[1]`` scored through
+    ``ops.gather_score`` when ``corpora`` is given, else the callable; the
+    stage-1 and beam knobs are ignored, and ``shards > 1`` waits for
+    ``beam.ShardedStepper`` and raises.
     """
+    if isinstance(index, covertree.FlatCoverTree):
+        if shards > 1:
+            raise NotImplementedError(covertree.NO_SHARDS)
+        dev = kernel_backend.resolve_device(device)
+        be = dataclasses.replace(kernel_backend.resolve_backend(
+            backend, _caller="bimetric_search"), quantize=None)
+        if corpora is not None:
+            res = covertree.search_corpus(
+                index, corpora[1], q_expensive, metric=metric, eps=eps, k=k,
+                quota=quota, backend=be, device=dev)
+        else:
+            res = covertree.search_batched(
+                index, expensive_fn_batch, q_expensive, eps=eps, k=k,
+                quota=quota, device=dev)
+        return BiMetricResult(ids=res.ids, dists=res.dists,
+                              d_calls=torch.zeros_like(res.n_calls),
+                              D_calls=res.n_calls)
     if not isinstance(index, VamanaIndex):
-        raise NotImplementedError(
-            "bimetric_search over a cover tree waits for the port's "
-            "cover-tree slice; pass a VamanaIndex")
+        raise TypeError("index must be a VamanaIndex or a covertree."
+                        f"FlatCoverTree, got {type(index).__name__}")
     if shards > 1 and corpora is None:
         raise ValueError("shards > 1 needs corpora=(corpus_d, corpus_D): "
                          "only embedding-backed metrics can be sharded")

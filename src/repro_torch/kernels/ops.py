@@ -129,6 +129,22 @@ def sorted_set_unique_count(set_ids):
     return (distinct & (set_ids != SET_PAD)).sum(dim=1, dtype=torch.int32)
 
 
+def frontier_count(pool_dists, radius):
+    """(B,) pool entries within ``min + radius`` of each row's best.
+
+    The cover-tree descent's candidate set at a level is the prefix of the
+    sorted pool within the radius of the row minimum; its size is the expand
+    width of the level's wave. ``radius`` (a float or (B,)) is taken in the
+    pools' dtype; +inf counts every finite entry, an all-+inf row counts 0.
+    """
+    finite = torch.isfinite(pool_dists)
+    dmin = torch.where(finite, pool_dists, float("inf")).amin(dim=1)
+    r = torch.as_tensor(radius, dtype=pool_dists.dtype,
+                        device=pool_dists.device).expand(dmin.shape)
+    within = finite & (pool_dists <= (dmin + r)[:, None])
+    return within.sum(dim=1, dtype=torch.int32)
+
+
 def beam_merge_topk(beam_ids, beam_dists, cand_ids, cand_dists):
     """Stable best-(B, L) of (beam ‖ candidates) — the merge kernel."""
     return _lt.beam_merge_topk(beam_ids, beam_dists, cand_ids, cand_dists)

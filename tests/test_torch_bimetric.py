@@ -155,7 +155,7 @@ def test_single_matches_batch_and_quality(setup):
 def test_unported_index_kinds_raise(setup):
     np_data, t, jidx, tidx = setup
     tfd, tfD = _torch_fns(t)
-    with pytest.raises(NotImplementedError, match="cover-tree"):
+    with pytest.raises(TypeError, match="FlatCoverTree"):
         tbm.bimetric_search(tfd, tfD, object(), t[3], t[2], n_points=N,
                             quota=10, device="cpu")
     with pytest.raises(ValueError, match="corpora"):

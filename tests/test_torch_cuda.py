@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import beam, distances
+from repro_torch.core import beam, covertree, distances
 from repro_torch.distributed import sharding
 from repro_torch.kernels import (backend, embedding_bag, flash_attention,
                                  l2_topk, ops, ref)
@@ -585,3 +585,62 @@ def test_attention_and_bag_wrappers_refuse_what_the_kernels_do_not_take(dev):
     idx[1, 2] = 10
     out = ops.embedding_bag(table, idx)
     assert torch.isnan(out[1]).all() and (out[0] == 0).all()
+
+
+# --------------------------------------------------------------------------
+# the cover-tree slice on the card
+# --------------------------------------------------------------------------
+def _tree_equal(a, b):
+    assert a.scale == b.scale and a.level_scales == b.level_scales
+    assert len(a.levels) == len(b.levels)
+    for x, y in zip(a.levels, b.levels):
+        np.testing.assert_array_equal(x, y)
+    for x, y in zip(a.children, b.children):
+        np.testing.assert_array_equal(x.parents, y.parents)
+        np.testing.assert_array_equal(x.indptr, y.indptr)
+        np.testing.assert_array_equal(x.kids, y.kids)
+
+
+@pytest.mark.cuda
+def test_cover_tree_build_on_card_equals_cpu(dev):
+    """N=2048 clustered rows at the cheap tower's width: the card's build
+    (f64 products on the card, direct form in NumPy's order) is the CPU's."""
+    rng = np.random.default_rng(9)
+    centers = rng.normal(size=(32, 384)) * 4.0
+    x = (centers[rng.integers(0, 32, 2048)]
+         + rng.normal(size=(2048, 384))).astype(np.float32)
+    on_card = covertree.build(torch.from_numpy(x).to(dev), T=3.0, device=dev)
+    on_cpu = covertree.build(x, T=3.0, device="cpu")
+    _tree_equal(on_card, on_cpu)
+    assert torch.equal(covertree.flatten(on_card, device=dev).children.cpu(),
+                       covertree.flatten(on_cpu, device="cpu").children)
+
+
+@pytest.mark.cuda
+def test_cover_tree_search_on_card_equals_cpu(dev):
+    """The JAX cover-tree tests' inputs (n=300, dim 12, T=2): the descent
+    launches the kernels and gives the CPU's ids and D-call counts."""
+    rng = np.random.default_rng(3)
+    corpus = rng.normal(size=(300, 12)).astype(np.float32)
+    proj = rng.normal(size=(12, 5)) / np.sqrt(5)
+    x_d = (corpus @ proj).astype(np.float64)
+    queries = rng.normal(size=(8, 12)).astype(np.float32)
+    tree = covertree.build(x_d, T=2.0, device="cpu")
+    flat_cpu = covertree.flatten(tree, device="cpu")
+    flat = covertree.flatten(tree, device=dev)
+    for backend_ in ("ref", "matmul"):
+        for eps, quota in ((1.0, None), (0.5, None), (0.25, None),
+                           (0.5, 7), (0.5, 120)):
+            l2_topk.reset_launches()
+            got = covertree.search_corpus(flat, corpus, queries, eps=eps,
+                                          k=10, quota=quota, backend=backend_,
+                                          device=dev)
+            assert l2_topk.launches["gather_score"] > 0
+            assert l2_topk.launches["beam_merge_topk"] > 0
+            want = covertree.search_corpus(flat_cpu, corpus, queries,
+                                           eps=eps, k=10, quota=quota,
+                                           backend=backend_, device="cpu")
+            assert torch.equal(got.ids.cpu(), want.ids)
+            assert torch.equal(got.n_calls.cpu(), want.n_calls)
+            torch.testing.assert_close(got.dists.cpu(), want.dists,
+                                       rtol=1e-5, atol=1e-5)
