@@ -44,7 +44,19 @@ Phases (any failure exits nonzero and prints no result line):
    the CPU descent and the NumPy oracle's D-call counts, near-ties aside;
    then the tree built on the card from phase 4's ``corpus_d`` (T=3),
    flattened, and searched under D at each Q (``search_corpus`` and
-   ``bimetric_search``), beside phase 4's bi-metric DiskANN runs.
+   ``bimetric_search``), beside phase 4's bi-metric DiskANN runs;
+8. the towers: ``cheap_tower()`` (f32) and ``expensive_tower()`` (bf16,
+   all 32 layers) drawn on the card from seeds; (a) each tower's attention
+   at its batch shape through ``layers.blockwise_attention`` against the
+   plain version (the D tower's on the tensor-core route, the d tower's on
+   the SIMT one), with the kernel's time and that of the GQA repeat and
+   transposes around it; (b) each tower on the card against its copy on
+   the CPU (D cut to its first 2 layers); (c) the path of
+   ``launch/serve.py``: 2,048 docs of 256 tokens and 64 queries of 32
+   embedded by both towers through ``EmbedTower`` at batch 64, the graph
+   built on d, ``bimetric_search`` and ``rerank_search`` under D at
+   Q in {50, 200}, with tokens/s, D's TFLOP/s against its bound, and peak
+   memory.
 
 Ends with a JSON line of every ported kernel and the result line
 ``{"ok": true, "device": {...}}``. Needs one CUDA device; imports no JAX.
@@ -65,6 +77,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate, f32 rate outside the tensor
@@ -1325,6 +1338,51 @@ def cover_tree_cross(dev, n, dim_d, dim_D, n_queries):
     return out
 
 
+def _hold_wave(corpus, q, ids, other, pools, rng, what):
+    """One search wave held against the plain versions. ``gather_score``
+    scores ``ids`` in the path's form (l2, f32 rows) within phase 2's f32
+    limit; the merge takes those scores into pools of each size in
+    ``pools`` (the best of ``other``, scored plainly, flags drawn from
+    ``rng``) and must equal its plain version exactly. Returns the gather's
+    max error and the merge shapes (B, P, K)."""
+    from repro_torch.kernels import backend, l2_topk, ref
+
+    b = q.shape[0]
+
+    def plain(ids):  # row slices: a whole (B, K, 4096) gather can be 16 GB
+        return torch.cat([l2_topk.gather_score_plain(
+            corpus, q[i:i + 16], ids[i:i + 16], metric="l2")
+            for i in range(0, b, 16)])
+
+    got = l2_topk.gather_score(corpus, q, ids, metric="l2")
+    want = plain(ids)
+    fin = torch.isfinite(want)
+    require(torch.equal(fin, torch.isfinite(got)),
+            f"{what}: gather_score masks other lanes than plain")
+    err = (got[fin] - want[fin]).abs()
+    scale = _term_scale(backend.as_corpus_view(corpus), q, ids, "l2")
+    lim = 1e-5 * torch.maximum(want[fin].abs(), scale[fin])
+    g_err = float(err.max()) if err.numel() else 0.0
+    require(bool((err <= lim).all()),
+            f"{what}: gather_score max err {g_err:.3e}")
+    od, oi = torch.sort(plain(other), dim=1, stable=True)
+    oi = other.gather(1, oi)
+    shapes = []
+    for p in pools:
+        pd = od[:, :p].contiguous()
+        pi = torch.where(torch.isfinite(pd), oi[:, :p],
+                         torch.full_like(oi[:, :p], -1)).contiguous()
+        pf = torch.from_numpy(rng.random((b, p)) < 0.5).to(q.device)
+        args = (pi, pd, pf, ids, got)
+        res = l2_topk.merge_pool_batch(*args)
+        for name, x, y in zip(("ids", "dists", "flags"), res,
+                              ref.merge_pool_batch_ref(*args)):
+            require(torch.equal(x, y), f"{what}: merge "
+                    f"({b},{p},{ids.shape[1]}) {name} differs")
+        shapes.append([b, p, int(ids.shape[1])])
+    return g_err, shapes
+
+
 def check_cover_wave(dev, tree, flat, data, quotas):
     """One level wave of the full-size descent against the plain versions,
     on the card's inputs at the path's shapes: the level whose child rows
@@ -1338,15 +1396,12 @@ def check_cover_wave(dev, tree, flat, data, quotas):
     import numpy as np
 
     from repro_torch.core import covertree
-    from repro_torch.kernels import backend, l2_topk, ref
 
     b = data.queries_D.shape[0]
     chunk = covertree.wave_chunk(flat.fanout)
     t = int(np.argmax([np.diff(ch.indptr).max() for ch in tree.children]))
     members = np.asarray(tree.levels[t])
     rng = np.random.default_rng(17)
-    view = backend.as_corpus_view(data.corpus_D)
-    q = data.queries_D
 
     def wave(first=None):
         # distinct centers a row; slots past the level's members stay -1
@@ -1361,42 +1416,14 @@ def check_cover_wave(dev, tree, flat, data, quotas):
         ids = torch.where((c >= 0)[:, :, None], ids, torch.full_like(ids, -1))
         return ids.reshape(b, -1).contiguous()
 
-    def plain(ids):  # row slices: the whole (B, K, 4096) gather is 16 GB
-        return torch.cat([l2_topk.gather_score_plain(
-            data.corpus_D, q[i:i + 16], ids[i:i + 16], metric="l2")
-            for i in range(0, b, 16)])
-
     ch = tree.children[t]
     ids = wave(first=int(ch.parents[np.argmax(np.diff(ch.indptr))]))
-    got = l2_topk.gather_score(data.corpus_D, q, ids, metric="l2")
-    want = plain(ids)
-    fin = torch.isfinite(want)
-    require(torch.equal(fin, torch.isfinite(got)),
-            "cover-tree wave: gather_score masks other lanes than plain")
-    err = (got[fin] - want[fin]).abs()
-    lim = 1e-5 * torch.maximum(want[fin].abs(),
-                               _term_scale(view, q, ids, "l2")[fin])
-    g_err = float(err.max()) if err.numel() else 0.0
-    require(bool((err <= lim).all()),
-            f"cover-tree wave: gather_score max err {g_err:.3e}")
     other = wave()
-    od, oi = torch.sort(plain(other), dim=1, stable=True)
-    oi = other.gather(1, oi)
+    g_err, shapes = _hold_wave(data.corpus_D, data.queries_D, ids, other,
+                               quotas, rng, "cover-tree wave")
     out = dict(level=t, chunk=chunk, B=b, K=int(ids.shape[1]),
                live_lanes=float((ids >= 0).float().mean()),
-               gather_max_abs_err=g_err, merge_shapes=[])
-    for p in quotas:
-        pd = od[:, :p].contiguous()
-        pi = torch.where(torch.isfinite(pd), oi[:, :p],
-                         torch.full_like(oi[:, :p], -1)).contiguous()
-        pf = torch.from_numpy(rng.random((b, p)) < 0.5).to(dev)
-        args = (pi, pd, pf, ids, got)
-        res = l2_topk.merge_pool_batch(*args)
-        for name, x, y in zip(("ids", "dists", "flags"), res,
-                              ref.merge_pool_batch_ref(*args)):
-            require(torch.equal(x, y), f"cover-tree wave: merge "
-                    f"({b},{p},{ids.shape[1]}) {name} differs")
-        out["merge_shapes"].append([b, p, int(ids.shape[1])])
+               gather_max_abs_err=g_err, merge_shapes=shapes)
     log(f"  level wave check: level {t}, {chunk} centers a query, K "
         f"{out['K']} ({out['live_lanes']:.4f} of lanes live): gather_score "
         f"max err {g_err:.3e}, merge exact at {out['merge_shapes']}")
@@ -1497,6 +1524,361 @@ def cover_tree_slice(dev, ph4, diskann_runs, quotas, rehearse):
 
 
 # --------------------------------------------------------------------------
+# phase 8: the towers
+# --------------------------------------------------------------------------
+# limits of a tower on the card against its copy on the CPU, on the unit
+# embeddings: f32 (the cheap tower) and bf16 (JAX's bf16 tolerance and a
+# cosine per row); fixed before the first run
+TOWER_F32_ABS = 1e-4
+TOWER_BF16_ABS, TOWER_BF16_COS = 2e-2, 0.999
+TOWER_SEEDS = dict(cheap=1, expensive=2)  # init_params seeds
+
+
+def tower_flops(cfg, n_docs, s):
+    """Operations of ``embed_pool`` over n_docs rows of s tokens: the
+    layers' products (2 a weight a token), the causal attention
+    (2·(dh + dv) a valid query-key pair a head) and the embedding head."""
+    d, h, hk, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    weights = d * h * hd + 2 * d * hk * hd + h * hd * d + 3 * d * cfg.d_ff
+    attn = 2 * (hd + hd) * h * s * (s + 1) // 2
+    per_doc = cfg.n_layers * (2 * weights * s + attn) + 2 * d * cfg.embed_dim
+    return n_docs * per_doc
+
+
+def tower_attention(dev, shapes, rehearse):
+    """(a) each tower's attention at the exact shapes of its path (a batch
+    of docs and one of queries), through ``layers.blockwise_attention``
+    (GQA repeated to H heads) against the plain version on the repeated
+    heads; the route's counter must tick once. Then, timed: the kernel
+    alone beside the function's bound, its plain version and SDPA on the
+    same (B, H, S, d) operands, and the layout work around it (q, k, v to
+    (B, H, S, d), k and v repeated, the output back to (B, S, H·dv))."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import layers
+
+    g = torch.Generator(device=dev).manual_seed(18)
+    rows = []
+    for role, b, h, hkv, s, dh, dt in shapes:
+        q = torch.randn(b, s, h, dh, generator=g, device=dev).to(dt)
+        k, v = (torch.randn(b, s, hkv, dh, generator=g, device=dev).to(dt)
+                for _ in range(2))
+        route = f"flash_attention_{fa._attention_route(dt, dh, dh)}"
+        before = dict(fa.launches)
+        got = layers.blockwise_attention(q, k, v, causal=True)
+        ticked = [n for n in fa.launches if fa.launches[n] > before[n]]
+        require(rehearse or ticked == [route],
+                f"tower attention {role}: launched {ticked}, not {route}")
+        rep = h // hkv
+        heads = [t.transpose(1, 2).contiguous() for t in (
+            q, layers.repeat_kv(k, rep), layers.repeat_kv(v, rep))]
+        want = fa.flash_attention_plain(*heads).transpose(1, 2)
+        atol, rtol = MAIN_TOL[dt]
+        what = f"tower attention {role} {(b, h, hkv, s, dh, dt)}"
+        row = dict(role=role, B=b, H=h, Hkv=hkv, S=s, dh=dh, dtype=str(dt),
+                   route=route, tol=(atol, rtol),
+                   max_abs_err=_agree(got, want, atol, what, rtol=rtol))
+        # the function's bytes: q and the output at H heads, k and v at Hkv,
+        # once each; the valid causal pairs
+        row["bound_ms"], row["bound_by"] = bound(
+            (2 * q.numel() + k.numel() + v.numel()) * q.element_size(),
+            2 * (dh + dh) * b * h * s * (s + 1) // 2, _ops_rate(dt))
+        del got, want
+        if not rehearse:
+            def layout(q=q, k=k, v=v, rep=rep, out=heads[0], b=b, s=s, h=h,
+                       dh=dh):  # blockwise_attention's copies around the call
+                for t, r in ((q, 1), (k, rep), (v, rep)):
+                    layers.heads_first(t, r)
+                out.transpose(1, 2).reshape(b, s, h * dh)
+
+            row["kernel_ms"] = time_ms(lambda hd=heads: fa.flash_attention(
+                *hd))
+            row["plain_ms"] = time_ms(lambda hd=heads: fa.flash_attention_plain(
+                *hd), reps=5, inner=2)
+            row["library_ms"] = time_ms(
+                lambda hd=heads: F.scaled_dot_product_attention(
+                    *hd, is_causal=True))
+            row["layout_ms"] = time_ms(layout)
+        rows.append(row)
+        log("  " + json.dumps(row))
+    return rows
+
+
+def _cut_copy(model, n_layers, device):
+    """A copy on ``device`` of ``model``'s first ``n_layers`` layers, its
+    token table, final norm and head."""
+    import dataclasses
+
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(model.cfg, n_layers=n_layers)
+    keep = {k: v for k, v in model.state_dict().items()
+            if not k.startswith("blocks.") or int(k.split(".")[1]) < n_layers}
+    out = T.Transformer(cfg, device=device)
+    out.load_state_dict(keep)
+    return out
+
+
+def tower_cross(dev, cheap, expensive, doc_len, cut_layers):
+    """(b) each tower on the card against its copy on the CPU: the cheap
+    tower whole on 8 docs, the expensive one cut to its first layers on 2
+    docs."""
+    from repro_torch.serve.engine import EmbedTower
+
+    rng = np.random.default_rng(8)
+    out = {}
+    for name, model, n_docs, layers_ in (
+            ("cheap", cheap, 8, cheap.cfg.n_layers),
+            ("expensive", expensive, 2, cut_layers)):
+        card = (model if layers_ == model.cfg.n_layers
+                else _cut_copy(model, layers_, dev))
+        host = _cut_copy(model, layers_, "cpu")
+        toks = rng.integers(0, model.cfg.vocab, (n_docs, doc_len),
+                            dtype=np.int32)
+        t0 = time.perf_counter()
+        # one batch of exactly n_docs rows: a default batch would pad them
+        want = EmbedTower(host, device="cpu").embed(toks, batch=n_docs)
+        cpu_s = time.perf_counter() - t0
+
+        def compare(got, want=want, name=name):
+            require(got.shape == want.shape and np.isfinite(got).all(),
+                    f"tower {name}: shape {got.shape} or non-finite values")
+            return dict(max_abs=float(np.abs(got - want).max()),
+                        min_cos=float(np.min(np.sum(got * want, axis=1))))
+
+        res = dict(n_layers=layers_, docs=n_docs, tokens=doc_len,
+                   dtype=str(model.cfg.dtype), cpu_s=cpu_s,
+                   **compare(EmbedTower(card, device=dev).embed(
+                       toks, batch=n_docs)))
+        if model.cfg.dtype == torch.bfloat16:
+            require(res["max_abs"] <= TOWER_BF16_ABS
+                    and res["min_cos"] >= TOWER_BF16_COS,
+                    f"tower {name} card vs CPU: {res}")
+        else:
+            require(res["max_abs"] <= TOWER_F32_ABS,
+                    f"tower {name} card vs CPU: {res}")
+        del card, host
+        out[name] = res
+        log(f"  tower {name} ({layers_} layers) card vs CPU: {res}")
+    return out
+
+
+def check_tower_waves(idx, emb, pools):
+    """The search kernels at the shapes of phase 8's path, after its counts
+    are read: for each tower's embeddings, an expansion wave (each query
+    scores the graph row of one vertex, K = R) and, under D, the re-rank's
+    scoring wave (K = its largest pool, distinct ids), each held by
+    ``_hold_wave`` with merges into pools of the path's sizes."""
+    rng = np.random.default_rng(19)
+    adj = idx.adjacency
+    out = []
+    for name in ("cheap", "expensive"):
+        corpus, q = emb[name, "docs"], emb[name, "queries"]
+        b, n = q.shape[0], corpus.shape[0]
+        rows = torch.from_numpy(rng.integers(0, n, b)).to(adj.device)
+        distinct = lambda w: torch.from_numpy(np.stack([
+            rng.choice(n, w, replace=False) for _ in range(b)])).to(
+                adj.device, torch.int32)
+        waves = [("expansion", adj[rows].contiguous())]
+        if name == "expensive":
+            waves.append(("re-rank", distinct(max(pools))))
+        for kind, ids in waves:
+            g_err, shapes = _hold_wave(corpus, q, ids, distinct(max(pools)),
+                                       pools, rng, f"{name} {kind} wave")
+            out.append(dict(tower=name, wave=kind, dim=corpus.shape[1],
+                            gather_max_abs_err=g_err, merge_shapes=shapes))
+            log(f"  {name} {kind} wave (dim {corpus.shape[1]}, K "
+                f"{ids.shape[1]}): gather_score max err {g_err:.3e}, merge "
+                f"exact at {shapes}")
+    return out
+
+
+def profile_batch(fn):
+    """Device time of one ``fn()`` by kernel kind, from a ``torch.profiler``
+    trace: products (cuBLAS's kernels: ``nvjet``, ``gemm``, ``xmma``), the
+    attention kernel, and the rest (elementwise, reductions, copies), in
+    ms, with the wall time around it, the device's idle share of that wall
+    time and the six kernels that took longest. ``None`` where the trace
+    shows no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kinds = dict(products=0.0, attention=0.0, other=0.0)
+    top = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", 0.0)
+        if not us or ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = ev.key.lower()
+        kind = ("attention" if "flash_attention" in name else "products"
+                if any(w in name for w in ("nvjet", "gemm", "xmma", "cutlass",
+                                           "cublas")) else "other")
+        kinds[kind] += us / 1e3
+        top.append((us / 1e3, ev.count, ev.key[:90]))
+    busy = sum(kinds.values())
+    if busy == 0:
+        return None
+    return dict(wall_ms=wall * 1e3, busy_ms=busy,
+                idle_share=1 - busy / (wall * 1e3),
+                **{f"{k}_ms": v for k, v in kinds.items()},
+                top=sorted(top, reverse=True)[:6])
+
+
+def tower_slice(dev, sizes, rehearse):
+    """Phase 8: both towers drawn on the card at full size, (a) their
+    attention at its shapes, (b) each against its CPU copy, then (c) the
+    path of ``launch/serve.py``: docs and queries embedded through
+    ``EmbedTower`` at batch 64, the graph built on the d embeddings, and
+    ``bimetric_search`` / ``rerank_search`` under D, recall@10 against the
+    brute-force top-10 under D."""
+    from repro_torch.configs.bimetric_paper import (PAPER_DISKANN,
+                                                    BiMetricSystemConfig)
+    from repro_torch.core import bimetric, distances, metrics, vamana
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import l2_topk
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import EmbedTower
+
+    tw = sizes["towers"]
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    out = {}
+    models = {}
+    for name in ("cheap", "expensive"):
+        cfg = tw[name]()
+        t0 = time.perf_counter()
+        models[name] = T.init_params(TOWER_SEEDS[name], cfg, device=dev)
+        sync()
+        n_params = sum(p.numel() for p in models[name].parameters())
+        out[f"{name}_init"] = dict(config=cfg.name, n_layers=cfg.n_layers,
+                                   d_model=cfg.d_model, dtype=str(cfg.dtype),
+                                   params=n_params,
+                                   s=time.perf_counter() - t0)
+        log(f"  {name} tower {cfg.name}: {n_params} parameters drawn on "
+            f"{dev} in {out[f'{name}_init']['s']:.3f} s")
+    cheap, expensive = models["cheap"], models["expensive"]
+    batch, doc_len, q_len = tw["batch"], tw["doc_len"], tw["query_len"]
+
+    out["attention"] = tower_attention(dev, [
+        (name, batch, m.cfg.n_heads, m.cfg.n_kv_heads, s, m.cfg.head_dim,
+         m.cfg.dtype) for name, m in models.items() for s in (doc_len, q_len)],
+        rehearse)
+    out["cross"] = tower_cross(dev, cheap, expensive, doc_len,
+                               tw["cut_layers"])
+
+    # (c) the path of launch/serve.py; tokens from numpy seed 0
+    rng = np.random.default_rng(0)
+    n, n_q, vocab = tw["docs"], tw["queries"], expensive.cfg.vocab
+    docs = rng.integers(0, vocab, (n, doc_len), dtype=np.int32)
+    queries = docs[rng.integers(0, n, n_q), :q_len].copy()
+    queries[:, : q_len // 2] = rng.integers(0, vocab, (n_q, q_len // 2))
+    towers = dict(cheap=EmbedTower(cheap, device=dev),
+                  expensive=EmbedTower(expensive, device=dev))
+    k = BiMetricSystemConfig().k
+    fa.reset_launches()
+    l2_topk.reset_launches()  # the path starts here
+    emb, embed_s = {}, {}
+    for name, tower in towers.items():
+        for what, toks in (("docs", docs), ("queries", queries)):
+            t0 = time.perf_counter()
+            emb[name, what] = torch.from_numpy(
+                tower.embed(toks, batch=batch)).to(dev)
+            embed_s[name, what] = time.perf_counter() - t0
+    em_D = distances.EmbeddingMetric(emb["expensive", "docs"])
+    em_d = distances.EmbeddingMetric(emb["cheap", "docs"])
+    cfg = PAPER_DISKANN._replace(build_batch=min(PAPER_DISKANN.build_batch, n))
+    t0 = time.perf_counter()
+    idx = vamana.build(emb["cheap", "docs"], cfg, device=dev)
+    sync()
+    out["build_s"] = time.perf_counter() - t0
+    true_ids, _ = em_D.brute_force(emb["expensive", "queries"], k)
+    runs = []
+    for q in tw["quotas"]:
+        for method in ("bimetric", "rerank"):
+            fn = (bimetric.bimetric_search if method == "bimetric"
+                  else bimetric.rerank_search)
+            t0 = time.perf_counter()
+            res = fn(em_d.dists_batch, em_D.dists_batch, idx,
+                     emb["cheap", "queries"], emb["expensive", "queries"],
+                     n_points=n, quota=q, k=k, device=dev)
+            sync()
+            dt = time.perf_counter() - t0
+            require(res.ids.shape == (n_q, k))
+            require(torch.isfinite(res.dists).all())
+            require(int(res.D_calls.max()) <= q, (method, q))
+            runs.append(dict(
+                method=method, Q=q, query_s=dt,
+                recall_at_10=float(metrics.recall_at_k(res.ids,
+                                                       true_ids).mean()),
+                mean_D_calls=float(res.D_calls.float().mean()),
+                max_D_calls=int(res.D_calls.max())))
+            log(f"  {method:8s} Q={q:4d}: {dt:.3f} s, recall@10 "
+                f"{runs[-1]['recall_at_10']:.4f}, D_calls mean "
+                f"{runs[-1]['mean_D_calls']:.1f} max "
+                f"{runs[-1]['max_D_calls']}")
+    launches = dict(**fa.launches, **l2_topk.launches)  # just after the path
+    out.update(runs=runs, launches=launches)
+
+    for key, e in emb.items():
+        require(bool(torch.isfinite(e).all()), f"{key}: non-finite")
+        norm_err = float((e.norm(dim=1) - 1).abs().max())
+        require(norm_err <= 1e-5, f"{key}: not unit rows ({norm_err:.2e})")
+    n_batches = {what: -(-len(t) // batch)
+                 for what, t in (("docs", docs), ("queries", queries))}
+    per_tower = n_batches["docs"] + n_batches["queries"]
+    if not rehearse:
+        require(launches["flash_attention_wgmma"]
+                == expensive.cfg.n_layers * per_tower,
+                f"wgmma launches {launches['flash_attention_wgmma']}")
+        require(launches["flash_attention_simt"]
+                == cheap.cfg.n_layers * per_tower,
+                f"simt launches {launches['flash_attention_simt']}")
+        for name in ("gather_score", "beam_merge_topk"):
+            require(launches[name] > 0, f"{name} was never launched on "
+                                        "phase 8's path")
+    out["wave_checks"] = check_tower_waves(
+        idx, emb, sorted({*tw["quotas"], cfg.l_build}))
+    for name, tower in towers.items():  # one batch embedded twice
+        require(np.array_equal(tower.embed(docs[:batch], batch=batch),
+                               tower.embed(docs[:batch], batch=batch)),
+                f"{name}: two embed calls of one batch differ")
+
+    for name, model in models.items():
+        s = embed_s[name, "docs"]
+        ops = tower_flops(model.cfg, n, doc_len)
+        out[name] = dict(
+            docs_s=s, queries_s=embed_s[name, "queries"],
+            tokens_per_s=n * doc_len / s, doc_tflop=ops / 1e12,
+            tflop_per_s=ops / s / 1e12, batches=n_batches,
+            step_s=s / n_batches["docs"])
+        if model.cfg.dtype == torch.bfloat16:
+            out[name]["bound_s"] = ops / BF16_OPS_PER_S
+        att = next(r for r in out["attention"]
+                   if r["role"] == name and r["S"] == doc_len)
+        if "layout_ms" in att:  # per layer at the doc batch, over a step
+            for part in ("layout", "kernel"):
+                out[name][f"attention_{part}_share"] = (
+                    model.cfg.n_layers * att[f"{part}_ms"] / 1e3
+                    / out[name]["step_s"])
+        if not rehearse:  # one doc batch, traced: where a step's time goes
+            out[name]["profile"] = profile_batch(
+                lambda t=towers[name]: t.embed(docs[:batch], batch=batch))
+        log(f"  {name} tower: {json.dumps(out[name])}")
+    if dev.type == "cuda":
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        log(f"  max_memory_allocated {out['max_memory_allocated']} bytes")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=171_332,
@@ -1512,6 +1894,9 @@ def main() -> int:
     if not rehearse and not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
+    from repro_torch.configs.bimetric_paper import (cheap_tower,
+                                                    cheap_tower_smoke,
+                                                    expensive_tower)
     from repro_torch.kernels import _build, l2_topk
 
     dev = torch.device("cpu" if rehearse else "cuda")
@@ -1549,7 +1934,11 @@ def main() -> int:
                               True)),
                      bag_table=(4096, 18),
                      bag=(("din train_batch, toy", 256, 100),
-                          ("din serve_p99, toy", 16, 100)))
+                          ("din serve_p99, toy", 16, 100)),
+                     towers=dict(cheap=cheap_tower_smoke,
+                                 expensive=cheap_tower_smoke, cut_layers=1,
+                                 docs=150, doc_len=24, queries=8,
+                                 query_len=8, batch=64, quotas=(20, 40)))
     else:
         # timing shapes: build wave (B=1024), stage-1 wave, stage-2 wave,
         # stage-2 entry wave (K = Q/2 seeds), re-rank scoring wave (K = Q)
@@ -1575,7 +1964,15 @@ def main() -> int:
                               1, 32, 32768, 128, BF16, True)),
                      bag_table=(1 << 20, 18),
                      bag=(("din train_batch", 65536, 100),
-                          ("din serve_p99", 512, 100)))
+                          ("din serve_p99", 512, 100)),
+                     # phase 8: both towers full size, random weights;
+                     # launch/serve.py's path at 2,048 docs of 256 tokens
+                     # and 64 queries of 32, batch 64; the D tower's
+                     # check on the CPU cut to its first 2 layers
+                     towers=dict(cheap=cheap_tower,
+                                 expensive=expensive_tower, cut_layers=2,
+                                 docs=2048, doc_len=256, queries=64,
+                                 query_len=32, batch=64, quotas=(50, 200)))
 
     t0 = time.perf_counter()
     log("phase 2: kernels vs plain versions")
@@ -1631,13 +2028,22 @@ def main() -> int:
     report["covertree"] = dict(cross=ct_cross, full=ct)
     report["phase7_s"] = time.perf_counter() - t0
 
+    t0 = time.perf_counter()
+    log("phase 8: the towers (embed_pool through EmbedTower, then search)")
+    tw = tower_slice(dev, sizes, rehearse)
+    report["towers"] = tw
+    report["phase8_s"] = time.perf_counter() - t0
+
     kernels = [
         dict(name="gather_score", route="cuda",
              source="src/repro_torch/kernels/csrc/l2_topk.cu",
              replaces="src/repro/kernels/l2_topk.py:158",
              launches=full["launches"]["gather_score"],
              launches_covertree=ct["launches"]["gather_score"],
-             max_abs_err=max(g_err, ct["wave_check"]["gather_max_abs_err"]),
+             launches_towers=tw["launches"]["gather_score"],
+             max_abs_err=max(g_err, ct["wave_check"]["gather_max_abs_err"],
+                             *(w["gather_max_abs_err"]
+                               for w in tw["wave_checks"])),
              ms=g_timed.get("ms"), plain_ms=g_timed.get("plain_ms"),
              bound_ms=g_timed["bound_ms"], bound_by=g_timed["bound_by"],
              library_ms=None, device_ms=g_timed.get("device_ms")),
@@ -1654,6 +2060,7 @@ def main() -> int:
              replaces="src/repro/kernels/l2_topk.py:355",
              launches=full["launches"]["beam_merge_topk"],
              launches_covertree=ct["launches"]["beam_merge_topk"],
+             launches_towers=tw["launches"]["beam_merge_topk"],
              max_abs_err=m_err,
              ms=m_timed.get("ms"), plain_ms=m_timed.get("plain_ms"),
              bound_ms=m_timed["bound_ms"], bound_by=m_timed["bound_by"],
@@ -1671,17 +2078,24 @@ def main() -> int:
             ("flash_decode", "flash_attention", "flash_attention.py:163"),
             ("embedding_bag", "embedding_bag", "embedding_bag.py:45")):
         row = next(r for r in off_rows if r["kernel"] == name)
+        errs = [off_errs[name]] + [r["max_abs_err"] for r in off_rows
+                                   if r["kernel"] == name]
+        extra = {}
+        if name == "flash_attention":  # phase 8: the towers' layers
+            errs += [r["max_abs_err"] for r in tw["attention"]]
+            extra["launches_towers"] = sum(
+                n for k, n in tw["launches"].items()
+                if k.startswith(name + "_"))
         kernels.append(dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{src}.cu",
             replaces=f"src/repro/kernels/{replaces}",
             launches=sum(n for k, n in off_launches.items()
                          if k == name or k.startswith(name + "_")),
-            max_abs_err=max([off_errs[name]] + [
-                r["max_abs_err"] for r in off_rows if r["kernel"] == name]),
-            ms=row.get("ms"), plain_ms=row.get("plain_ms"),
-            bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-            library_ms=row.get("library_ms"), device_ms=row.get("device_ms")))
+            max_abs_err=max(errs), ms=row.get("ms"),
+            plain_ms=row.get("plain_ms"), bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=row.get("library_ms"),
+            device_ms=row.get("device_ms"), **extra))
     report["kernels"] = kernels
     report["smoke_s"] = time.perf_counter() - t_start
     log(f"smoke finished in {report['smoke_s']:.1f} s (from start of main)")

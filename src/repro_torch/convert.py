@@ -1,4 +1,5 @@
-"""Carry index and corpus state built elsewhere (as numpy arrays) into the port.
+"""Carry index, corpus and model state built elsewhere (as numpy arrays) into
+the port.
 
 The JAX package and the port draw different random bits, so tests that run
 both on one state build it once, hand it across as numpy arrays and wrap it
@@ -13,6 +14,7 @@ import torch
 from repro_torch.core.covertree import FlatCoverTree
 from repro_torch.core.vamana import VamanaConfig, VamanaIndex
 from repro_torch.kernels.backend import CorpusView, resolve_device
+from repro_torch.models.transformer import Transformer, TransformerConfig
 
 _BY_NAME = {"bfloat16": (np.uint16, torch.bfloat16),
             "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
@@ -58,3 +60,44 @@ def flat_cover_tree_from_numpy(children, radii, root_ids, scale, T, n,
         radii=np.array(radii, np.float64), root_ids=np.array(root_ids,
                                                              np.int32),
         scale=float(scale), T=float(T), n=int(n))
+
+
+def _flatten(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            out.update(_flatten(val, f"{prefix}{key}."))
+        else:
+            out[prefix + key] = val
+    return out
+
+
+def transformer_from_numpy(params: dict, cfg: TransformerConfig,
+                           device=None) -> Transformer:
+    """A :class:`Transformer` on ``device`` holding a JAX parameter pytree
+    (``transformer.init_params``' layout, leaves as numpy arrays): the
+    leading L axis of ``dense_blocks`` is unstacked into the per-layer
+    blocks, and every array is copied bit for bit (bf16 included). Names,
+    shapes and dtypes must match the model's exactly."""
+    dev = resolve_device(device)
+    model = Transformer(cfg, dev)
+    flat = _flatten({k: v for k, v in params.items() if k != "dense_blocks"})
+    for name, arr in _flatten(params.get("dense_blocks", {})).items():
+        for i in range(np.shape(arr)[0]):
+            flat[f"blocks.{i}.{name}"] = np.asarray(arr)[i]
+    want = dict(model.named_parameters())
+    if flat.keys() != want.keys():
+        raise ValueError(
+            f"transformer_from_numpy: {cfg.name}: parameters "
+            f"{sorted(flat.keys() ^ want.keys())} are in only one of the "
+            "pytree and the model")
+    with torch.no_grad():
+        for name, arr in flat.items():
+            t = tensor_from_numpy(arr, dev)
+            if t.shape != want[name].shape or t.dtype != want[name].dtype:
+                raise ValueError(
+                    f"transformer_from_numpy: {name} is {tuple(t.shape)} "
+                    f"{t.dtype}, the model's {tuple(want[name].shape)} "
+                    f"{want[name].dtype}")
+            want[name].copy_(t)
+    return model

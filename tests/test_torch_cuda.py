@@ -644,3 +644,84 @@ def test_cover_tree_search_on_card_equals_cpu(dev):
             assert torch.equal(got.n_calls.cpu(), want.n_calls)
             torch.testing.assert_close(got.dists.cpu(), want.dists,
                                        rtol=1e-5, atol=1e-5)
+
+
+def _tower_on_both(cfg):
+    """A tower drawn on the card and its copy on the CPU."""
+    from repro_torch.models import transformer
+
+    card = transformer.init_params(11, cfg, device="cuda")
+    host = transformer.Transformer(cfg, device="cpu")
+    host.load_state_dict(card.state_dict())
+    return card, host
+
+
+TOWER_CFGS = {
+    # bf16 GQA, 8 query heads over 2 kv heads, qk-norm: the tensor-core route
+    "gqa_bf16": dict(name="gqa-bf16", n_layers=2, d_model=256, n_heads=8,
+                     n_kv_heads=2, head_dim=32, d_ff=512, vocab=1000,
+                     qk_norm=True, dtype=torch.bfloat16, embed_dim=128,
+                     rope_theta=1e6),
+    # f32, the cheap tower's smoke width: the SIMT route
+    "f32": dict(name="f32", n_layers=2, d_model=64, n_heads=4, n_kv_heads=4,
+                head_dim=16, d_ff=128, vocab=512, embed_dim=32),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", list(TOWER_CFGS))
+def test_tower_on_card_equals_cpu(dev, which):
+    """The tower on the card against its copy on the CPU (whose attention is
+    the plain version), at phase 8's limits: f32 max |d| <= 1e-4; bf16
+    cosine >= 0.999 per row and max |d| <= 2e-2. Each layer's attention
+    launches its route's kernel once; an id out of range (-1, V, V+3,
+    -V-5) neither asserts on the card nor differs from the CPU."""
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import EmbedTower
+
+    cfg = transformer.TransformerConfig(**TOWER_CFGS[which])
+    card, host = _tower_on_both(cfg)
+    rng = np.random.default_rng(4)
+    toks = rng.integers(0, cfg.vocab, (5, 70), dtype=np.int32)
+    toks[1, :4] = [-1, cfg.vocab, cfg.vocab + 3, -cfg.vocab - 5]
+    route = ("flash_attention_wgmma" if cfg.dtype == torch.bfloat16
+             else "flash_attention_simt")
+    flash_attention.reset_launches()
+    got = EmbedTower(card).embed(toks, batch=4)
+    torch.cuda.synchronize()
+    assert flash_attention.launches[route] == cfg.n_layers * 2
+    assert sum(flash_attention.launches.values()) == cfg.n_layers * 2
+    want = EmbedTower(host, device="cpu").embed(toks, batch=4)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(np.linalg.norm(got, axis=1), 1.0, atol=1e-5)
+    err = np.abs(got - want).max()
+    if cfg.dtype == torch.bfloat16:
+        assert err <= 2e-2 and (np.sum(got * want, axis=1) >= 0.999).all()
+    else:
+        assert err <= 1e-4
+    assert np.array_equal(EmbedTower(card).embed(toks, batch=4), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [200, 32])
+def test_blockwise_attention_on_card_is_the_kernel(dev, s):
+    """GQA attention at a D-tower layer's head shape (32 over 8 heads, dh
+    128, bf16; S of a doc-like length and of a query's 32 tokens) through
+    the wgmma route, within the full-width limit of the plain version on
+    the repeated heads."""
+    from repro_torch.models import layers
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    q = torch.randn(2, s, 32, 128, generator=g, device=dev).bfloat16()
+    k, v = (torch.randn(2, s, 8, 128, generator=g, device=dev).bfloat16()
+            for _ in range(2))
+    before = flash_attention.launches["flash_attention_wgmma"]
+    got = layers.blockwise_attention(q, k, v, causal=True)
+    assert flash_attention.launches["flash_attention_wgmma"] == before + 1
+    want = flash_attention.flash_attention_plain(
+        *(layers.repeat_kv(t, r).transpose(1, 2).contiguous()
+          for t, r in ((q, 1), (k, 4), (v, 4)))).transpose(1, 2)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=1e-3)
+    with pytest.raises(ValueError, match="q_offset"):
+        layers.blockwise_attention(q, k, v, causal=True, q_offset=1)

@@ -96,3 +96,37 @@ def test_entry_points_without_device_raise_on_cpu_host():
                                        shards=shards, beam_width=4)
     ids, _, _ = vamana.search(idx, x, x[:2], k=3, device="cpu")
     assert ids.device.type == "cpu"
+
+    # the towers: weights drawn, converted or served only where asked
+    from repro_torch import convert
+    from repro_torch.configs.bimetric_paper import cheap_tower_smoke
+    from repro_torch.models import transformer
+    from repro_torch.serve.engine import EmbedTower
+
+    cfg = cheap_tower_smoke()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        transformer.init_params(0, cfg)
+    model = transformer.init_params(0, cfg, device="cpu")
+    # the model's weights as a JAX pytree: dense_blocks stacked over layers
+    pytree = {"dense_blocks": {}}
+    for name, w in model.named_parameters():
+        if name.startswith("blocks."):
+            *outer, leaf = name.split(".", 2)[2].split(".")
+            node = pytree["dense_blocks"]
+            for key in outer:
+                node = node.setdefault(key, {})
+            node.setdefault(leaf, []).append(w.detach().numpy())
+        else:
+            pytree[name] = w.detach().numpy()
+    pytree["dense_blocks"] = {
+        k: ({kk: np.stack(vv) for kk, vv in v.items()} if isinstance(v, dict)
+            else np.stack(v)) for k, v in pytree["dense_blocks"].items()}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.transformer_from_numpy(pytree, cfg)
+    again = convert.transformer_from_numpy(pytree, cfg, device="cpu")
+    assert all(torch.equal(a, b) for a, b in zip(again.parameters(),
+                                                  model.parameters()))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        EmbedTower(again)
+    toks = np.zeros((3, 5), np.int64)
+    assert EmbedTower(again, device="cpu").embed(toks).shape == (3, 32)
