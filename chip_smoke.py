@@ -56,7 +56,19 @@ Phases (any failure exits nonzero and prints no result line):
    embedded by both towers through ``EmbedTower`` at batch 64, the graph
    built on d, ``bimetric_search`` and ``rerank_search`` under D at
    Q in {50, 200}, with tokens/s, D's TFLOP/s against its bound, and peak
-   memory.
+   memory;
+9. the serving engine, ``BiMetricEngine`` on phase 8's towers and docs,
+   with 64 queries of the docs' length (a doc with its first half redrawn)
+   at Q alternating 50 and 200, 16 slots: (a) each tower's embedding of a
+   row bit-equal across batch compositions; (b) the sync drive from an
+   empty doc cache, with requests/s, D batches, docs a batch, D's share
+   and recall@10 under D; (c) the async slot drive (mixed priorities) from
+   an empty cache, bit-equal to (b), with latency percentiles; (d) on the
+   warm cache, transient drain faults (bit-equal, retried) and a
+   persistent outage under ``degrade`` (each answer its stage-1 proxy
+   ranking); (e) a cover-tree engine, sync = async; (f) the re-rank
+   baseline; the kernels' launches counted over (b)-(f); (g) one stage-2
+   slot wave (B=16, dim 4096) against the plain gather and merge.
 
 Ends with a JSON line of every ported kernel and the result line
 ``{"ok": true, "device": {...}}``. Needs one CUDA device; imports no JAX.
@@ -1876,6 +1888,353 @@ def tower_slice(dev, sizes, rehearse):
     if dev.type == "cuda":
         out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
         log(f"  max_memory_allocated {out['max_memory_allocated']} bytes")
+    # phase 9 serves on these towers, tokens and embeddings
+    ph8 = dict(towers=towers, docs=docs, queries=queries, emb=emb, k=k,
+               batch=batch)
+    return out, ph8
+
+
+# --------------------------------------------------------------------------
+# phase 9: the serving engine
+# --------------------------------------------------------------------------
+class _TimedTower:
+    """An ``EmbedTower`` whose ``embed`` calls are timed: the wall time of
+    the tower's forward passes (each call ends in a copy to the host, so
+    it waits for the card), and the document batches and rows it embedded
+    (calls whose rows are all rows of ``docs``; the engine's query embeds
+    are not). The engine calls only ``embed``."""
+
+    def __init__(self, inner, docs):
+        self.inner, self.device = inner, inner.device
+        self.docs = {row.tobytes() for row in docs}
+        self.reset()
+
+    def reset(self):
+        self.seconds, self.doc_batches, self.doc_rows = 0.0, 0, 0
+
+    def embed(self, tokens, batch=64):
+        t0 = time.perf_counter()
+        out = self.inner.embed(tokens, batch=batch)
+        self.seconds += time.perf_counter() - t0
+        if all(row.tobytes() in self.docs for row in tokens):
+            self.doc_batches += -(-len(tokens) // batch)
+            self.doc_rows += len(tokens)
+        return out
+
+
+def batch_free(towers, docs, queries, emb, batch, n_few):
+    """(a) A tower's embedding of a row must not depend on its batch-mates:
+    docs 0..batch-1, embedded in phase 8 as one batch in order, again
+    shuffled among docs batch..2·batch-1 over two batches; and the first
+    ``n_few`` queries alone in a batch padded with zero rows against the
+    full batch of queries. Bit for bit, for both towers. Returns each
+    tower's embeddings of ``queries`` (on the card)."""
+    rng = np.random.default_rng(20)
+    out, q_emb = {}, {}
+    for name in ("expensive", "cheap"):
+        tw = towers[name]
+        perm = rng.permutation(2 * batch)
+        got = tw.embed(docs[perm], batch=batch)
+        want = emb[name, "docs"][:batch].cpu().numpy()
+        mine = perm < batch
+        require(np.array_equal(got[mine], want[perm[mine]]),
+                f"{name}: a doc's embedding depends on its batch")
+        full = tw.embed(queries, batch=batch)
+        require(np.array_equal(tw.embed(queries[:n_few], batch=batch),
+                               full[:n_few]),
+                f"{name}: a query's embedding depends on its batch")
+        q_emb[name] = torch.from_numpy(full).to(emb[name, "docs"].device)
+        out[name] = dict(docs=batch, queries=n_few, bit_equal=True)
+    log(f"  (a) rows bit-equal across batch compositions: {out}")
+    return out, q_emb
+
+
+def _same_results(got, want, what):
+    for i, (g, w) in enumerate(zip(got, want)):
+        require(np.array_equal(g.ids, w.ids)
+                and np.array_equal(g.dists, w.dists)
+                and g.stats.D_calls == w.stats.D_calls
+                and g.stats.d_calls == w.stats.d_calls,
+                f"{what}: request {i} differs from the sync drive")
+
+
+def _pct(xs):
+    return dict(p50=float(np.percentile(xs, 50)),
+                p99=float(np.percentile(xs, 99)))
+
+
+def _share_doc_cache(src, dst):
+    """Hand ``src`` engine's D document cache to ``dst`` (the cover-tree
+    engine of (e) starts warm; only (b) and (c) start from an empty
+    cache). Private state: the engine has no public way to seed it."""
+    dst._emb_D = src._emb_D.clone()
+    dst._emb_D_valid[:] = src._emb_D_valid
+
+
+def serve_waves(eng, ct, q_emb, quotas, k):
+    """(g) The waves the slot pool sends to the kernels, with B = slots
+    queries (``q_emb`` holds each tower's embeddings of them), each held by
+    ``_hold_wave`` with merges at the pool size the slot pool gives it.
+    Stage 1 under d: an expansion wave (K = R, a vertex's graph row) on the
+    cheap embeddings, merged at the stage-1 pool. Stage 2 under D, on the D
+    cache (private state, read only), at the slot pool's P: the entry wave
+    (each row's Q/2 distinct seeds, -1 padded to the seed cap), a Vamana
+    expansion wave and a cover-tree chunk wave of ``ct`` (``wave_chunk``
+    distinct centers of the level with the widest child rows, K = chunk x
+    R, -1 where a center has fewer children)."""
+    rng = np.random.default_rng(21)
+    q_d, q_D = q_emb["cheap"], q_emb["expensive"]
+    dev, b, n = q_D.device, q_D.shape[0], eng.n
+    pow2 = lambda x: 1 << (int(x) - 1).bit_length()
+    quota = np.array([quotas[i % 2] for i in range(b)])
+    nseed = np.maximum(1, quota // 2)
+    p_1 = pow2(np.maximum(32, nseed).max())
+    p_vam = pow2(max(max(k, min(x, 2 * max(1, x // 2) + 8)) for x in quotas))
+    children, chunk = ct._flat.children, ct._ct_chunk
+    p_ct = max(pow2(max(k, len(ct._flat.root_ids), min(n, max(quotas)))),
+               chunk)
+
+    def distinct(w):
+        return np.stack([rng.choice(n, w, replace=False) for _ in range(b)])
+
+    cap = pow2(nseed.max())
+    entry = np.where(np.arange(cap)[None, :] < nseed[:, None],
+                     distinct(cap), -1)
+    adj = eng.index.adjacency
+
+    def expansion():
+        return adj[torch.from_numpy(rng.integers(0, n, b)).to(dev)]
+
+    width = (children >= 0).sum(dim=2).amax(dim=1)
+    t = int(torch.argmax(width))
+    members = torch.nonzero(children[t, :, 0] >= 0)[:, 0].cpu().numpy()
+    m = min(chunk, len(members))
+    centers = np.full((b, chunk), -1)
+    for i in range(b):
+        centers[i, :m] = rng.choice(members, m, replace=False)
+    centers = torch.from_numpy(centers).to(dev)
+    cover = children[t][centers.clamp(min=0)]
+    cover = torch.where((centers >= 0)[:, :, None], cover,
+                        torch.full_like(cover, -1)).reshape(b, -1)
+    out = []
+    for name, corpus, q, ids, p in (
+            ("stage-1 expansion", eng.emb_d, q_d, expansion(), p_1),
+            ("entry", eng._emb_D, q_D,
+             torch.from_numpy(entry).to(dev, torch.int32), p_vam),
+            ("vamana expansion", eng._emb_D, q_D, expansion(), p_vam),
+            ("cover-tree chunk", eng._emb_D, q_D, cover, p_ct)):
+        ids = ids.contiguous()
+        other = torch.from_numpy(distinct(p)).to(dev, torch.int32)
+        g_err, shapes = _hold_wave(corpus, q, ids, other, [p], rng,
+                                   f"serve {name} wave")
+        out.append(dict(wave=name, B=b, K=int(ids.shape[1]),
+                        dim=int(corpus.shape[1]), P=p,
+                        live_lanes=float((ids >= 0).float().mean()),
+                        gather_max_abs_err=g_err, merge_shapes=shapes))
+        log(f"  (g) {name} wave (B {b}, K {ids.shape[1]}, dim "
+            f"{corpus.shape[1]}): gather_score max err {g_err:.3e}, "
+            f"merge exact at {shapes}")
+    return out
+
+
+def serve_slice(dev, ph8, sizes, rehearse):
+    """Phase 9: ``BiMetricEngine`` on phase 8's towers, docs and queries.
+    (a) batch-free embeddings; (b) the sync drive from an empty doc cache;
+    (c) the async slot drive from an empty cache, bit-equal to (b); (d)
+    transient drain faults (bit-equal) and a persistent outage under
+    ``degrade`` (the stage-1 proxy ranking), on the warm cache; (e) the
+    cover-tree engine, sync = async; (f) the re-rank baseline; launches
+    counted over (b)-(f); (g) the path's wave shapes against the plain
+    versions."""
+    import dataclasses
+
+    from repro_torch.configs.bimetric_paper import PAPER_DISKANN
+    from repro_torch.core import beam, distances, metrics
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import l2_topk
+    from repro_torch.serve import (BiMetricEngine, FaultPlan, FaultSpec,
+                                   SearchRequest)
+
+    sv = sizes["serve"]
+    towers, docs, emb = ph8["towers"], ph8["docs"], ph8["emb"]
+    k, batch = ph8["k"], ph8["batch"]
+    n, seq = docs.shape
+    n_q, n_f, slots, wait = sv["queries"], sv["few"], sv["slots"], sv["wait"]
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    # the slot pool admits token rows of the corpus's length only (as the
+    # JAX engine does), so phase 9 draws its queries as launch/serve.py
+    # does: a doc with its first half redrawn, numpy seed 22
+    rng = np.random.default_rng(22)
+    queries = docs[rng.integers(0, n, n_q)].copy()
+    queries[:, :seq // 2] = rng.integers(
+        0, min(t.cfg.vocab for t in towers.values()), (n_q, seq // 2))
+    out = dict(N=n, queries=n_q, query_len=seq, slots=slots,
+               quotas=sv["quotas"], tower_batch=batch)
+    out["batch_free"], q_emb = batch_free(towers, docs, queries, emb, batch,
+                                          n_f)
+
+    timed = _TimedTower(towers["expensive"], docs)
+    reqs = [SearchRequest(tokens=queries[i], quota=sv["quotas"][i % 2], k=k,
+                          priority=i % 3) for i in range(n_q)]
+    quota = np.array([r.quota for r in reqs])
+    em_D = distances.EmbeddingMetric(emb["expensive", "docs"])
+    true_ids, _ = em_D.brute_force(q_emb["expensive"], k)
+    fa.reset_launches()
+    l2_topk.reset_launches()  # the path starts here
+    t0 = time.perf_counter()
+    cfg = PAPER_DISKANN._replace(build_batch=min(PAPER_DISKANN.build_batch,
+                                                 n))
+    eng = BiMetricEngine(towers["cheap"], timed, docs, index_cfg=cfg,
+                         tower_batch=batch, slots=slots, device=dev)
+    sync()
+    out["engine_s"] = time.perf_counter() - t0
+
+    def run_stats(res, dt):
+        for r, q in zip(res, quota):
+            require(r.stats.D_calls <= q, f"D_calls {r.stats.D_calls} > {q}")
+            require(len(r.ids) == min(k, q) and np.isfinite(r.dists).all(),
+                    "serve: short or non-finite result row")
+        ids = np.full((len(res), k), -1, np.int64)
+        for i, r in enumerate(res):
+            ids[i, :len(r.ids)] = r.ids
+        rec = metrics.recall_at_k(torch.from_numpy(ids),
+                                  true_ids.cpu().long()[:len(res)])
+        row = dict(s=dt, requests_per_s=len(res) / dt,
+                   d_calls_mean=float(np.mean([r.stats.d_calls
+                                               for r in res])),
+                   doc_batches=timed.doc_batches, docs_embedded=timed.doc_rows,
+                   docs_per_batch=timed.doc_rows / max(timed.doc_batches, 1),
+                   D_s=timed.seconds, D_share=timed.seconds / dt)
+        for q in sv["quotas"]:
+            sel = quota[:len(res)] == q
+            row[f"Q{q}"] = dict(
+                recall_at_10=float(rec[torch.from_numpy(sel)].mean()),
+                D_calls_mean=float(np.mean([r.stats.D_calls for r, s in
+                                            zip(res, sel) if s])))
+        return row
+
+    # (b) the sync drive, from an empty doc cache
+    timed.reset()
+    t0 = time.perf_counter()
+    res_b = eng.query_batch(reqs)
+    sync()
+    out["sync"] = run_stats(res_b, time.perf_counter() - t0)
+    out["sync"]["tower_batches"] = res_b[0].stats.tower_batches
+    log(f"  (b) sync: {json.dumps(out['sync'])}")
+
+    # (c) the async slot drive, from an empty doc cache again
+    eng.reset_doc_cache()
+    timed.reset()
+    t0 = time.perf_counter()
+    futs = [eng.submit(r) for r in reqs]
+    res_c = [f.result(timeout=wait) for f in futs]
+    out["async"] = run_stats(res_c, time.perf_counter() - t0)
+    _same_results(res_c, res_b, "async drive")
+    out["async"].update(
+        latency_ms=_pct([r.stats.latency_ms for r in res_c]),
+        queue_ms=_pct([r.stats.queue_ms for r in res_c]),
+        compute_ms=_pct([r.stats.compute_ms for r in res_c]),
+        counters=dataclasses.asdict(eng.counters()))
+    log(f"  (c) async = sync bit for bit: {json.dumps(out['async'])}")
+
+    # (d) faults on the warm cache. The engine takes faults= when it is
+    # built; they are set on this one so that it keeps its warm cache.
+    sub = reqs[:n_f]
+    burst = 2  # at most tower_retries: every burst is recovered
+    require(burst <= eng.tower_retries)
+    plan = FaultPlan(seed=5, drain=FaultSpec(rate=0.3, burst=burst))
+    eng._faults = plan
+    before = eng.counters()
+    t0 = time.perf_counter()
+    res_d = [f.result(timeout=wait) for f in [eng.submit(r) for r in sub]]
+    dt = time.perf_counter() - t0
+    _same_results(res_d, res_b[:n_f], "transient drain faults")
+    retries = eng.counters().retries - before.retries
+    require(retries > 0 and plan.fired("drain") > 0,
+            "transient faults: nothing fired or was retried")
+    out["transient"] = dict(s=dt, fired=plan.fired("drain"),
+                            retries=retries)
+    eng._faults = FaultPlan(seed=6, drain=FaultSpec(rate=1.0,
+                                                    mode="persistent"))
+    eng.on_tower_failure = "degrade"
+    t0 = time.perf_counter()
+    res_g = [f.result(timeout=wait) for f in [eng.submit(r) for r in sub]]
+    dt = time.perf_counter() - t0
+    require(all(r.stats.degraded for r in res_g),
+            "persistent faults: a request was not degraded")
+    out["degrade"] = dict(s=dt, health=eng.health())
+    eng._faults = None
+    eng.on_tower_failure = "fail"
+    log(f"  (d) transient faults bit-equal: {json.dumps(out['transient'])}; "
+        f"persistent, degrade: {dt:.3f} s (held to the proxy rankings after "
+        f"the counts); health {json.dumps(out['degrade']['health'])}")
+
+    # (e) the cover tree: sync = async on the warm cache
+    t0 = time.perf_counter()
+    ct = BiMetricEngine(towers["cheap"], timed, docs, index="covertree",
+                        tower_batch=batch, slots=slots, device=dev)
+    sync()
+    build_s = time.perf_counter() - t0
+    _share_doc_cache(eng, ct)
+    t0 = time.perf_counter()
+    res_e = ct.query_batch(sub)
+    sync_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res_ea = [f.result(timeout=wait) for f in [ct.submit(r) for r in sub]]
+    async_s = time.perf_counter() - t0
+    _same_results(res_ea, res_e, "cover-tree async drive")
+    for r, q in zip(res_e, quota):
+        require(r.stats.D_calls <= q and len(r.ids) > 0,
+                f"cover tree: D_calls {r.stats.D_calls} > {q} or empty")
+    out["covertree"] = dict(
+        engine_s=build_s, depth=ct._flat.depth, sync_s=sync_s,
+        async_s=async_s,
+        D_calls_mean=float(np.mean([r.stats.D_calls for r in res_e])))
+    log(f"  (e) cover tree, async = sync: {json.dumps(out['covertree'])}")
+
+    # (f) the re-rank baseline
+    t0 = time.perf_counter()
+    ids_f, dd_f, st_f = eng.rerank_query_batch(queries[:n_f],
+                                               quota=sv["rerank_q"], k=k)
+    sync()
+    require(all(s.D_calls <= sv["rerank_q"] for s in st_f)
+            and np.isfinite(dd_f).all(), "rerank: over quota or non-finite")
+    out["rerank"] = dict(s=time.perf_counter() - t0, Q=sv["rerank_q"],
+                         D_calls_max=max(s.D_calls for s in st_f))
+    launches = dict(**fa.launches, **l2_topk.launches)  # just after (b)-(f)
+    out["launches"] = launches
+    log(f"  (f) rerank: {json.dumps(out['rerank'])}; launches over (b)-(f) "
+        f"{launches}")
+    if not rehearse:
+        for name in ("gather_score", "beam_merge_topk",
+                     "flash_attention_wgmma", "flash_attention_simt"):
+            require(launches[name] > 0, f"{name} was never launched on "
+                                        "phase 9's path")
+
+    # (d, after the counts) each degraded request is its stage-1 proxy
+    # ranking, as the slot pool runs it (per-row width max(32, Q/2) and 4x
+    # its steps, from the medoid); this reference search launches the
+    # search kernels, so it runs after the path's counts are read
+    nseed = np.maximum(1, quota[:n_f] // 2)
+    width = np.maximum(32, nseed).astype(np.int32)
+    proxy = beam.batched_greedy_search(
+        distances.EmbeddingMetric(eng.emb_d).dists_batch,
+        eng.index.adjacency, q_emb["cheap"][:n_f],
+        torch.full((n_f, 1), int(eng.index.medoid), dtype=torch.int32,
+                   device=dev), n_points=n, beam_width=width,
+        pool_size=int(width.max()), max_steps=4 * width)
+    for i, r in enumerate(res_g):
+        want = proxy.pool_ids[i, :k].cpu().numpy()
+        require(np.array_equal(r.ids, want[want >= 0]),
+                f"degraded request {i} is not its proxy ranking")
+    log("  (d) every degraded request is its stage-1 proxy ranking")
+
+    # (g) the path's wave shapes held against the plain versions
+    out["wave_check"] = serve_waves(
+        eng, ct, {name: e[:slots] for name, e in q_emb.items()},
+        sv["quotas"], k)
+    ct.close(timeout=wait)
+    eng.close(timeout=wait)
     return out
 
 
@@ -1938,7 +2297,9 @@ def main() -> int:
                      towers=dict(cheap=cheap_tower_smoke,
                                  expensive=cheap_tower_smoke, cut_layers=1,
                                  docs=150, doc_len=24, queries=8,
-                                 query_len=8, batch=64, quotas=(20, 40)))
+                                 query_len=8, batch=64, quotas=(20, 40)),
+                     serve=dict(queries=8, few=4, slots=4, quotas=(20, 40),
+                                rerank_q=20, wait=120))
     else:
         # timing shapes: build wave (B=1024), stage-1 wave, stage-2 wave,
         # stage-2 entry wave (K = Q/2 seeds), re-rank scoring wave (K = Q)
@@ -1972,7 +2333,12 @@ def main() -> int:
                      towers=dict(cheap=cheap_tower,
                                  expensive=expensive_tower, cut_layers=2,
                                  docs=2048, doc_len=256, queries=64,
-                                 query_len=32, batch=64, quotas=(50, 200)))
+                                 query_len=32, batch=64, quotas=(50, 200)),
+                     # phase 9: phase 8's towers, docs and queries through
+                     # BiMetricEngine, 16 slots, Q alternating 50 and 200;
+                     # (d)-(f) on the first 16 requests
+                     serve=dict(queries=64, few=16, slots=16,
+                                quotas=(50, 200), rerank_q=50, wait=600))
 
     t0 = time.perf_counter()
     log("phase 2: kernels vs plain versions")
@@ -2030,9 +2396,16 @@ def main() -> int:
 
     t0 = time.perf_counter()
     log("phase 8: the towers (embed_pool through EmbedTower, then search)")
-    tw = tower_slice(dev, sizes, rehearse)
+    tw, ph8 = tower_slice(dev, sizes, rehearse)
     report["towers"] = tw
     report["phase8_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    log("phase 9: the serving engine (BiMetricEngine on phase 8's towers)")
+    sv = serve_slice(dev, ph8, sizes, rehearse)
+    del ph8
+    report["serve"] = sv
+    report["phase9_s"] = time.perf_counter() - t0
 
     kernels = [
         dict(name="gather_score", route="cuda",
@@ -2041,9 +2414,10 @@ def main() -> int:
              launches=full["launches"]["gather_score"],
              launches_covertree=ct["launches"]["gather_score"],
              launches_towers=tw["launches"]["gather_score"],
+             launches_serve=sv["launches"]["gather_score"],
              max_abs_err=max(g_err, ct["wave_check"]["gather_max_abs_err"],
                              *(w["gather_max_abs_err"]
-                               for w in tw["wave_checks"])),
+                               for w in tw["wave_checks"] + sv["wave_check"])),
              ms=g_timed.get("ms"), plain_ms=g_timed.get("plain_ms"),
              bound_ms=g_timed["bound_ms"], bound_by=g_timed["bound_by"],
              library_ms=None, device_ms=g_timed.get("device_ms")),
@@ -2061,6 +2435,7 @@ def main() -> int:
              launches=full["launches"]["beam_merge_topk"],
              launches_covertree=ct["launches"]["beam_merge_topk"],
              launches_towers=tw["launches"]["beam_merge_topk"],
+             launches_serve=sv["launches"]["beam_merge_topk"],
              max_abs_err=m_err,
              ms=m_timed.get("ms"), plain_ms=m_timed.get("plain_ms"),
              bound_ms=m_timed["bound_ms"], bound_by=m_timed["bound_by"],
@@ -2085,6 +2460,9 @@ def main() -> int:
             errs += [r["max_abs_err"] for r in tw["attention"]]
             extra["launches_towers"] = sum(
                 n for k, n in tw["launches"].items()
+                if k.startswith(name + "_"))
+            extra["launches_serve"] = sum(
+                n for k, n in sv["launches"].items()
                 if k.startswith(name + "_"))
         kernels.append(dict(
             name=name, route="cuda",

@@ -21,6 +21,11 @@ every :data:`CHECK_EVERY` steps. That is exact: a frozen row plans an
 all-masked wave, the stable merge leaves its pool unchanged, and
 ``n_steps`` counts only active rows.
 
+The serving slot pool recycles rows of one resident state with
+:func:`reset_slots`, grows its static shapes with :func:`grow_state` (an
+exact no-op) and freezes a row it resolved early with
+:func:`early_resolve`; rows outside their masks pass through bit for bit.
+
 Unlike the JAX package's pure functions, :func:`plan_step` updates the
 dedup state in place (a (B, N) bitmap copy per step would dominate the
 build); a state must not be used again after it is passed to
@@ -269,6 +274,106 @@ def init_state(entry_ids: torch.Tensor, *, n_points: int, pool_size: int,
         n_steps=torch.zeros((b,), dtype=_I32, device=dev),
     )
     return state, safe, keep
+
+
+def reset_slots(state: BatchedSearchState, reset, entry_ids: torch.Tensor,
+                quota):
+    """Re-initialize the rows in ``reset`` to a fresh entry wave.
+
+    The slot pool's admission primitive: ``reset`` (B,) bool marks the rows
+    recycled for newly admitted queries. Their pools, dedup state and
+    counters are cleared and re-seeded from ``entry_ids`` as
+    :func:`init_state` would (positional entry dedup, quota-masked keep,
+    ``scored`` / ``n_calls`` paid at plan time). Rows outside ``reset``
+    pass through bit for bit, and their lanes of ``safe`` are -1, so the
+    entry :func:`commit_scores` is an exact no-op on them.
+
+    Returns ``(state', safe (B, E0), keep (B, E0))``. The input state is
+    not modified.
+    """
+    b = state.pool_ids.shape[0]
+    dev = state.pool_ids.device
+    reset = torch.as_tensor(reset, dtype=torch.bool, device=dev).expand(b)
+    entry_ids = _positional_dedup(
+        torch.as_tensor(entry_ids, dtype=_I32, device=dev))
+    valid = entry_ids >= 0
+    order_idx = torch.cumsum(valid.to(_I32), dim=1, dtype=_I32) - 1
+    quota = _per_query(quota, b, dev)
+    keep = valid & (order_idx < quota[:, None]) & reset[:, None]
+    safe = torch.where(keep, entry_ids, torch.full_like(entry_ids, -1))
+
+    rm = reset[:, None]
+    scored = state.scored
+    if isinstance(scored, ScoredSet):
+        scored = ScoredSet(
+            ids=torch.where(rm, torch.full_like(scored.ids, ops.SET_PAD),
+                            scored.ids),
+            count=torch.where(reset, torch.zeros_like(scored.count),
+                              scored.count))
+    else:
+        scored = scored & ~rm  # a new tensor: the scatter below is in place
+    scored = _scored_scatter(scored, safe, keep)
+    state = BatchedSearchState(
+        pool_ids=torch.where(rm, torch.full_like(state.pool_ids, -1),
+                             state.pool_ids),
+        pool_dists=torch.where(rm, torch.full_like(state.pool_dists,
+                                                   float("inf")),
+                               state.pool_dists),
+        expanded=state.expanded & ~rm,
+        scored=scored,
+        n_calls=torch.where(reset, keep.sum(dim=1, dtype=_I32),
+                            state.n_calls),
+        n_steps=torch.where(reset, torch.zeros_like(state.n_steps),
+                            state.n_steps),
+    )
+    return state, safe, keep
+
+
+def grow_state(state: BatchedSearchState, *, pool_size: int | None = None,
+               set_capacity: int | None = None) -> BatchedSearchState:
+    """Right-pad a state's static shapes, an exact semantic no-op.
+
+    The slot pool grows its resident state when an admitted request needs
+    a larger pool (P) or sorted-set capacity (C) than any before it. Pools
+    are streaming exact top-P structures, so appended (-1, +inf,
+    unexpanded) lanes never alter the surviving prefix, and ``ops.SET_PAD``
+    sorts to the tail of each ascending ScoredSet row. A smaller value
+    keeps the current shape (shrinking could drop live entries).
+    """
+    pool_ids, pool_dists, expanded = (
+        state.pool_ids, state.pool_dists, state.expanded)
+    p = pool_ids.shape[1]
+    if pool_size is not None and pool_size > p:
+        pad = (0, pool_size - p)
+        pool_ids = torch.nn.functional.pad(pool_ids, pad, value=-1)
+        pool_dists = torch.nn.functional.pad(pool_dists, pad,
+                                             value=float("inf"))
+        expanded = torch.nn.functional.pad(expanded, pad, value=False)
+    scored = state.scored
+    if (isinstance(scored, ScoredSet) and set_capacity is not None
+            and set_capacity > scored.capacity):
+        scored = ScoredSet(
+            ids=torch.nn.functional.pad(
+                scored.ids, (0, set_capacity - scored.capacity),
+                value=ops.SET_PAD),
+            count=scored.count)
+    return state._replace(pool_ids=pool_ids, pool_dists=pool_dists,
+                          expanded=expanded, scored=scored)
+
+
+def early_resolve(state: BatchedSearchState, rows) -> BatchedSearchState:
+    """Close the frontier of the masked ``rows``, the inverse of
+    :func:`reset_expanded`: every pool lane is marked expanded, so
+    :func:`active_mask` reports the row inactive whatever budget it has
+    left. The serving layer freezes a row it resolved early (a deadline
+    expired mid-flight, or a degraded answer) so no later plan re-expands
+    it. Pools, dedup state and counters are untouched, and the other rows
+    pass through bit for bit. ``rows`` is a (B,) bool mask or a scalar.
+    """
+    b = state.pool_ids.shape[0]
+    rows = torch.as_tensor(rows, dtype=torch.bool,
+                           device=state.expanded.device).expand(b)
+    return state._replace(expanded=state.expanded | rows[:, None])
 
 
 def active_mask(state: BatchedSearchState, *, beam_width, quota,

@@ -725,3 +725,43 @@ def test_blockwise_attention_on_card_is_the_kernel(dev, s):
                                atol=1e-3)
     with pytest.raises(ValueError, match="q_offset"):
         layers.blockwise_attention(q, k, v, causal=True, q_offset=1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("index", ["vamana", "covertree"])
+def test_serve_sync_equals_async_on_card(dev, index):
+    """The serving engine on the card at the launcher's smoke towers: the
+    async slot drive (3 slots, mixed requests, from an empty doc cache)
+    answers bit for bit what the sync drive answers, and both launch the
+    search kernels."""
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import transformer
+    from repro_torch.serve import BiMetricEngine, EmbedTower, SearchRequest
+
+    cheap = EmbedTower(transformer.init_params(
+        0, launch_serve.cheap_smoke(), device=dev))
+    expensive = EmbedTower(transformer.init_params(
+        1, launch_serve.expensive_smoke(), device=dev))
+    rng = np.random.default_rng(6)
+    corpus = rng.integers(0, 512, (256, 16), dtype=np.int32)
+    eng = BiMetricEngine(cheap, expensive, corpus, slots=3, index=index)
+    reqs = [SearchRequest(tokens=corpus[r], quota=q, k=k, **kw)
+            for r, q, k, kw in ((3, 24, 10, {}), (40, 8, 5, {}),
+                                (77, 16, 10, dict(n_seeds=4)),
+                                (12, 24, 10, dict(expand_width=2)),
+                                (55, 0, 5, {}), (9, 12, 3, {}),
+                                (61, 24, 10, dict(priority=2)))]
+    l2_topk.reset_launches()
+    ref = eng.query_batch(reqs)
+    assert l2_topk.launches["gather_score"] > 0
+    assert l2_topk.launches["beam_merge_topk"] > 0
+    eng.reset_doc_cache()
+    futs = [eng.submit(r) for r in reqs]
+    for r, f, want in zip(reqs, futs, ref):
+        got = f.result(timeout=120)
+        assert np.array_equal(got.ids, want.ids)
+        assert np.array_equal(got.dists, want.dists)
+        assert (got.stats.D_calls, got.stats.d_calls) == (
+            want.stats.D_calls, want.stats.d_calls)
+        assert got.stats.D_calls <= r.quota and not got.stats.degraded
+    eng.close(timeout=60)
