@@ -44,7 +44,10 @@ Phases (any failure exits nonzero and prints no result line):
    the CPU descent and the NumPy oracle's D-call counts, near-ties aside;
    then the tree built on the card from phase 4's ``corpus_d`` (T=3),
    flattened, and searched under D at each Q (``search_corpus`` and
-   ``bimetric_search``), beside phase 4's bi-metric DiskANN runs;
+   ``bimetric_search``), beside phase 4's bi-metric DiskANN runs; both
+   again at S=4 shards on the one card (a ``beam.ShardedStepper`` steps
+   the descent; the waves are scored on the whole corpus), bit-equal to
+   shards=1;
 8. the towers: ``cheap_tower()`` (f32) and ``expensive_tower()`` (bf16,
    all 32 layers) drawn on the card from seeds; (a) each tower's attention
    at its batch shape through ``layers.blockwise_attention`` against the
@@ -68,7 +71,13 @@ Phases (any failure exits nonzero and prints no result line):
    persistent outage under ``degrade`` (each answer its stage-1 proxy
    ranking); (e) a cover-tree engine, sync = async; (f) the re-rank
    baseline; the kernels' launches counted over (b)-(f); (g) one stage-2
-   slot wave (B=16, dim 4096) against the plain gather and merge.
+   slot wave (B=16, dim 4096) against the plain gather and merge; (h) the
+   engine at ``shards=4`` (``dedup`` auto and bitmap) and 3 on one card,
+   the cover-tree engine at 4 and (d)'s transient faults at 4, each warm
+   from (b)'s D cache, sync and async bit-equal to (b) / (e), with the
+   shard-local gather launched S times a stage-1 wave; after its counts,
+   the stage-1 wave at B=16 and B=64 held shard by shard (S=4 and 3)
+   against the plain local gather, the shards' sum against the gather.
 
 Ends with a JSON line of every ported kernel and the result line
 ``{"ok": true, "device": {...}}``. Needs one CUDA device; imports no JAX.
@@ -1212,6 +1221,7 @@ def off_path(dev, sizes, rehearse):
 # --------------------------------------------------------------------------
 CT_T = 3.0  # the JAX cover-tree benchmark's T (benchmarks/bench_covertree.py)
 CT_EPS = 0.5  # the descent's default
+CT_SHARDS = 4  # phase 5's shard count, on the one card
 
 
 def _oracle_margin(tree, dist_of, eps):
@@ -1446,14 +1456,21 @@ def cover_tree_slice(dev, ph4, diskann_runs, quotas, rehearse):
     """Phase 4's data through the cover-tree instantiation: the tree built
     on the card from d at T=3, flattened, then Algorithm 3 under D at each
     Q through ``search_corpus`` (timed) and ``bimetric_search`` (the same
-    result, d_calls 0), beside phase 4's bi-metric DiskANN runs."""
+    result, d_calls 0), beside phase 4's bi-metric DiskANN runs; then both
+    again at S=4 shards on the one card (the descent stepped by a
+    ``beam.ShardedStepper``), bit-equal to shards=1, and at the smallest Q
+    with the column-sharded bitmap as well (``auto`` picks the replicated
+    sorted set at these quotas)."""
     from repro_torch.core import bimetric, covertree, metrics
+    from repro_torch.distributed import sharding
     from repro_torch.kernels import l2_topk
 
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     data, k, true_ids = ph4["data"], ph4["k"], ph4["true_ids"]
     n = data.corpus_d.shape[0]
     n_queries = data.queries_d.shape[0]
+    one = torch.device("cuda", 0) if dev.type == "cuda" else dev
+    mesh = sharding.search_mesh(CT_SHARDS, devices=[one] * CT_SHARDS)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     out = dict(N=n, T=CT_T, eps=CT_EPS)
@@ -1498,6 +1515,38 @@ def cover_tree_slice(dev, ph4, diskann_runs, quotas, rehearse):
         require(torch.equal(bm.ids, res.ids)
                 and torch.equal(bm.D_calls, res.n_calls),
                 "cover tree: bimetric_search differs from search_corpus")
+        sharded = []
+        for dedup in ("auto", "bitmap") if q == min(quotas) else ("auto",):
+            before_s = dict(l2_topk.launches)
+            t0 = time.perf_counter()
+            res_s = covertree.search_corpus(
+                flat, data.corpus_D, data.queries_D, eps=CT_EPS, k=k,
+                quota=q, shards=CT_SHARDS, mesh=mesh, dedup=dedup,
+                device=dev)
+            sync()
+            dt_s = time.perf_counter() - t0
+            delta_s = {kk: l2_topk.launches[kk] - before_s[kk]
+                       for kk in before_s}
+            for f in res._fields:
+                require(torch.equal(getattr(res_s, f), getattr(res, f)),
+                        f"cover tree S={CT_SHARDS} ({dedup}): {f} differs "
+                        "from shards=1")
+            require(delta_s["gather_score_local"] == 0
+                    and delta_s == {kk: delta[kk] for kk in delta},
+                    f"cover tree S={CT_SHARDS}: launches {delta_s}")
+            sharded.append(dict(S=CT_SHARDS, dedup=dedup, query_s=dt_s,
+                                qps=n_queries / dt_s, launches=delta_s))
+            log(f"  cover tree Q={q:5d} S={CT_SHARDS} ({dedup}): {dt_s:.3f} "
+                f"s ({dt_s / dt:.3f}x shards=1), launches {delta_s}, "
+                "bit-equal to shards=1")
+        bm_s = bimetric.bimetric_search(
+            None, None, flat, data.queries_d, data.queries_D, n_points=n,
+            quota=q, k=k, corpora=(data.corpus_d, data.corpus_D), eps=CT_EPS,
+            shards=CT_SHARDS, mesh=mesh, device=dev)
+        for f in bm._fields:
+            require(torch.equal(getattr(bm_s, f), getattr(bm, f)),
+                    f"cover tree bimetric_search S={CT_SHARDS}: {f} differs "
+                    "from shards=1")
         waves = delta["beam_merge_topk"]
         run = dict(Q=q, query_s=dt, qps=n_queries / dt,
                    recall_at_10=float(metrics.recall_at_k(
@@ -1506,7 +1555,7 @@ def cover_tree_slice(dev, ph4, diskann_runs, quotas, rehearse):
                                                       true_ids).mean()),
                    mean_D_calls=float(res.n_calls.float().mean()),
                    max_D_calls=int(res.n_calls.max()), launches=delta,
-                   s_per_wave=dt / max(waves, 1))
+                   s_per_wave=dt / max(waves, 1), sharded=sharded)
         dk = next(r for r in diskann_runs
                   if r["method"] == "bimetric" and r["Q"] == q)
         run["diskann"] = {kk: dk[kk] for kk in (
@@ -2037,6 +2086,176 @@ def serve_waves(eng, ct, q_emb, quotas, k):
     return out
 
 
+def _sharded_engine(src, shards, **kw):
+    """A ``BiMetricEngine`` like ``src`` at ``shards`` on S copies of its
+    device (``search_mesh(S, devices=[dev] * S)``), warm from ``src``'s D
+    cache. A vamana engine takes ``src``'s graph: the build does not
+    depend on shards, and sharing it holds the comparison to the sharded
+    search alone. Private state, as ``_share_doc_cache``."""
+    from repro_torch.core import vamana
+    from repro_torch.distributed import sharding
+    from repro_torch.serve import BiMetricEngine
+
+    build = vamana.build
+    if src.index is not None:
+        vamana.build = lambda *a, **k: src.index
+    try:
+        eng = BiMetricEngine(
+            src.cheap, src.expensive, src.corpus_tokens,
+            tower_batch=src.tower_batch, slots=src.slots, shards=shards,
+            mesh=sharding.search_mesh(shards, devices=[src.device] * shards),
+            device=src.device, **kw)
+    finally:
+        vamana.build = build
+    _share_doc_cache(src, eng)
+    return eng
+
+
+def serve_sharded(eng, ct, reqs, res_b, res_e, wait, rehearse):
+    """(h) The engine at ``shards > 1`` on S copies of the card, each
+    engine warm from (b)'s D cache: S=4 under ``dedup="auto"`` and
+    ``"bitmap"`` (the sync drive, then the async slot drive, of all
+    requests), S=3 (2,048 rows: one pad row; sync), the cover-tree engine
+    at S=4 (sync and async, the first requests) and 9(d)'s transient drain
+    faults at S=4. Every answer bit-equal to the shards=1 drives ((b),
+    (e)). Launches are counted over (h) alone: a vamana engine's stage 1
+    launches ``gather_score_local`` S times a wave (its waves: merges
+    less the stage-2 waves, which are the ``gather_score`` launches on the
+    warm D cache); the cover tree none."""
+    from repro_torch.kernels import l2_topk
+    from repro_torch.serve import FaultPlan, FaultSpec
+
+    sync = torch.cuda.synchronize if eng.device.type == "cuda" else (
+        lambda: None)
+    few = len(res_e)
+    runs = []
+    l2_topk.reset_launches()  # the sharded serving path starts here
+
+    def drive(name, e, shards, which, want, fn):
+        before = dict(l2_topk.launches)
+        t0 = time.perf_counter()
+        got = fn()
+        sync()
+        dt = time.perf_counter() - t0
+        delta = {kk: l2_topk.launches[kk] - before[kk] for kk in before}
+        _same_results(got, want, f"(h) {name} S={shards} {which}")
+        stage2 = delta["gather_score"]
+        stage1 = delta["beam_merge_topk"] - stage2
+        if not rehearse:
+            if e.index_kind == "covertree":
+                require(delta["gather_score_local"] == 0 and stage1 == 0,
+                        f"(h) {name} {which}: launches {delta}")
+            else:
+                require(stage1 > 0 and stage2 > 0 and
+                        delta["gather_score_local"] == shards * stage1,
+                        f"(h) {name} {which}: launches {delta}")
+        run = dict(engine=name, S=shards, drive=which, s=dt,
+                   requests_per_s=len(got) / dt, launches=delta,
+                   stage1_waves=stage1, stage2_waves=stage2)
+        log(f"  (h) {name} S={shards} {which}: {dt:.3f} s, "
+            f"{run['requests_per_s']:.3f} requests/s, launches {delta}, "
+            "bit-equal to shards=1")
+        runs.append(run)
+
+    def both(name, e, shards, sub, want):
+        drive(name, e, shards, "sync", want, lambda: e.query_batch(sub))
+        drive(name, e, shards, "async", want,
+              lambda: [f.result(timeout=wait) for f in
+                       [e.submit(r) for r in sub]])
+
+    for dedup in ("auto", "bitmap"):
+        e = _sharded_engine(eng, 4, dedup=dedup)
+        both(f"vamana {dedup}", e, 4, reqs, res_b)
+        if dedup == "auto":
+            # 9(d)'s transient faults, set on the warm engine as (d) does
+            plan = FaultPlan(seed=5, drain=FaultSpec(rate=0.3, burst=2))
+            e._faults = plan
+            retries0 = e.counters().retries
+            drive("vamana auto, transient faults", e, 4, "async",
+                  res_b[:few], lambda: [f.result(timeout=wait) for f in
+                                        [e.submit(r) for r in reqs[:few]]])
+            retries = e.counters().retries - retries0
+            require(retries > 0 and plan.fired("drain") > 0,
+                    "(h) transient faults: nothing fired or was retried")
+            runs[-1].update(fired=plan.fired("drain"), retries=retries)
+        e.close(timeout=wait)
+    e = _sharded_engine(eng, 3)
+    drive("vamana auto", e, 3, "sync", res_b, lambda: e.query_batch(reqs))
+    e.close(timeout=wait)
+    e = _sharded_engine(ct, 4, index="covertree")
+    both("cover tree", e, 4, reqs[:few], res_e)
+    e.close(timeout=wait)
+    launches = dict(l2_topk.launches)  # read just after (h)
+    if not rehearse:
+        require(launches["gather_score_local"] > 0,
+                "gather_score_local was never launched on phase 9(h)'s path")
+    log(f"  (h) launches over (h): {launches}")
+    return dict(runs=runs, launches=launches)
+
+
+def serve_sharded_waves(eng, q_d, batches):
+    """(h, after its counts) The sharded engines' stage-1 wave held shard
+    by shard: an expansion wave (K = R, the graph rows of random vertices)
+    on the cheap embeddings, at each B of ``batches`` (the slot drive's
+    and the sync drive's), over the engine's row blocks at S = 4 and S = 3
+    (``shard_corpus`` of the cheap rows, as ``sharded_greedy_search`` cuts
+    them). Each shard's ``gather_score_local`` must equal its plain
+    version within phase 2's f32 limit, give +0.0 on foreign and padding
+    lanes and ``gather_score``'s value on owned lanes; the shards' sum
+    (padding back to +inf) must be ``gather_score``'s wave bit for bit.
+    Returns one row per (S, B) with its max error."""
+    from repro_torch.distributed import sharding
+    from repro_torch.kernels import backend, l2_topk
+
+    require(eng._view_d is None and not eng.backend.matmul,
+            "(h) waves: stage 1 is not on raw f32 rows")
+    rng = np.random.default_rng(23)
+    dev, n, metric = eng.device, eng.n, eng._metric_d
+    corpus = eng.emb_d
+    view = backend.as_corpus_view(corpus)
+    out = []
+    for shards in (4, 3):
+        stacked, n_local = sharding.shard_corpus(corpus, shards)
+        for b in batches:
+            q = q_d[:b].contiguous()
+            ids = eng._adjacency[torch.from_numpy(
+                rng.integers(0, n, b)).to(dev)].contiguous()
+            full = l2_topk.gather_score(corpus, q, ids, metric=metric)
+            scale = _term_scale(view, q, ids, metric)
+            where = f"(h) stage-1 wave S={shards} B={b} K={ids.shape[1]}"
+            total, max_err = None, 0.0
+            for sh in range(shards):
+                off = sh * n_local
+                blk = stacked[sh]
+                got = l2_topk.gather_score_local(blk, q, ids, off,
+                                                 metric=metric)
+                want = l2_topk.gather_score_local_plain(blk, q, ids, off,
+                                                        metric=metric)
+                owned = (ids >= 0) & (ids - off >= 0) & (ids - off < n_local)
+                require(bool((got[~owned].view(torch.int32) == 0).all()),
+                        f"{where} s={sh}: foreign lane")
+                require(torch.equal(got[owned], full[owned]),
+                        f"{where} s={sh}: owned lane != gather_score")
+                err = (got[owned] - want[owned]).abs()
+                lim = 1e-5 * torch.maximum(want[owned].abs(), scale[owned])
+                require(bool((err <= lim).all()),
+                        f"{where} s={sh}: max err {float(err.max()):.3e}")
+                if err.numel():
+                    max_err = max(max_err, float(err.max()))
+                total = got if total is None else total + got
+            total = torch.where(ids >= 0, total, torch.inf)
+            require(torch.equal(total, full),
+                    f"{where}: shard sum != gather_score")
+            out.append(dict(S=shards, B=b, K=int(ids.shape[1]),
+                            dim=int(corpus.shape[1]), n_local=n_local,
+                            live_lanes=float((ids >= 0).float().mean()),
+                            gather_max_abs_err=max_err))
+            log(f"  {where} dim {corpus.shape[1]}: gather_score_local "
+                f"max err {max_err:.3e}, shard sum == gather_score")
+        del stacked
+    return out
+
+
 def serve_slice(dev, ph8, sizes, rehearse):
     """Phase 9: ``BiMetricEngine`` on phase 8's towers, docs and queries.
     (a) batch-free embeddings; (b) the sync drive from an empty doc cache;
@@ -2045,7 +2264,9 @@ def serve_slice(dev, ph8, sizes, rehearse):
     ``degrade`` (the stage-1 proxy ranking), on the warm cache; (e) the
     cover-tree engine, sync = async; (f) the re-rank baseline; launches
     counted over (b)-(f); (g) the path's wave shapes against the plain
-    versions."""
+    versions; (h) the engines at shards > 1, bit-equal to (b) and (e),
+    their launches counted over (h), then their stage-1 wave held shard by
+    shard."""
     import dataclasses
 
     from repro_torch.configs.bimetric_paper import PAPER_DISKANN
@@ -2233,6 +2454,12 @@ def serve_slice(dev, ph8, sizes, rehearse):
     out["wave_check"] = serve_waves(
         eng, ct, {name: e[:slots] for name, e in q_emb.items()},
         sv["quotas"], k)
+
+    # (h) shards > 1, bit-equal to (b) and (e)
+    out["sharded"] = serve_sharded(eng, ct, reqs, res_b, res_e, wait,
+                                   rehearse)
+    out["sharded"]["wave_check"] = serve_sharded_waves(
+        eng, q_emb["cheap"], (slots, n_q))
     ct.close(timeout=wait)
     eng.close(timeout=wait)
     return out
@@ -2415,6 +2642,7 @@ def main() -> int:
              launches_covertree=ct["launches"]["gather_score"],
              launches_towers=tw["launches"]["gather_score"],
              launches_serve=sv["launches"]["gather_score"],
+             launches_serve_sharded=sv["sharded"]["launches"]["gather_score"],
              max_abs_err=max(g_err, ct["wave_check"]["gather_max_abs_err"],
                              *(w["gather_max_abs_err"]
                                for w in tw["wave_checks"] + sv["wave_check"])),
@@ -2425,7 +2653,11 @@ def main() -> int:
              source="src/repro_torch/kernels/csrc/l2_topk.cu",
              replaces="src/repro/kernels/l2_topk.py:256",
              launches=sharded["launches"]["gather_score_local"],
-             max_abs_err=l_err, ms=l_timed.get("ms"),
+             launches_serve_sharded=sv["sharded"]["launches"][
+                 "gather_score_local"],
+             max_abs_err=max(l_err, *(w["gather_max_abs_err"] for w in
+                                      sv["sharded"]["wave_check"])),
+             ms=l_timed.get("ms"),
              plain_ms=l_timed.get("plain_ms"), bound_ms=l_timed["bound_ms"],
              bound_by=l_timed["bound_by"], library_ms=None,
              device_ms=l_timed.get("device_ms")),
@@ -2436,6 +2668,8 @@ def main() -> int:
              launches_covertree=ct["launches"]["beam_merge_topk"],
              launches_towers=tw["launches"]["beam_merge_topk"],
              launches_serve=sv["launches"]["beam_merge_topk"],
+             launches_serve_sharded=sv["sharded"]["launches"][
+                 "beam_merge_topk"],
              max_abs_err=m_err,
              ms=m_timed.get("ms"), plain_ms=m_timed.get("plain_ms"),
              bound_ms=m_timed["bound_ms"], bound_by=m_timed["bound_by"],

@@ -38,7 +38,10 @@ sorted set) lives on the mesh's first device, so the merge runs once per
 step; under a :class:`ShardCtx` the bitmap is a tuple of per-shard column
 slices, and waves are scored by the shard-local kernel, one launch per
 shard, summed in shard order. Results are bit-exact against the
-single-device engine under the same backend.
+single-device engine under the same backend. :class:`ShardedStepper` is
+the same state driven from the host wave by wave, for callers that score
+the waves themselves (the serving engine's stage 2, the cover-tree
+descent).
 """
 from __future__ import annotations
 
@@ -48,8 +51,8 @@ import numpy as np
 import torch
 
 from repro_torch.distributed import collectives
-from repro_torch.distributed.sharding import (search_mesh, shard_corpus,
-                                              shard_corpus_view)
+from repro_torch.distributed.sharding import (SearchMesh, search_mesh,
+                                              shard_corpus, shard_corpus_view)
 from repro_torch.kernels import backend as kernel_backend
 from repro_torch.kernels import ops
 
@@ -277,7 +280,7 @@ def init_state(entry_ids: torch.Tensor, *, n_points: int, pool_size: int,
 
 
 def reset_slots(state: BatchedSearchState, reset, entry_ids: torch.Tensor,
-                quota):
+                quota, *, shard: ShardCtx | None = None):
     """Re-initialize the rows in ``reset`` to a fresh entry wave.
 
     The slot pool's admission primitive: ``reset`` (B,) bool marks the rows
@@ -286,7 +289,10 @@ def reset_slots(state: BatchedSearchState, reset, entry_ids: torch.Tensor,
     :func:`init_state` would (positional entry dedup, quota-masked keep,
     ``scored`` / ``n_calls`` paid at plan time). Rows outside ``reset``
     pass through bit for bit, and their lanes of ``safe`` are -1, so the
-    entry :func:`commit_scores` is an exact no-op on them.
+    entry :func:`commit_scores` is an exact no-op on them. Under a
+    :class:`ShardCtx` every column slice of the bitmap clears the reset
+    rows and the entry marks land on their owners, so a recycled row's
+    dedup state is that of a fresh :func:`init_state`.
 
     Returns ``(state', safe (B, E0), keep (B, E0))``. The input state is
     not modified.
@@ -310,9 +316,12 @@ def reset_slots(state: BatchedSearchState, reset, entry_ids: torch.Tensor,
                             scored.ids),
             count=torch.where(reset, torch.zeros_like(scored.count),
                               scored.count))
+    elif shard is not None:
+        # new slices: the owners' scatter below is in place
+        scored = tuple(t & ~rm.to(t.device) for t in scored)
     else:
         scored = scored & ~rm  # a new tensor: the scatter below is in place
-    scored = _scored_scatter(scored, safe, keep)
+    scored = _scored_scatter(scored, safe, keep, shard)
     state = BatchedSearchState(
         pool_ids=torch.where(rm, torch.full_like(state.pool_ids, -1),
                              state.pool_ids),
@@ -700,3 +709,117 @@ def sharded_greedy_search(
         scored = torch.cat([t.to(dev) for t in res.scored], dim=1)
         res = res._replace(scored=scored[:, :n_points].contiguous())
     return res
+
+
+class ShardedStepper:
+    """Host-driven plan/commit stepping with the dedup state on a corpus
+    mesh: the device side of the serving engine's stage 2 and of the
+    cover-tree descent, whose waves the caller scores (a tower drain, the
+    whole-corpus gather).
+
+    Each method is the unsharded primitive called with
+    ``shard=ShardCtx(mesh.devices, n_local)``. The pools, ``expanded`` and
+    the counters live once, on ``mesh.devices[0]`` (:attr:`device`); the
+    ``bitmap`` dedup state is the tuple of the S (B, n_local) column slices,
+    each on its shard's device (lookups OR the owners' answers, a scatter
+    lands on the owner only), and a ``sorted`` :class:`ScoredSet` is
+    replicated like the pools. Every plan is the unsharded wave, so a drive
+    through the stepper is bit-exact against the same drive through the
+    primitives, under either backend. At ``shards=1`` the methods are the
+    primitives themselves, with no :class:`ShardCtx`.
+
+    A state from :meth:`init` is threaded through the other methods; like
+    :func:`plan_step`, :meth:`plan` updates the dedup state in place, so a
+    state is not used again after it is planned. ``quota`` /
+    ``beam_width`` / ``max_steps`` are scalars or (B,) vectors.
+
+    ``mesh`` is a :class:`~repro_torch.distributed.sharding.SearchMesh`;
+    without one, ``search_mesh(shards, device=device)``, which raises on a
+    host with fewer devices of that type than shards (then pass
+    ``search_mesh(S, devices=[dev] * S)``). Every mesh device must be of
+    ``device``'s type (the card unless ``device="cpu"``). JAX's
+    ``axis_name`` and ``backend`` keywords are not taken: the port's mesh
+    has one axis and its merge one route.
+    """
+
+    def __init__(self, *, shards: int, n_points: int, mesh=None,
+                 device=None):
+        want = kernel_backend.resolve_device(device)
+        if mesh is None:
+            mesh = (SearchMesh((want,)) if shards == 1
+                    else search_mesh(shards, device=want))
+        if mesh.size != shards:
+            raise ValueError(f"shards={shards} but the mesh has {mesh.size} "
+                             "devices")
+        if any(d.type != want.type for d in mesh.devices):
+            raise ValueError(f"the stepper runs on {want.type} but the mesh "
+                             f"is {mesh.devices}")
+        self.shards = shards
+        self.n_points = n_points
+        self.mesh = mesh
+        self.device = mesh.devices[0]
+        self.n_local = -(-n_points // shards)
+        self.ctx = (ShardCtx(mesh.devices, self.n_local) if shards > 1
+                    else None)
+
+    def init(self, entry_ids, quota, *, pool_size: int, dedup: str = "bitmap",
+             set_capacity: int | None = None):
+        """:func:`init_state` on the mesh -> ``(state, safe, keep)``.
+        ``dedup`` is a resolved backend (``"bitmap"`` or ``"sorted"``)."""
+        return init_state(
+            kernel_backend.as_tensor(entry_ids, self.device, _I32),
+            n_points=self.n_points, pool_size=pool_size, quota=quota,
+            dedup=dedup, set_capacity=set_capacity, shard=self.ctx)
+
+    def plan(self, state: BatchedSearchState, adjacency, quota, beam_width,
+             max_steps, *, expand_width=1, expand_cap: int | None = None,
+             level=None, wave_dedup: bool = True):
+        """:func:`plan_step` on the mesh -> ``(state', safe, keep,
+        active)``. ``level`` selects slabs of a level-stacked ``(L, N, R)``
+        fanout table (the cover tree's)."""
+        return plan_step(
+            state, adjacency, beam_width=beam_width, quota=quota,
+            max_steps=max_steps, expand_width=expand_width,
+            expand_cap=expand_cap, wave_dedup=wave_dedup, shard=self.ctx,
+            level=level)
+
+    def reopen(self, state: BatchedSearchState, rows) -> BatchedSearchState:
+        """:func:`reset_expanded`: re-open the masked rows' frontiers
+        between cover-tree levels (pools and dedup state untouched)."""
+        return reset_expanded(state, rows)
+
+    def commit(self, state: BatchedSearchState, safe, keep,
+               dists) -> BatchedSearchState:
+        """:func:`commit_scores`: the merge, once, on :attr:`device`."""
+        return commit_scores(state, safe, keep, dists.to(self.device))
+
+    def admit(self, state: BatchedSearchState, reset, entry_ids, quota):
+        """:func:`reset_slots` on the mesh: recycle the ``reset`` rows for
+        newly admitted queries -> ``(state', safe, keep)``; the other rows
+        pass through bit for bit and the input state is not modified."""
+        return reset_slots(
+            state, reset, kernel_backend.as_tensor(entry_ids, self.device,
+                                                   _I32),
+            quota, shard=self.ctx)
+
+    def active(self, state: BatchedSearchState, quota, beam_width,
+               max_steps) -> torch.Tensor:
+        """(B,) :func:`active_mask`: the slot pool reads it every step."""
+        return active_mask(state, beam_width=beam_width, quota=quota,
+                           max_steps=max_steps)
+
+    def active_any(self, state: BatchedSearchState, quota, beam_width,
+                   max_steps) -> bool:
+        """``active_mask(...).any()`` on the host: the drive's loop test."""
+        return bool(self.active(state, quota, beam_width, max_steps).any())
+
+    def scored_count(self, state: BatchedSearchState) -> torch.Tensor:
+        """(B,) distinct scored ids. Bitmap: the slices' popcounts summed
+        in shard order (the partition invariant); sorted: the replicated
+        set's distinct count (the replication invariant)."""
+        scored = state.scored
+        if isinstance(scored, ScoredSet):
+            return collectives.member_count(scored.ids)
+        if isinstance(scored, torch.Tensor):
+            scored = (scored,)
+        return collectives.bitmap_count(scored)

@@ -117,19 +117,22 @@ def bimetric_search(
     stage 1 (``d_calls`` is 0: d's work was the tree build) and ``eps`` as
     its accuracy knob. D is ``corpora[1]`` scored through
     ``ops.gather_score`` when ``corpora`` is given, else the callable; the
-    stage-1 and beam knobs are ignored, and ``shards > 1`` waits for
-    ``beam.ShardedStepper`` and raises.
+    stage-1 and beam knobs are ignored. ``shards > 1`` needs ``corpora``
+    and steps the descent through a ``beam.ShardedStepper`` on ``mesh``
+    (``covertree.search_corpus``), bit-exact against ``shards=1``.
     """
+    if shards > 1 and corpora is None:
+        raise ValueError("shards > 1 needs corpora=(corpus_d, corpus_D): "
+                         "only embedding-backed metrics can be sharded")
     if isinstance(index, covertree.FlatCoverTree):
-        if shards > 1:
-            raise NotImplementedError(covertree.NO_SHARDS)
         dev = kernel_backend.resolve_device(device)
         be = dataclasses.replace(kernel_backend.resolve_backend(
             backend, _caller="bimetric_search"), quantize=None)
         if corpora is not None:
             res = covertree.search_corpus(
                 index, corpora[1], q_expensive, metric=metric, eps=eps, k=k,
-                quota=quota, backend=be, device=dev)
+                quota=quota, shards=shards, mesh=mesh, backend=be,
+                device=dev)
         else:
             res = covertree.search_batched(
                 index, expensive_fn_batch, q_expensive, eps=eps, k=k,
@@ -140,9 +143,6 @@ def bimetric_search(
     if not isinstance(index, VamanaIndex):
         raise TypeError("index must be a VamanaIndex or a covertree."
                         f"FlatCoverTree, got {type(index).__name__}")
-    if shards > 1 and corpora is None:
-        raise ValueError("shards > 1 needs corpora=(corpus_d, corpus_D): "
-                         "only embedding-backed metrics can be sharded")
     dev = kernel_backend.resolve_device(device)
     be1 = kernel_backend.resolve_backend(backend, quantize=quantize,
                                          _caller="bimetric_search")

@@ -453,11 +453,6 @@ def wave_chunk(fanout: int, *, lane_budget: int = 4096) -> int:
     return c
 
 
-#: why ``shards > 1`` and ``stepper=`` raise
-NO_SHARDS = ("cover-tree search over corpus shards needs beam.ShardedStepper, "
-              "which comes with the port's serving slice")
-
-
 def search_batched(
     flat: FlatCoverTree,
     dist_fn_batch: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
@@ -469,7 +464,7 @@ def search_batched(
     pool_size: int | None = None,
     dedup: str = "auto",
     chunk: int | None = None,
-    stepper=None,
+    stepper: beam.ShardedStepper | None = None,
     fuse_levels: bool | None = None,
     device=None,
 ) -> CoverSearchResult:
@@ -487,17 +482,24 @@ def search_batched(
 
     ``fuse_levels`` chooses a compiled program in the JAX package; here each
     level always runs as that host loop, plans first and commits after, so
-    either value gives the same result. ``stepper`` (a mesh-stepped drive)
-    waits for ``beam.ShardedStepper`` and raises. Runs on ``device`` (the
-    card unless ``device="cpu"``).
+    either value gives the same result. With a ``stepper``
+    (:class:`repro_torch.core.beam.ShardedStepper`) the bookkeeping runs on
+    its corpus mesh, the state on ``stepper.device``, and the scoring stays
+    with ``dist_fn_batch``: the result is bit-exact against the unsharded
+    drive. Runs on ``device`` (the card unless ``device="cpu"``), of which
+    a stepper's mesh must be.
     """
     del fuse_levels  # one drive here; both values mean the same order
-    if stepper is not None:
-        raise NotImplementedError(NO_SHARDS)
     dev = kernel_backend.resolve_device(device)
+    n = flat.n
+    if stepper is None:
+        stepper = beam.ShardedStepper(shards=1, n_points=n, device=dev)
+    elif stepper.device.type != dev.type:
+        raise ValueError(f"search_batched runs on {dev.type} but the stepper "
+                         f"is on {stepper.device}")
+    dev = stepper.device
     q_ctx = kernel_backend.as_tensor(query_ctx, dev)
     b = q_ctx.shape[0]
-    n = flat.n
     e0 = int(flat.root_ids.shape[0])
 
     quota_arr = beam.NO_QUOTA if quota is None else quota
@@ -514,10 +516,10 @@ def search_batched(
     beam_j = beam._per_query(pool_size, b, dev)  # the whole pool is the prefix
     steps_j = beam._per_query(beam.NO_QUOTA, b, dev)
     entries = torch.as_tensor(flat.root_ids, dtype=_I32).to(dev)[None, :]
-    state, safe, keep = beam.init_state(
-        entries.expand(b, e0).contiguous(), n_points=n, pool_size=pool_size,
-        quota=quota_j, dedup=dedup, set_capacity=set_cap)
-    state = beam.commit_scores(state, safe, keep, dist_fn_batch(q_ctx, safe))
+    state, safe, keep = stepper.init(
+        entries.expand(b, e0).contiguous(), quota_j, pool_size=pool_size,
+        dedup=dedup, set_capacity=set_cap)
+    state = stepper.commit(state, safe, keep, dist_fn_batch(q_ctx, safe))
 
     children = kernel_backend.as_tensor(flat.children, dev, _I32)
     radii = np.asarray(flat.radii, np.float64)
@@ -528,21 +530,21 @@ def search_batched(
         ew_t = np.where(alive, ew_t, 0).astype(np.int32)
         if not ew_t.any():
             break
-        state = beam.reset_expanded(state, torch.from_numpy(alive).to(dev))
+        state = stepper.reopen(state, torch.from_numpy(alive).to(dev))
         lev = torch.full((b,), t, dtype=_I32, device=dev)
         planned = []
         remaining = ew_t.copy()
         while remaining.max() > 0:
             ew = np.minimum(remaining, chunk).astype(np.int32)
-            state, safe, keep, _ = beam.plan_step(
-                state, children, beam_width=beam_j, quota=quota_j,
-                max_steps=steps_j, expand_width=torch.from_numpy(ew).to(dev),
-                expand_cap=chunk, level=lev, wave_dedup=False)
+            state, safe, keep, _ = stepper.plan(
+                state, children, quota_j, beam_j, steps_j,
+                expand_width=torch.from_numpy(ew).to(dev), expand_cap=chunk,
+                level=lev, wave_dedup=False)
             planned.append((safe, keep))
             remaining -= ew
         for safe, keep in planned:
-            state = beam.commit_scores(state, safe, keep,
-                                       dist_fn_batch(q_ctx, safe))
+            state = stepper.commit(state, safe, keep,
+                                   dist_fn_batch(q_ctx, safe))
         dmin = state.pool_dists[:, 0].cpu().numpy().astype(np.float64)
         alive &= dmin < radii[t] * (1.0 + 1.0 / eps)
 
@@ -563,6 +565,7 @@ def search_corpus(
     k: int = 10,
     quota=None,
     shards: int = 1,
+    mesh=None,
     backend=None,
     dedup: str = "auto",
     chunk: int | None = None,
@@ -571,18 +574,22 @@ def search_corpus(
 ) -> CoverSearchResult:
     """:func:`search_batched` against an embedding corpus under D.
 
-    Scores every wave through ``beam.fused_dist_fn`` (``ops.gather_score``;
-    the matmul backend builds the corpus-norm view once, here). ``shards >
-    1`` waits for ``beam.ShardedStepper`` and raises.
+    Scores every wave through ``beam.fused_dist_fn`` (``ops.gather_score``
+    on the whole corpus; the matmul backend builds the corpus-norm view
+    once, here). ``shards > 1`` runs the descent's bookkeeping on a
+    :class:`repro_torch.core.beam.ShardedStepper` over ``mesh`` (without
+    one, ``search_mesh(shards, device=device)``): the dedup bitmap is
+    column-sharded, the scoring is not, and the result is bit-exact against
+    ``shards=1``.
     """
-    if shards > 1:
-        raise NotImplementedError(NO_SHARDS)
     dev = kernel_backend.resolve_device(device)
     be = kernel_backend.resolve_backend(backend,
                                         _caller="covertree.search_corpus")
     if not isinstance(corpus, kernel_backend.CorpusView):
         corpus = kernel_backend.as_tensor(corpus, dev)
     fn = beam.fused_dist_fn(corpus, metric, backend=be)
+    stepper = beam.ShardedStepper(shards=shards, n_points=flat.n, mesh=mesh,
+                                  device=dev)
     return search_batched(
         flat, fn, queries, eps=eps, k=k, quota=quota, pool_size=pool_size,
-        dedup=dedup, chunk=chunk, device=dev)
+        dedup=dedup, chunk=chunk, stepper=stepper, device=dev)

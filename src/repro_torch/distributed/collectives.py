@@ -15,10 +15,13 @@ combines their answers on the device of the replicated input.
 * :func:`bitmap_lookup` / :func:`bitmap_scatter`: membership ORs the
   owners' answers, a scatter lands on the owner's slice only (in place).
   Every bit has one owner, so the slices partition the (B, N) bitmap
-  exactly.
+  exactly, and :func:`bitmap_count` (the sum of the slices' popcounts) is
+  the global popcount: the partition invariant.
 
 The sorted dedup set is replicated like the pools, so its ops
-(``ops.sorted_set_*``) need no collective at all.
+(``ops.sorted_set_*``) need no collective at all; :func:`member_count` is
+the replicated set's distinct count, the same number the partitioned bitmap
+sums to.
 """
 from __future__ import annotations
 
@@ -94,3 +97,24 @@ def bitmap_scatter(scored_locals: Sequence[torch.Tensor], ids: torch.Tensor,
                                                 reduce="amax")
     return scored_locals
 
+
+def bitmap_count(scored_locals: Sequence[torch.Tensor]) -> torch.Tensor:
+    """(B,) int32 global popcount of the shard-partitioned bitmap.
+
+    The slices' row popcounts summed in shard order, on the first slice's
+    device. The scatter keeps every bit on one owner (:func:`bitmap_scatter`),
+    so the sum is the (B, N) bitmap's popcount: the partition invariant.
+    """
+    dev = scored_locals[0].device
+    total = None
+    for local in scored_locals:
+        part = local.sum(dim=1, dtype=torch.int32).to(dev)
+        total = part if total is None else total + part
+    return total
+
+
+def member_count(set_ids: torch.Tensor) -> torch.Tensor:
+    """(B,) distinct scored ids of the replicated sorted set: the number
+    :func:`bitmap_count` sums out of the partitioned bitmap (duplicate
+    slots from the one-row duplicate-lane quirk collapse)."""
+    return ops.sorted_set_unique_count(set_ids)

@@ -33,8 +33,12 @@ and a tower's embedding of a row does not depend on its batch-mates.
 descends a cover tree built on d under D (Algorithm 3) through the same
 slot pool, with ``covertree_eps`` / ``covertree_T`` as its knobs; its rows
 ignore ``n_seeds`` / ``expand_width`` and ``rerank_query_batch`` is
-vamana-only. ``shards > 1`` raises until ``beam.ShardedStepper`` is
-ported. The engine runs on the card unless ``device="cpu"``.
+vamana-only. ``shards > 1`` splits the corpus over a search mesh
+(``mesh=search_mesh(S, devices=[dev] * S)`` puts S shards on one device):
+stage 1 searches the row blocks, and stage 2 and the cover-tree descent
+step through a ``beam.ShardedStepper`` with the dedup bitmap
+column-sharded; every answer is bit-exact to ``shards=1`` in both drives.
+The engine runs on the card unless ``device="cpu"``.
 
 Observability: ``ServeStats`` splits latency into ``queue_ms`` (submit to
 admission) and ``compute_ms`` (admission to resolution), ``latency_ms``
@@ -46,7 +50,7 @@ slots still resolve.
 Failure semantics
 -----------------
 **Failures are scoped to requests, never to the engine**, with four nested
-isolation domains (async path):
+isolation domains (async path), at any ``shards``:
 
 * **one request**: malformed input (bad token shape) fails only that
   request's future at admission.
@@ -59,7 +63,7 @@ isolation domains (async path):
   ``transient=False``, or a ``TowerTimeout`` past ``drain_timeout_ms``, is
   never retried inline). A retried drain is idempotent, since the document
   cache is written only after a successful forward pass, so recovered runs
-  are **bit-exact** to fault-free ones. When the lane gives up,
+  are **bit-exact** to fault-free ones, sharded or not. When the lane gives up,
   ``on_tower_failure`` decides: ``"fail"`` (default) fails each affected
   future with ``TowerFailure`` chaining the original; ``"degrade"``
   resolves each with its stage-1 proxy ranking, ``ServeStats.degraded=

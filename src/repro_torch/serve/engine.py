@@ -39,6 +39,15 @@ raises without one. The D document cache is an (N, dim_D) f32 tensor on
 that device, next to a host mask of its valid rows (the JAX package keeps
 it on the host and copies each wave's rows to the device). Both threads
 issue work on the device's default stream.
+
+``shards > 1`` splits the corpus into S row blocks over a search mesh.
+Stage 1 is ``beam.sharded_greedy_search`` (S shard-local gathers a wave);
+stage 2 and the cover-tree descent keep their host drive, and every plan,
+dedup lookup and insert, commit and slot admission goes through one
+``beam.ShardedStepper`` on the same mesh: the dedup bitmap is
+column-sharded, the pools and counters stay on the engine's device, and
+the waves are scored on the whole D cache as at ``shards=1``. Both drives
+answer bit for bit what ``shards=1`` answers.
 """
 from __future__ import annotations
 
@@ -62,10 +71,6 @@ from repro_torch.models import transformer as T
 from repro_torch.serve import faults as serve_faults
 
 _I32 = torch.int32
-
-#: why ``shards > 1`` raises
-NO_SHARDS = ("BiMetricEngine at shards > 1 needs beam.ShardedStepper, which "
-             "comes with a later slice of the port")
 
 
 class DeadlineExceeded(Exception):
@@ -553,11 +558,11 @@ class _SlotPool:
             p_need = _round_capacity(int(max(self.L.max(), self.k.max())))
         if self.state is None:
             self.pool_size = max(p_need, 1)
-            self.state, _, _ = beam.init_state(
+            self.state, _, _ = eng._stepper.init(
                 eng._i32(np.full((self.S, 1), -1, np.int32)),
-                n_points=eng.n, pool_size=self.pool_size,
-                quota=eng._i32(np.zeros(self.S, np.int32)),
-                dedup=self.dedup, set_capacity=self.cap)
+                eng._i32(np.zeros(self.S, np.int32)),
+                pool_size=self.pool_size, dedup=self.dedup,
+                set_capacity=self.cap)
         elif p_need > self.pool_size:
             self.pool_size = p_need
             self.state = beam.grow_state(self.state, pool_size=p_need)
@@ -565,7 +570,7 @@ class _SlotPool:
         reset = np.zeros(self.S, bool)
         for _, s in prep.valid:
             reset[s] = True
-        self.state, safe, keep = beam.reset_slots(
+        self.state, safe, keep = eng._stepper.admit(
             self.state, torch.from_numpy(reset).to(eng.device),
             eng._i32(prep.seeds), eng._i32(self.quota))
         self._drain_and_commit(safe, keep)
@@ -619,8 +624,8 @@ class _SlotPool:
             self.tower_down()
             return False
         self.tower_total += batches
-        self.state = beam.commit_scores(self.state, safe, keep,
-                                        eng._wave_dists(self.q_D, safe))
+        self.state = eng._stepper.commit(self.state, safe, keep,
+                                         eng._wave_dists(self.q_D, safe))
         return True
 
     def step(self) -> None:
@@ -633,10 +638,9 @@ class _SlotPool:
             return self.step_ct()
         self.ew_cap = max(self.ew_cap, int(self.ew.max()))
         quota_t, L_t, ms_t = self._budgets()
-        self.state, safe, keep, _ = beam.plan_step(
-            self.state, eng._adjacency, beam_width=L_t, quota=quota_t,
-            max_steps=ms_t, expand_width=eng._i32(self.ew),
-            expand_cap=self.ew_cap)
+        self.state, safe, keep, _ = eng._stepper.plan(
+            self.state, eng._adjacency, quota_t, L_t, ms_t,
+            expand_width=eng._i32(self.ew), expand_cap=self.ew_cap)
         if self._score_and_commit(safe, keep, overlap=True):
             self.sweep_early()
 
@@ -663,17 +667,17 @@ class _SlotPool:
             self.state.pool_dists,
             torch.from_numpy(radius).to(eng.device)).cpu().numpy()
         ew_t = np.where(stepping, ew_t, 0).astype(np.int32)
-        self.state = beam.reset_expanded(
+        self.state = eng._stepper.reopen(
             self.state, torch.from_numpy(stepping).to(eng.device))
         lev = eng._i32(np.minimum(t, l1 - 1).astype(np.int32))
         planned = []
         remaining = ew_t.copy()
         while remaining.max() > 0:
             ew = np.minimum(remaining, chunk).astype(np.int32)
-            self.state, safe, keep, _ = beam.plan_step(
-                self.state, eng._flat.children, beam_width=L_t, quota=quota_t,
-                max_steps=ms_t, expand_width=eng._i32(ew), expand_cap=chunk,
-                level=lev, wave_dedup=False)
+            self.state, safe, keep, _ = eng._stepper.plan(
+                self.state, eng._flat.children, quota_t, L_t, ms_t,
+                expand_width=eng._i32(ew), expand_cap=chunk, level=lev,
+                wave_dedup=False)
             planned.append((safe, keep))
             remaining -= ew
         for i, (safe, keep) in enumerate(planned):
@@ -697,7 +701,7 @@ class _SlotPool:
         # early mid-level stay frozen
         cont &= ~self.early
         if cont.any():
-            self.state = beam.reset_expanded(
+            self.state = eng._stepper.reopen(
                 self.state, torch.from_numpy(cont).to(eng.device))
         self.sweep_early()
 
@@ -850,8 +854,8 @@ class _SlotPool:
         if self.state is None or not self.occupied.any():
             return
         quota_t, L_t, ms_t = self._budgets()
-        act = beam.active_mask(self.state, beam_width=L_t, quota=quota_t,
-                               max_steps=ms_t).cpu().numpy()
+        act = eng._stepper.active(self.state, quota_t, L_t,
+                                  ms_t).cpu().numpy()
         fin = self.occupied & ~act & ~self.early
         if not fin.any():
             return
@@ -954,8 +958,19 @@ class BiMetricEngine:
 
     ``device`` follows the port's rule: the card unless ``"cpu"``, raising
     without one. A tower with a ``device`` attribute must be on the same
-    kind of device. ``shards > 1`` raises ``NotImplementedError`` until
-    ``beam.ShardedStepper`` is ported.
+    kind of device.
+
+    ``shards`` splits the corpus into that many row blocks over ``mesh``, a
+    ``distributed.sharding.SearchMesh`` of one device type whose first
+    device is the engine's (the pools, counters and D cache live there).
+    Without ``mesh`` the engine takes ``search_mesh(shards, device=...)``,
+    which raises on a host with fewer devices than shards: put several
+    shards on one device with ``search_mesh(S, devices=[dev] * S)``. The
+    JAX engine fills its mesh from the host devices ``XLA_FLAGS`` forces;
+    torch has no such flag, hence the keyword. Stage 1 runs
+    ``beam.sharded_greedy_search`` on the mesh and stage 2 steps through
+    one ``beam.ShardedStepper`` on it; every answer is bit-exact to
+    ``shards=1``.
     """
 
     def __init__(self, cheap, expensive, corpus_tokens: np.ndarray,
@@ -970,9 +985,7 @@ class BiMetricEngine:
                  breaker_cooldown_ms: float = 2000.0,
                  drain_timeout_ms: float | None = None,
                  faults: serve_faults.FaultPlan | None = None,
-                 device=None):
-        if shards > 1:
-            raise NotImplementedError(NO_SHARDS)
+                 mesh=None, device=None):
         dev = kernel_backend.resolve_device(device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
@@ -993,6 +1006,13 @@ class BiMetricEngine:
         self.dedup = dedup
         self.backend = kernel_backend.resolve_backend(
             backend, quantize=quantize, _caller="serve.BiMetricEngine")
+        # one mesh for the engine's life: stage 1 searches on it and stage
+        # 2 steps through it (at shards=1 the stepper is the primitives)
+        self._stepper = beam.ShardedStepper(
+            shards=shards, n_points=self.n, mesh=mesh, device=dev)
+        if self._stepper.device != dev:
+            raise ValueError(f"the mesh's first device {self._stepper.device} "
+                             f"is not the engine's device {dev}")
         self.slots = int(slots)
         if self.slots < 1:
             raise ValueError("slots must be >= 1")
@@ -1034,11 +1054,13 @@ class BiMetricEngine:
             # builds its view once, here; the graph is built on the exact
             # embeddings either way
             em_d = distances.EmbeddingMetric(self.emb_d)
+            self._metric_d = em_d.metric
+            self._view_d = None
             if self.backend.matmul or self.backend.quantize is not None:
+                self._view_d = kernel_backend.as_corpus_view(
+                    self.emb_d, quantize=self.backend.quantize)
                 self._dist_d = beam.fused_dist_fn(
-                    kernel_backend.as_corpus_view(
-                        self.emb_d, quantize=self.backend.quantize),
-                    em_d.metric, backend=self.backend)
+                    self._view_d, em_d.metric, backend=self.backend)
             else:
                 self._dist_d = em_d.dists_batch
             self._adjacency = kernel_backend.as_tensor(
@@ -1085,10 +1107,19 @@ class BiMetricEngine:
     def _stage1(self, q_d: torch.Tensor, *, width, pool: int,
                 max_steps) -> beam.SearchResult:
         """Batched cheap-metric greedy search from the medoid (stage 1);
-        ``width`` / ``max_steps`` may be per-query (B,) vectors."""
+        ``width`` / ``max_steps`` may be per-query (B,) vectors. At
+        ``shards > 1`` the same search runs over the engine's mesh, the
+        cheap rows (or their view) in row blocks."""
         b = q_d.shape[0]
         entries = torch.full((b, 1), int(self.index.medoid), dtype=_I32,
                              device=self.device)
+        if self.shards > 1:
+            return beam.sharded_greedy_search(
+                self.emb_d if self._view_d is None else self._view_d,
+                self._adjacency, q_d, entries, shards=self.shards,
+                metric=self._metric_d, mesh=self._stepper.mesh,
+                beam_width=width, pool_size=pool, max_steps=max_steps,
+                backend=self.backend, device=self.device)
         return beam.batched_greedy_search(
             self._dist_d, self._adjacency, q_d, entries, n_points=self.n,
             beam_width=width, pool_size=pool, max_steps=max_steps)
@@ -1195,21 +1226,20 @@ class BiMetricEngine:
         dedup, cap = beam.resolve_dedup(
             self.dedup, _round_capacity(int(quota_np.max())), quota_np,
             self.n, drive="host")
-        state, safe, keep = beam.init_state(
-            seeds.contiguous(), n_points=self.n, pool_size=P, quota=quota_t,
-            dedup=dedup, set_capacity=cap)
+        stepper = self._stepper
+        state, safe, keep = stepper.init(
+            seeds.contiguous(), quota_t, pool_size=P, dedup=dedup,
+            set_capacity=cap)
         while True:
             tower_batches += yield ("drain",
                                     safe.cpu().numpy()[keep.cpu().numpy()])
-            state = beam.commit_scores(state, safe, keep,
-                                       self._wave_dists(q_D, safe))
-            if not bool(beam.active_mask(state, beam_width=L_t,
-                                         quota=quota_t,
-                                         max_steps=ms_t).any()):
+            state = stepper.commit(state, safe, keep,
+                                   self._wave_dists(q_D, safe))
+            if not stepper.active_any(state, quota_t, L_t, ms_t):
                 break
-            state, safe, keep, _ = beam.plan_step(
-                state, self._adjacency, beam_width=L_t, quota=quota_t,
-                max_steps=ms_t, expand_width=ew_t, expand_cap=ew_cap)
+            state, safe, keep, _ = stepper.plan(
+                state, self._adjacency, quota_t, L_t, ms_t,
+                expand_width=ew_t, expand_cap=ew_cap)
 
         kmax = int(k_np.max())
         ids = state.pool_ids[:, :kmax].cpu().numpy().astype(np.int64)
@@ -1246,16 +1276,16 @@ class BiMetricEngine:
         ms_t = L_t
         entries = self._i32(np.broadcast_to(
             np.asarray(flat.root_ids, np.int32)[None, :], (b, e0)))
-        state, safe, keep = beam.init_state(
-            entries, n_points=self.n, pool_size=P, quota=quota_t,
-            dedup=dedup, set_capacity=cap)
+        stepper = self._stepper
+        state, safe, keep = stepper.init(entries, quota_t, pool_size=P,
+                                         dedup=dedup, set_capacity=cap)
         tower_batches = 0
 
         def _commit(s, sf, kp):
             nonlocal tower_batches
             tower_batches += yield ("drain",
                                     sf.cpu().numpy()[kp.cpu().numpy()])
-            return beam.commit_scores(s, sf, kp, self._wave_dists(q_D, sf))
+            return stepper.commit(s, sf, kp, self._wave_dists(q_D, sf))
 
         state = yield from _commit(state, safe, keep)
         alive = np.ones(b, bool)
@@ -1265,17 +1295,17 @@ class BiMetricEngine:
             ew_t = np.where(alive, ew_t, 0).astype(np.int32)
             if not ew_t.any():
                 break
-            state = beam.reset_expanded(
+            state = stepper.reopen(
                 state, torch.from_numpy(alive).to(self.device))
             lev = torch.full((b,), t, dtype=_I32, device=self.device)
             planned = []
             remaining = ew_t.copy()
             while remaining.max() > 0:
                 ew = np.minimum(remaining, chunk).astype(np.int32)
-                state, safe, keep, _ = beam.plan_step(
-                    state, self._flat.children, beam_width=L_t, quota=quota_t,
-                    max_steps=ms_t, expand_width=self._i32(ew),
-                    expand_cap=chunk, level=lev, wave_dedup=False)
+                state, safe, keep, _ = stepper.plan(
+                    state, self._flat.children, quota_t, L_t, ms_t,
+                    expand_width=self._i32(ew), expand_cap=chunk, level=lev,
+                    wave_dedup=False)
                 planned.append((safe, keep))
                 remaining -= ew
             for safe, keep in planned:

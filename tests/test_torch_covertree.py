@@ -8,7 +8,10 @@ at any block width and however wide the direct form's band is; ``flatten``
 the same arrays. The descent (``search_corpus``, ``bimetric_search`` with a
 ``FlatCoverTree``) must give JAX's ids and D-call counts, equal to the NumPy
 oracle's, at every ε of the grid and for both backends; at binding quotas
-the counts equal the oracle's. The engine pieces of the slice
+the counts equal the oracle's. At ``shards`` in {2, 4} (``["cpu"] * S``
+meshes) the descent equals the unsharded one bit for bit, as
+``tests/test_covertree.py::test_sharded_parity`` holds JAX's. The engine
+pieces of the slice
 (``frontier_count``, ``reset_expanded``, ``plan_step(level=)``) are held
 against JAX on seeded inputs.
 """
@@ -24,6 +27,7 @@ from repro_torch import convert
 from repro_torch.core import beam as tbeam
 from repro_torch.core import bimetric as tbm
 from repro_torch.core import covertree as tct
+from repro_torch.distributed import sharding as tsharding
 from repro_torch.kernels import ops as tops
 
 CPU = "cpu"
@@ -282,20 +286,48 @@ def test_bimetric_search_covertree_dispatch(parts):
         assert calls[i] == ocalls, i
 
 
-def test_shards_and_stepper_raise(parts):
+@pytest.mark.parametrize("eps", GRID_EPS)
+def test_sharded_parity(parts, eps):
+    """``tests/test_covertree.py::test_sharded_parity`` at S in {2, 4}: the
+    descent stepped on a ``["cpu"] * S`` mesh (``search_corpus(shards=)``,
+    ``search_batched(stepper=)`` and ``bimetric_search`` with a
+    ``FlatCoverTree``) equals the unsharded host drive bit for bit, dists
+    included."""
     _, _, tflat, corpus, queries = parts
-    fn = tbeam.fused_dist_fn(torch.from_numpy(corpus), "l2")
-    with pytest.raises(NotImplementedError, match="ShardedStepper"):
+    c, qs = torch.from_numpy(corpus), torch.from_numpy(queries)
+    fn = tbeam.fused_dist_fn(c, "l2")
+    ref = tct.search_batched(tflat, fn, qs, eps=eps, k=10, quota=120,
+                             device=CPU)
+    for s in (2, 4):
+        mesh = tsharding.search_mesh(s, devices=[CPU] * s)
+        stepper = tbeam.ShardedStepper(shards=s, n_points=tflat.n, mesh=mesh,
+                                       device=CPU)
+        runs = [
+            tct.search_corpus(tflat, corpus, queries, eps=eps, k=10,
+                              quota=120, shards=s, mesh=mesh, device=CPU),
+            tct.search_batched(tflat, fn, qs, eps=eps, k=10, quota=120,
+                               stepper=stepper, device=CPU),
+            tct.search_batched(tflat, fn, qs, eps=eps, k=10, quota=120,
+                               dedup="bitmap", stepper=stepper, device=CPU)]
+        bm = tbm.bimetric_search(None, None, tflat, None, qs,
+                                 n_points=tflat.n, quota=120, k=10,
+                                 corpora=(c, c), eps=eps, shards=s,
+                                 mesh=mesh, device=CPU)
+        runs.append(tct.CoverSearchResult(bm.ids, bm.dists, bm.D_calls))
+        assert (bm.d_calls == 0).all()
+        for i, res in enumerate(runs):
+            for f in ref._fields:
+                assert torch.equal(getattr(res, f), getattr(ref, f)), (
+                    s, i, f)
+    with pytest.raises(ValueError, match="corpora"):
+        tbm.bimetric_search(None, fn, tflat, None, qs, n_points=tflat.n,
+                            quota=120, shards=2, mesh=mesh, device=CPU)
+    with pytest.raises(ValueError, match=r"search_mesh\(2, devices="):
         tct.search_corpus(tflat, corpus, queries, quota=50, shards=2,
                           device=CPU)
-    with pytest.raises(NotImplementedError, match="ShardedStepper"):
-        tct.search_batched(tflat, fn, torch.from_numpy(queries), quota=50,
-                           stepper=object(), device=CPU)
-    c = torch.from_numpy(corpus)
-    with pytest.raises(NotImplementedError, match="ShardedStepper"):
-        tbm.bimetric_search(None, None, tflat, None, torch.from_numpy(queries),
-                            n_points=tflat.n, quota=50, corpora=(c, c),
-                            shards=2, device=CPU)
+    with pytest.raises(ValueError, match="stepper is on cpu"):
+        tct.search_batched(tflat, fn, qs, quota=50, stepper=stepper,
+                           device="meta")
 
 
 def test_entry_points_without_device_raise_on_cpu_host(parts):

@@ -765,3 +765,44 @@ def test_serve_sync_equals_async_on_card(dev, index):
             want.stats.D_calls, want.stats.d_calls)
         assert got.stats.D_calls <= r.quota and not got.stats.degraded
     eng.close(timeout=60)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("index", ["vamana", "covertree"])
+def test_sharded_serve_equals_unsharded_on_card(dev, index):
+    """The engine at shards=2 on ``["cuda:0"] * 2`` (smoke towers, an
+    uneven corpus): the sync and the async drive answer bit for bit what
+    the shards=1 sync drive answers. The vamana engine's stage 1 launches
+    the shard-local gather twice a wave."""
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import transformer
+    from repro_torch.serve import BiMetricEngine, EmbedTower, SearchRequest
+
+    cheap = EmbedTower(transformer.init_params(
+        0, launch_serve.cheap_smoke(), device=dev))
+    expensive = EmbedTower(transformer.init_params(
+        1, launch_serve.expensive_smoke(), device=dev))
+    corpus = np.random.default_rng(7).integers(0, 512, (257, 16),
+                                               dtype=np.int32)
+    reqs = [SearchRequest(tokens=corpus[r], quota=q, k=k)
+            for r, q, k in ((3, 24, 10), (40, 8, 5), (77, 16, 10),
+                            (55, 0, 5), (9, 12, 3))]
+    ref = BiMetricEngine(cheap, expensive, corpus, index=index).query_batch(
+        reqs)
+    one = torch.device("cuda", 0)
+    eng = BiMetricEngine(cheap, expensive, corpus, index=index, shards=2,
+                         slots=2, mesh=sharding.search_mesh(2, [one] * 2))
+    l2_topk.reset_launches()
+    sync = eng.query_batch(reqs)
+    local = l2_topk.launches["gather_score_local"]
+    assert (local > 0) == (index == "vamana") and local % 2 == 0
+    eng.reset_doc_cache()
+    futs = [eng.submit(r) for r in reqs]
+    for got_s, f, want in zip(sync, futs, ref):
+        got_a = f.result(timeout=120)
+        for got in (got_s, got_a):
+            assert np.array_equal(got.ids, want.ids)
+            assert np.array_equal(got.dists, want.dists)
+            assert (got.stats.D_calls, got.stats.d_calls) == (
+                want.stats.D_calls, want.stats.d_calls)
+    eng.close(timeout=60)

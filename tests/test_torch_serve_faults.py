@@ -1,7 +1,7 @@
 """The port's serving failure semantics, on the CPU.
 
-Ported from ``tests/test_serve_faults.py`` (its ``slow`` sharded chaos
-case waits for ``beam.ShardedStepper``). Seeded fault injection
+Ported from ``tests/test_serve_faults.py``, its ``slow`` sharded chaos case
+in process on ``["cpu"] * S`` meshes. Seeded fault injection
 (``repro_torch.serve.faults.FaultPlan``) drives the tower lane through
 transient faults, hangs, outages and interrupts, and pins the contract of
 ``repro_torch.serve``'s "Failure semantics": transient drain faults leave
@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from repro_torch.core import beam, distances
+from repro_torch.distributed.sharding import search_mesh
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import transformer as T
 from repro_torch.serve import (AdmissionFailed, BiMetricEngine,
@@ -161,6 +162,66 @@ def test_transient_drain_faults_bit_exact(engine_parts):
     assert fired > 0 and c.retries >= fired and c.tower_failures >= fired
     assert eng.health()["breaker_state"] == "closed"
     eng.close(timeout=WAIT)
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+def test_sharded_chaos_parity(engine_parts, shards):
+    """``tests/test_serve_faults.py::test_sharded_chaos_parity``: 10 %
+    transient drain faults at S shards over an uneven N = 97 corpus; every
+    request resolves bit for bit as the fault-free unsharded sync drive,
+    not degraded, and the fault stream fired and was retried."""
+    cheap, expensive, _ = engine_parts
+    corpus = np.random.default_rng(0).integers(0, 512, (97, 10),
+                                               dtype=np.int32)
+    parts = (cheap, expensive, corpus)
+    reqs = [SearchRequest(tokens=corpus[r], quota=q, k=5)
+            for r, q in zip((3, 40, 77, 12, 55), (6, 15, 9, 11, 15))]
+    ref = _engine(parts).query_batch(reqs)
+    plan = FaultPlan(seed=13, drain=FaultSpec(rate=0.10))
+    eng = _engine(parts, shards=shards, slots=2, faults=plan,
+                  retry_backoff_ms=1.0,
+                  mesh=search_mesh(shards, devices=[CPU] * shards))
+    for f, want in zip([eng.submit(r) for r in reqs], ref):
+        got = f.result(timeout=WAIT)
+        _assert_same(got, want)
+        assert got.stats.d_calls == want.stats.d_calls
+        assert not got.stats.degraded
+    c = eng.counters()
+    assert c.completed == len(reqs) and c.slot_occupancy == 0
+    assert plan.fired("drain") > 0 and c.retries >= plan.fired("drain")
+    eng.close(timeout=WAIT)
+
+
+@pytest.mark.parametrize("site", ["drain", "embed_queries"])
+def test_sharded_degrade_parity(engine_parts, site):
+    """A persistent drain or query-embed outage under 'degrade' at S = 2
+    over N = 97: every answer is degraded, and it is the unsharded
+    engine's degraded answer under the same plan bit for bit (the stage-1
+    proxy ranking, here from ``sharded_greedy_search``'s pools)."""
+    cheap, expensive, _ = engine_parts
+    corpus = np.random.default_rng(0).integers(0, 512, (97, 10),
+                                               dtype=np.int32)
+    parts = (cheap, expensive, corpus)
+    reqs = _reqs(corpus, rows=(3, 40, 77), quota=12)
+
+    def answers(**kw):
+        plan = FaultPlan(seed=4, **{site: FaultSpec(rate=1.0,
+                                                    mode="persistent")})
+        eng = _engine(parts, slots=2, faults=plan, on_tower_failure="degrade",
+                      retry_backoff_ms=1.0, **kw)
+        got = [f.result(timeout=WAIT) for f in [eng.submit(r) for r in reqs]]
+        eng.close(timeout=WAIT)
+        assert plan.fired(site) > 0
+        return got
+
+    ref = answers()
+    for got, want in zip(answers(shards=2,
+                                 mesh=search_mesh(2, devices=[CPU] * 2)),
+                         ref):
+        assert got.stats.degraded and want.stats.degraded
+        assert got.ids.size > 0
+        _assert_same(got, want)
+        assert got.stats.d_calls == want.stats.d_calls
 
 
 def test_persistent_drain_fail_policy_isolates(engine_parts):

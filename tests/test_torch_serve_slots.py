@@ -1,13 +1,15 @@
 """The port's async slot drive against its own sync drive, on the CPU.
 
-Ported from ``tests/test_serve_slots.py`` and ``tests/test_serve_async.py``
-(their ``slow`` sharded cases wait for ``beam.ShardedStepper``): the slot
-pool's answers are bit-exact to ``query_batch`` of the same requests
-(vamana and cover tree), and its admission semantics hold: priority slot
-reuse, deadline expiry while queued, backpressure, quota-0 rows,
-``close()`` cancelling queued requests only, the ``max_wait`` flush, a
-malformed request failing alone. Then the slot primitives of
-``core/beam.py``, the engine's device rule and the serving launcher.
+Ported from ``tests/test_serve_slots.py`` and ``tests/test_serve_async.py``:
+the slot pool's answers are bit-exact to ``query_batch`` of the same
+requests (vamana and cover tree), and its admission semantics hold:
+priority slot reuse, deadline expiry while queued, backpressure, quota-0
+rows, ``close()`` cancelling queued requests only, the ``max_wait`` flush,
+a malformed request failing alone. Their ``slow`` sharded cases run in
+process here, on ``["cpu"] * S`` meshes: at ``shards`` in {2, 4} both
+drives answer what ``shards=1`` answers, bit for bit. Then the slot
+primitives of ``core/beam.py``, the engine's device rule and the serving
+launcher.
 
 The towers are the port's own smoke towers drawn from seeds on the CPU. A
 ``_GatedTower`` holds the drive thread inside a tower call, so a test can
@@ -24,6 +26,7 @@ import pytest
 import torch
 
 from repro_torch.core import beam, distances
+from repro_torch.distributed.sharding import SearchMesh, search_mesh
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import transformer as T
 from repro_torch.serve import (BiMetricEngine, DeadlineExceeded, EmbedTower,
@@ -408,6 +411,98 @@ def test_engine_stage1_knobs(engine_parts, knob):
     eng.close(timeout=WAIT)
 
 
+# -------------------------------------------------------------------- sharded
+@pytest.fixture(scope="module")
+def parts97(engine_parts):
+    """The smoke towers over an uneven N = 97 corpus (the JAX sharded
+    tests' size), and the shards=1 engine's sync answers by index kind."""
+    cheap, expensive, _ = engine_parts
+    corpus = np.random.default_rng(0).integers(0, 512, (97, 10),
+                                               dtype=np.int32)
+    rows = [3, 40, 77, 12, 55]
+    quotas = [6, 15, 0, 11, 15]
+    reqs = [SearchRequest(tokens=corpus[r], quota=q, k=5)
+            for r, q in zip(rows, quotas)]
+    parts = (cheap, expensive, corpus)
+    ref = {index: _engine(parts, index=index).query_batch(reqs)
+           for index in ("vamana", "covertree")}
+    return parts, reqs, ref
+
+
+def _sharded(parts, s, **kw):
+    return _engine(parts, shards=s, mesh=search_mesh(s, devices=[CPU] * s),
+                   **kw)
+
+
+@pytest.mark.parametrize("dedup", ["auto", "bitmap"])
+@pytest.mark.parametrize("shards", [2, 4])
+def test_sharded_slot_drive_parity(parts97, shards, dedup):
+    """``tests/test_serve_slots.py::test_sharded_slot_drive_parity``: the
+    slot pool steps through the ShardedStepper (admit, plan, commit,
+    active on the corpus mesh) and, with more requests than slots, mixed
+    quotas and a quota-0 row, every answer of both drives equals the
+    unsharded sync drive's bit for bit."""
+    parts, reqs, ref = parts97
+    eng = _sharded(parts, shards, slots=2, dedup=dedup)
+    for got, want in zip(eng.query_batch(reqs), ref["vamana"]):
+        _assert_same(got, want)
+    futs = [eng.submit(r) for r in reqs]
+    for f, want in zip(futs, ref["vamana"]):
+        _assert_same(f.result(timeout=WAIT), want)
+    c = eng.counters()
+    assert c.completed == len(reqs) and c.slot_occupancy == 0
+    eng.close(timeout=WAIT)
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+def test_sharded_stage2_async_parity(parts97, shards):
+    """``tests/test_serve_async.py::test_sharded_stage2_async_parity``: the
+    sync drive, then the slot drive on the warm cache, equal the unsharded
+    engine; on the engine's stepper the column-sharded bitmap's popcounts
+    sum to ``n_calls`` (the partition invariant)."""
+    parts, reqs, ref = parts97
+    sub = [reqs[i] for i in (0, 1, 3)]
+    want = [ref["vamana"][i] for i in (0, 1, 3)]
+    eng = _sharded(parts, shards, slots=3, dedup="bitmap")
+    for got, w in zip(eng.query_batch(sub), want):
+        _assert_same(got, w)
+    for f, w in zip([eng.submit(r) for r in sub], want):
+        _assert_same(f.result(timeout=WAIT), w)
+    eng.close(timeout=WAIT)
+    st = eng._stepper
+    assert st.shards == shards and st.ctx is not None
+    seeds = torch.from_numpy(np.stack([w.ids[:3] for w in want]))
+    quota = torch.tensor([r.quota for r in sub], dtype=torch.int32)
+    state, _, _ = st.init(seeds.to(torch.int32), quota, pool_size=8)
+    assert len(state.scored) == shards
+    assert torch.equal(st.scored_count(state), state.n_calls)
+
+
+def test_sharded_covertree_engine(parts97):
+    """``index="covertree"`` at S = 2: sync = async = shards=1."""
+    parts, reqs, ref = parts97
+    eng = _sharded(parts, 2, slots=2, index="covertree")
+    for got, want in zip(eng.query_batch(reqs), ref["covertree"]):
+        _assert_same(got, want)
+    for f, want in zip([eng.submit(r) for r in reqs], ref["covertree"]):
+        _assert_same(f.result(timeout=WAIT), want)
+    eng.close(timeout=WAIT)
+
+
+def test_sharded_rerank_parity(parts97):
+    """``rerank_query_batch`` at S = 2 (stage 1 through
+    ``sharded_greedy_search``) equals the shards=1 engine's: ids, dists
+    and both call counts."""
+    parts, reqs, _ = parts97
+    toks = np.stack([r.tokens for r in reqs])
+    ref = _engine(parts).rerank_query_batch(toks, quota=12, k=5)
+    got = _sharded(parts, 2).rerank_query_batch(toks, quota=12, k=5)
+    np.testing.assert_array_equal(got[0], ref[0])
+    np.testing.assert_array_equal(got[1], ref[1])
+    assert ([(s.d_calls, s.D_calls) for s in got[2]]
+            == [(s.d_calls, s.D_calls) for s in ref[2]])
+
+
 # ------------------------------------------------------- beam-level primitives
 def _toy_search_parts(n=64, dim=8, deg=6, b=4, seed=0):
     rng = np.random.default_rng(seed)
@@ -511,8 +606,10 @@ def test_per_row_expand_width_vector():
 # ---------------------------------------------------------- device rule
 def test_engine_device_rule(engine_parts):
     """No card and no device="cpu": raise. A tower on the other kind of
-    device: ValueError. shards > 1: NotImplementedError naming
-    ShardedStepper."""
+    device: ValueError. shards > 1 without mesh= on the CPU: ValueError
+    naming search_mesh; with a ["cpu"] * 2 mesh it builds. A mesh of
+    another device type, or whose first device is not the engine's,
+    raises."""
     cheap, expensive, corpus = engine_parts
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -526,8 +623,21 @@ def test_engine_device_rule(engine_parts):
 
     with pytest.raises(ValueError, match="tower"):
         BiMetricEngine(cheap, OnCard(), corpus, device=CPU)
-    with pytest.raises(NotImplementedError, match="ShardedStepper"):
+    with pytest.raises(ValueError, match=r"search_mesh\(2, devices="):
         BiMetricEngine(cheap, expensive, corpus, shards=2, device=CPU)
+    eng = BiMetricEngine(cheap, expensive, corpus, shards=2, device=CPU,
+                         mesh=search_mesh(2, devices=[CPU] * 2))
+    assert eng._stepper.mesh.devices == (torch.device(CPU),) * 2
+    with pytest.raises(ValueError, match="runs on cpu"):
+        BiMetricEngine(cheap, expensive, corpus, shards=2, device=CPU,
+                       mesh=search_mesh(2, devices=["meta"] * 2))
+    with pytest.raises(ValueError, match="runs on cpu"):
+        BiMetricEngine(cheap, expensive, corpus, shards=2, device=CPU,
+                       mesh=SearchMesh((torch.device(CPU),
+                                        torch.device("meta"))))
+    with pytest.raises(ValueError, match="not the engine's device"):
+        BiMetricEngine(cheap, expensive, corpus, shards=2, device=CPU,
+                       mesh=search_mesh(2, devices=["cpu:1"] * 2))
 
 
 # ------------------------------------------------------------------ launcher

@@ -438,10 +438,14 @@ def test_bimetric_matmul_int8_sharded(dataset):
 # --------------------------------------------------------------------------
 @pytest.mark.slow
 def test_port_matches_jax_sharded_engine():
-    """The port's sharded engine (N=130, S ∈ {2, 4}) and sharded
-    ``bimetric_search`` (S=4) against JAX's ``shard_map`` programs on four
-    host devices. The three JAX programs compile concurrently to keep the
-    test short."""
+    """On four host devices, against JAX's ``shard_map`` programs: the
+    port's sharded engine (N=130, S ∈ {2, 4}) and sharded
+    ``bimetric_search`` (S=4); the ``ShardedStepper`` host drive (N=97,
+    S ∈ {2, 4}, bitmap and sorted: ids, ``n_calls``, ``n_steps`` and
+    ``scored_count`` exact, dists within 1e-5); and the cover tree built in
+    both packages from one proxy (the same table) and searched by
+    ``search_corpus(shards=4)`` (ids and ``n_calls`` exact). The JAX work
+    runs in threads, so its programs compile concurrently."""
     code = textwrap.dedent("""
         import os
         os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
@@ -451,8 +455,10 @@ def test_port_matches_jax_sharded_engine():
         import numpy as np
         import torch
         from repro.core import beam as jbeam, bimetric as jbm
+        from repro.core import covertree as jct, distances as jdist
         from repro.core import vamana as jv
         from repro_torch.core import beam as tbeam, bimetric as tbm
+        from repro_torch.core import covertree as tct, distances as tdist
         from repro_torch.core import vamana as tv
         from repro_torch.distributed.sharding import search_mesh
         assert len(jax.devices()) == 4
@@ -492,9 +498,61 @@ def test_port_matches_jax_sharded_engine():
                 None, None, jidx, jnp.asarray(qd), jnp.asarray(qD),
                 corpora=(jnp.asarray(cd), jnp.asarray(cD)), **bkw))
 
-        with ThreadPoolExecutor(3) as ex:
+        # the stepper's host drive: distinct ids a graph row, so that one
+        # paid call is one distinct scored id
+        ns = 97
+        srng = np.random.default_rng(ns)
+        sadj = np.stack([srng.choice(ns, 6, replace=False)
+                         for _ in range(ns)]).astype(np.int32)
+        sadj[srng.random((ns, 6)) < 0.2] = -1
+        semb = srng.normal(size=(ns, 8)).astype(np.float32)
+        sqs = srng.normal(size=(3, 8)).astype(np.float32)
+        seeds = np.broadcast_to(np.array([0, 40, 90], np.int32),
+                                (3, 3)).copy()
+        squota = np.array([6, 15, 11], np.int32)
+
+        def drive(st, adj, fn, qs, cast):
+            L, ms = cast(np.full(3, 8, np.int32)), cast(np.full(3, 60,
+                                                                np.int32))
+            quota = cast(squota)
+            out = {}
+            for dedup, cap in (("bitmap", None), ("sorted", 16)):
+                state, safe, keep = st.init(cast(seeds), quota, pool_size=16,
+                                            dedup=dedup, set_capacity=cap)
+                while True:
+                    state = st.commit(state, safe, keep, fn(qs, safe))
+                    if not st.active_any(state, quota, L, ms):
+                        break
+                    state, safe, keep, _ = st.plan(state, adj, quota, L, ms)
+                out[dedup] = [np.asarray(a) for a in (
+                    state.pool_ids, state.pool_dists, state.n_calls,
+                    state.n_steps, st.scored_count(state))]
+            return out
+
+        def jax_stepper(shards):
+            em = jdist.EmbeddingMetric(jnp.asarray(semb))
+            return drive(jbeam.ShardedStepper(shards=shards, n_points=ns),
+                         jnp.asarray(sadj), em.dists_batch, jnp.asarray(sqs),
+                         jnp.asarray)
+
+        # the cover tree: tests/test_covertree.py's flat_parts inputs
+        crng = np.random.default_rng(3)
+        ccorpus = crng.normal(size=(300, 12)).astype(np.float32)
+        proj = crng.normal(size=(12, 5)) / np.sqrt(5)
+        x_d = (ccorpus @ proj).astype(np.float64)
+        cqs = crng.normal(size=(8, 12)).astype(np.float32)
+        ckw = dict(eps=0.5, k=10, quota=120, shards=4)
+
+        def jax_cover():
+            flat = jct.flatten(jct.build(x_d, T=2.0))
+            return flat, jct.search_corpus(flat, ccorpus, cqs, **ckw)
+
+        with ThreadPoolExecutor(6) as ex:
             futs = {2: ex.submit(jax_engine, 2), 4: ex.submit(jax_engine, 4),
-                    "bimetric": ex.submit(jax_bimetric)}
+                    "bimetric": ex.submit(jax_bimetric),
+                    ("stepper", 2): ex.submit(jax_stepper, 2),
+                    ("stepper", 4): ex.submit(jax_stepper, 4),
+                    "cover": ex.submit(jax_cover)}
             want = {k: f.result() for k, f in futs.items()}
 
         for shards in (2, 4):
@@ -516,6 +574,33 @@ def test_port_matches_jax_sharded_engine():
             assert np.array_equal(np.asarray(getattr(j, name)),
                                   getattr(p, name).numpy()), name
         np.testing.assert_allclose(p.dists.numpy(), np.asarray(j.dists),
+                                   rtol=1e-5, atol=1e-5)
+
+        tfn = tdist.EmbeddingMetric(t(semb)).dists_batch
+        for shards in (2, 4):
+            st = tbeam.ShardedStepper(shards=shards, n_points=ns,
+                                      mesh=mesh(shards), device="cpu")
+            got = drive(st, t(sadj), tfn, t(sqs), t)
+            for dedup, fields in got.items():
+                ref = want["stepper", shards][dedup]
+                for i, (a, b) in enumerate(zip(ref, fields)):
+                    if i == 1:
+                        np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-5)
+                    else:
+                        assert np.array_equal(a, b), (shards, dedup, i)
+                assert np.array_equal(fields[4], fields[2])
+
+        jflat, jres = want["cover"]
+        tflat = tct.flatten(tct.build(x_d, T=2.0, device="cpu"), device="cpu")
+        assert np.array_equal(tflat.children.numpy(),
+                              np.asarray(jflat.children))
+        assert np.array_equal(tflat.radii, np.asarray(jflat.radii))
+        tres = tct.search_corpus(tflat, t(ccorpus), t(cqs), mesh=mesh(4),
+                                 device="cpu", **ckw)
+        for name in ("ids", "n_calls"):
+            assert np.array_equal(np.asarray(getattr(jres, name)),
+                                  getattr(tres, name).numpy()), name
+        np.testing.assert_allclose(tres.dists.numpy(), np.asarray(jres.dists),
                                    rtol=1e-5, atol=1e-5)
         print("PORT_SHARDED_OK")
     """)
