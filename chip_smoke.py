@@ -77,7 +77,19 @@ Phases (any failure exits nonzero and prints no result line):
    from (b)'s D cache, sync and async bit-equal to (b) / (e), with the
    shard-local gather launched S times a stage-1 wave; after its counts,
    the stage-1 wave at B=16 and B=64 held shard by shard (S=4 and 3)
-   against the plain local gather, the shards' sum against the gather.
+   against the plain local gather, the shards' sum against the gather;
+10. scatter-gather search over per-shard sub-indices
+   (``core/distributed.py``): at phase 3's size, four graphs built on the
+   card by ``build_sharded`` searched on the card and on the CPU (each
+   shard's answer equal up to a near-tie); then on phase 4's data, S=4
+   graphs of N/4 rows built on d on ``["cuda:0"] * 4`` (timed),
+   ``sharded_bimetric_search`` at each Q beside phase 4's bi-metric recall,
+   ``gather_score`` and the merge launched and the local gather not; each
+   shard within max(k, Q // 4) D calls; the ring matmuls against one dense
+   ``torch.matmul``.
+
+Phases 6 and 8(a) run under ``torch.inference_mode()``: the kernels have
+no backward, and their wrappers refuse an input that requires grad.
 
 Ends with a JSON line of every ported kernel and the result line
 ``{"ok": true, "device": {...}}``. Needs one CUDA device; imports no JAX.
@@ -1829,10 +1841,11 @@ def tower_slice(dev, sizes, rehearse):
     cheap, expensive = models["cheap"], models["expensive"]
     batch, doc_len, q_len = tw["batch"], tw["doc_len"], tw["query_len"]
 
-    out["attention"] = tower_attention(dev, [
-        (name, batch, m.cfg.n_heads, m.cfg.n_kv_heads, s, m.cfg.head_dim,
-         m.cfg.dtype) for name, m in models.items() for s in (doc_len, q_len)],
-        rehearse)
+    with torch.inference_mode():  # the card routes have no backward
+        out["attention"] = tower_attention(dev, [
+            (name, batch, m.cfg.n_heads, m.cfg.n_kv_heads, s, m.cfg.head_dim,
+             m.cfg.dtype) for name, m in models.items()
+            for s in (doc_len, q_len)], rehearse)
     out["cross"] = tower_cross(dev, cheap, expensive, doc_len,
                                tw["cut_layers"])
 
@@ -2465,6 +2478,250 @@ def serve_slice(dev, ph8, sizes, rehearse):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 10: scatter-gather search over per-shard sub-indices
+# --------------------------------------------------------------------------
+SG_SHARDS = 4  # phase 5's shard count, on the one card
+
+
+def _host_index(idx):
+    """A copy on the CPU of a ``ShardedIndex`` (the same graphs)."""
+    return idx._replace(**{f: tuple(t.cpu() for t in getattr(idx, f))
+                           for f in ("adjacency", "emb_cheap",
+                                     "emb_expensive")})
+
+
+def scatter_gather_cross(dev, n, dim_d, dim_D, n_queries, quotas):
+    """At phase 3's size and data, four graphs built on the card by
+    ``build_sharded`` are searched on the card and, copied, with
+    ``device="cpu"``: each shard's answer (ids, D calls) must agree up to a
+    near-tie (phase 3's rule, ``_explain`` on that shard), and a query
+    whose shards all agree must get the same merged ids and total."""
+    from repro_torch.configs.bimetric_paper import PAPER_DISKANN
+    from repro_torch.core import distances
+    from repro_torch.core import distributed as sg
+    from repro_torch.core.vamana import VamanaIndex
+    from repro_torch.data.synthetic import make_dataset, proxy_quality_sweep
+    from repro_torch.distributed import sharding
+
+    cpu = torch.device("cpu")
+    noise = {k: v for k, v in proxy_quality_sweep("bge-micro-like").items()
+             if k != "dim_d"}
+    data = make_dataset(n=n, n_queries=n_queries, dim_D=dim_D, dim_d=dim_d,
+                        n_clusters=n // POINTS_PER_CLUSTER, seed=3,
+                        device=dev, **noise)
+    s_n, k = SG_SHARDS, 10
+    nl = n // s_n
+    cfg = PAPER_DISKANN._replace(build_batch=min(PAPER_DISKANN.build_batch,
+                                                 nl))
+    one = torch.device("cuda", 0) if dev.type == "cuda" else dev
+    mesh = sharding.search_mesh(s_n, devices=[one] * s_n)
+    host_mesh = sharding.search_mesh(s_n, devices=[cpu] * s_n)
+    t0 = time.perf_counter()
+    idx = sg.build_sharded(data.corpus_d, data.corpus_D, s_n, cfg, mesh=mesh)
+    log(f"  cross-check build_sharded N={n}, S={s_n}: "
+        f"{time.perf_counter() - t0:.3f} s")
+    host = _host_index(idx)
+    q_host = {f: getattr(data, f).cpu() for f in ("queries_d", "queries_D")}
+    allowed = []
+    for q in quotas:
+        per = max(k, q // s_n)
+        agree = torch.ones(n_queries, dtype=torch.bool)
+        for s in range(s_n):
+            sides = []
+            for ix, d, qd, qD in ((idx, one, data.queries_d, data.queries_D),
+                                  (host, cpu, q_host["queries_d"],
+                                   q_host["queries_D"])):
+                sides.append(dict(
+                    cd=ix.emb_cheap[s], cD=ix.emb_expensive[s], qd=qd, qD=qD,
+                    adj=ix.adjacency[s],
+                    res=sg._local_search(
+                        ix.adjacency[s], ix.medoid[s], ix.emb_cheap[s],
+                        ix.emb_expensive[s], qd, qD, quota=per, k=k,
+                        n_seeds=max(1, per // 2), cfg=cfg, device=d)))
+            gpu, hst = sides
+            for side in sides:
+                side["fd"] = distances.EmbeddingMetric(side["cd"]).dists_batch
+                side["fD"] = distances.EmbeddingMetric(side["cD"]).dists_batch
+            (ia, da, ca), (ic, dc, cc) = gpu["res"], hst["res"]
+            require(int(ca.max()) <= per, f"shard {s}: D calls past {per}")
+            for b in range(n_queries):
+                if (torch.equal(ia[b].cpu(), ic[b])
+                        and int(ca[b]) == int(cc[b])):
+                    torch.testing.assert_close(da[b].cpu(), dc[b], rtol=1e-4,
+                                               atol=1e-4)
+                    continue
+                agree[b] = False
+                sub = [VamanaIndex(adjacency=x["adj"], medoid=idx.medoid[s],
+                                   config=cfg) for x in sides]
+                stage, gap, pair = _explain(b, "bimetric", per, gpu, hst,
+                                            *sub, nl, None, None)
+                ok = gap <= CROSS_RTOL
+                log(f"  query {b} (Q={q}, shard {s}) differs at {stage}: "
+                    f"candidates {pair}, relative gap {gap:.3e} "
+                    f"({'near-tie, allowed' if ok else 'NOT a near-tie'})")
+                require(ok, f"query {b} shard {s} differs beyond a near-tie")
+                allowed.append(dict(Q=q, shard=s, query=b, stage=stage,
+                                    gap=gap))
+        got = sg.sharded_bimetric_search(mesh, idx, data.queries_d,
+                                         data.queries_D, quota=q, k=k)
+        want = sg.sharded_bimetric_search(host_mesh, host,
+                                          q_host["queries_d"],
+                                          q_host["queries_D"], quota=q, k=k)
+        for b in agree.nonzero().flatten().tolist():
+            require(torch.equal(got[0][b].cpu(), want[0][b])
+                    and int(got[2][b]) == int(want[2][b]),
+                    f"query {b} (Q={q}): shards agree, the merge differs")
+            torch.testing.assert_close(got[1][b].cpu(), want[1][b], rtol=1e-4,
+                                       atol=1e-4)
+    log(f"  scatter-gather card vs cpu: {n_queries} queries x {len(quotas)} "
+        f"quotas x {s_n} shards, {len(allowed)} near-tie differences")
+    return dict(near_ties=allowed)
+
+
+def check_ring_matmuls(dev, rehearse):
+    """The ring matmuls over four shards on the one card against one dense
+    ``torch.matmul`` (f32, unit-scale products), within 1e-4."""
+    from repro_torch.distributed import collectives
+
+    s_n = SG_SHARDS
+    m, kk, n = (64, 48, 32) if rehearse else (1024, 384, 256)
+    g = torch.Generator(device=dev).manual_seed(20)
+    x = torch.randn(m, kk, generator=g, device=dev)
+    w = torch.randn(kk, n, generator=g, device=dev) / math.sqrt(kk)
+    gathered = collectives.allgather_matmul(list(x.chunk(s_n)), [w] * s_n)
+    scattered = torch.cat(collectives.matmul_reducescatter(
+        list(x.chunk(s_n, dim=1)), list(w.chunk(s_n))))
+    dense = torch.matmul(x, w)
+    errs = dict(allgather_matmul=max(float((o - dense).abs().max())
+                                     for o in gathered),
+                matmul_reducescatter=float((scattered - dense).abs().max()))
+    for name, e in errs.items():
+        require(e <= 1e-4, f"{name}: max |ring - dense| {e:.3e}")
+    log(f"  ring matmuls ({m}x{kk} @ {kk}x{n}, {s_n} shards) vs torch.matmul: "
+        f"{json.dumps(errs)}")
+    return dict(shape=(m, kk, n), max_abs_err=errs)
+
+
+def scatter_gather_slice(dev, ph4, diskann_runs, quotas, rehearse):
+    """Phase 10: ``core/distributed.py`` on phase 4's data. ``build_sharded``
+    builds S=4 graphs of N/4 rows on d (timed), ``sharded_bimetric_search``
+    runs at each Q, recall@10 / nDCG@10 beside phase 4's bi-metric runs;
+    launches counted over the build and the searches. After the counts,
+    each shard searched alone by ``bimetric_search`` at the per-shard quota
+    and seeds: its D calls within max(k, Q // S), the merge of the shards'
+    answers the entry point's, and the d calls summed over the shards."""
+    from repro_torch.configs.bimetric_paper import PAPER_DISKANN
+    from repro_torch.core import bimetric, distances, metrics
+    from repro_torch.core import distributed as sg
+    from repro_torch.core.vamana import VamanaIndex
+    from repro_torch.distributed import collectives, sharding
+    from repro_torch.kernels import l2_topk
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    data, k, true_ids = ph4["data"], ph4["k"], ph4["true_ids"]
+    n, n_queries = data.corpus_d.shape[0], data.queries_d.shape[0]
+    s_n = SG_SHARDS
+    require(n % s_n == 0, f"N={n} does not divide into {s_n} shards")
+    nl = n // s_n
+    one = torch.device("cuda", 0) if dev.type == "cuda" else dev
+    mesh = sharding.search_mesh(s_n, devices=[one] * s_n)
+    cfg = PAPER_DISKANN._replace(build_batch=min(PAPER_DISKANN.build_batch,
+                                                 nl))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    out = dict(N=n, S=s_n, n_local=nl)
+    l2_topk.reset_launches()  # the path starts here
+    t0 = time.perf_counter()
+    idx = sg.build_sharded(data.corpus_d, data.corpus_D, s_n, cfg, mesh=mesh)
+    sync()
+    out["build_s"] = time.perf_counter() - t0
+    out["build_launches"] = dict(l2_topk.launches)
+    require(all(idx.emb_cheap[s].data_ptr()
+                == data.corpus_d[s * nl:].data_ptr() for s in range(s_n)),
+            "shard rows are not views of the corpus")
+    log(f"  build_sharded N={n}, S={s_n} ({nl} rows a shard): "
+        f"{out['build_s']:.3f} s, launches {out['build_launches']}")
+    runs, results = [], {}
+    for q in quotas:
+        before = dict(l2_topk.launches)
+        t0 = time.perf_counter()
+        ids, dists, calls = sg.sharded_bimetric_search(
+            mesh, idx, data.queries_d, data.queries_D, quota=q, k=k)
+        sync()
+        dt = time.perf_counter() - t0
+        per = max(k, q // s_n)
+        require(ids.shape == (n_queries, k) and dists.shape == (n_queries, k))
+        require(bool(torch.isfinite(dists).all()) and bool((ids >= 0).all()))
+        require(int(calls.max()) <= s_n * per, (q, int(calls.max())))
+        results[q] = (ids, dists, calls)
+        base = next(r for r in diskann_runs
+                    if r["method"] == "bimetric" and r["Q"] == q)
+        run = dict(Q=q, per_shard_quota=per, query_s=dt, qps=n_queries / dt,
+                   recall_at_10=float(metrics.recall_at_k(ids, true_ids)
+                                      .mean()),
+                   ndcg_at_10=float(metrics.ndcg_at_k(ids, true_ids).mean()),
+                   mean_D_calls=float(calls.float().mean()),
+                   max_D_calls=int(calls.max()),
+                   unsharded_recall_at_10=base["recall_at_10"],
+                   unsharded_ndcg_at_10=base["ndcg_at_10"],
+                   unsharded_query_s=base["query_s"],
+                   unsharded_mean_d_calls=base["mean_d_calls"],
+                   launches={kk: l2_topk.launches[kk] - before[kk]
+                             for kk in before})
+        log(f"  scatter-gather Q={q:5d} ({per} a shard): {dt:.3f} s, "
+            f"{run['qps']:.1f} q/s, recall@10 {run['recall_at_10']:.4f}, "
+            f"nDCG@10 {run['ndcg_at_10']:.4f} (unsharded bi-metric "
+            f"{base['recall_at_10']:.4f} / {base['ndcg_at_10']:.4f} in "
+            f"{base['query_s']:.3f} s), D_calls mean "
+            f"{run['mean_D_calls']:.1f} max {run['max_D_calls']}, launches "
+            f"{run['launches']}")
+        runs.append(run)
+    launches = dict(l2_topk.launches)  # read just after the path
+    out.update(runs=runs, launches=launches)
+    if dev.type == "cuda":
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        log(f"  max_memory_allocated {out['max_memory_allocated']} bytes")
+    require(launches["gather_score_local"] == 0,
+            "gather_score_local launched on the scatter-gather path")
+    if not rehearse:
+        for name in ("gather_score", "beam_merge_topk"):
+            require(launches[name] > 0,
+                    f"{name} was never launched on phase 10's path")
+
+    # after the counts: each shard alone, within its quota, and the merge
+    # of the shards' answers is the entry point's, bit for bit
+    for q, run in zip(quotas, runs):
+        per = max(k, q // s_n)
+        gids, gd, total, d_calls = [], [], 0, 0
+        for s in range(s_n):
+            res = bimetric.bimetric_search(
+                distances.EmbeddingMetric(idx.emb_cheap[s]).dists_batch,
+                distances.EmbeddingMetric(idx.emb_expensive[s]).dists_batch,
+                VamanaIndex(idx.adjacency[s], idx.medoid[s], cfg),
+                data.queries_d, data.queries_D, n_points=nl, quota=per, k=k,
+                n_seeds=max(1, per // 2), device=one)
+            require(int(res.D_calls.max()) <= per,
+                    f"Q={q} shard {s}: {int(res.D_calls.max())} D calls "
+                    f"past {per}")
+            gids.append(torch.where(res.ids >= 0, res.ids + s * nl, -1))
+            gd.append(torch.where(res.ids >= 0, res.dists, float("inf")))
+            total = total + res.D_calls
+            d_calls = d_calls + res.d_calls
+        mi, md = collectives.gather_topk_merge(gids, gd, k)
+        ids, dists, calls = results[q]
+        require(torch.equal(mi, ids) and torch.equal(md, dists)
+                and torch.equal(total, calls),
+                f"Q={q}: the shards' merge is not the entry point's answer")
+        run["mean_d_calls"] = float(d_calls.float().mean())
+        log(f"  Q={q}: d calls mean {run['mean_d_calls']:.1f} summed over "
+            f"the shards (unsharded {run['unsharded_mean_d_calls']:.1f})")
+    log("  each shard within max(k, Q // 4) D calls; the merge of the "
+        "shards' answers equals the entry point's")
+    out["rings"] = check_ring_matmuls(dev, rehearse)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=171_332,
@@ -2605,9 +2862,10 @@ def main() -> int:
 
     t0 = time.perf_counter()
     log("phase 6: the kernels off the search path (ops entry points)")
-    off_errs = check_off_path(dev, sizes["bag_table"][0])
-    log(f"  checks vs plain: max |kernel - plain| {json.dumps(off_errs)}")
-    off_rows, off_launches = off_path(dev, sizes, rehearse)
+    with torch.inference_mode():  # the card routes have no backward
+        off_errs = check_off_path(dev, sizes["bag_table"][0])
+        log(f"  checks vs plain: max |kernel - plain| {json.dumps(off_errs)}")
+        off_rows, off_launches = off_path(dev, sizes, rehearse)
     report["off_path"] = dict(checks=off_errs, rows=off_rows,
                               launches=off_launches)
     report["phase6_s"] = time.perf_counter() - t0
@@ -2617,7 +2875,6 @@ def main() -> int:
     ct_cross = cover_tree_cross(dev, sizes["ctn"], sizes["cd"], sizes["cD"],
                                 sizes["cq"])
     ct = cover_tree_slice(dev, ph4, full["runs"], sizes["quotas"], rehearse)
-    del ph4
     report["covertree"] = dict(cross=ct_cross, full=ct)
     report["phase7_s"] = time.perf_counter() - t0
 
@@ -2634,6 +2891,18 @@ def main() -> int:
     report["serve"] = sv
     report["phase9_s"] = time.perf_counter() - t0
 
+    t0 = time.perf_counter()
+    log("phase 10: scatter-gather search over per-shard sub-indices "
+        "(core/distributed.py, on phase 4's data)")
+    sg_cross = scatter_gather_cross(dev, sizes["cn"], sizes["cd"],
+                                    sizes["cD"], sizes["cq"], sizes["quotas"])
+    sg = scatter_gather_slice(dev, ph4, full["runs"], sizes["quotas"],
+                              rehearse)
+    del ph4
+    sg["cross"] = sg_cross
+    report["scatter_gather"] = sg
+    report["phase10_s"] = time.perf_counter() - t0
+
     kernels = [
         dict(name="gather_score", route="cuda",
              source="src/repro_torch/kernels/csrc/l2_topk.cu",
@@ -2643,6 +2912,7 @@ def main() -> int:
              launches_towers=tw["launches"]["gather_score"],
              launches_serve=sv["launches"]["gather_score"],
              launches_serve_sharded=sv["sharded"]["launches"]["gather_score"],
+             launches_scatter_gather=sg["launches"]["gather_score"],
              max_abs_err=max(g_err, ct["wave_check"]["gather_max_abs_err"],
                              *(w["gather_max_abs_err"]
                                for w in tw["wave_checks"] + sv["wave_check"])),
@@ -2670,6 +2940,7 @@ def main() -> int:
              launches_serve=sv["launches"]["beam_merge_topk"],
              launches_serve_sharded=sv["sharded"]["launches"][
                  "beam_merge_topk"],
+             launches_scatter_gather=sg["launches"]["beam_merge_topk"],
              max_abs_err=m_err,
              ms=m_timed.get("ms"), plain_ms=m_timed.get("plain_ms"),
              bound_ms=m_timed["bound_ms"], bound_by=m_timed["bound_by"],

@@ -12,6 +12,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.covertree import FlatCoverTree
+from repro_torch.core.distributed import ShardedIndex
+from repro_torch.distributed.sharding import search_mesh
 from repro_torch.core.vamana import VamanaConfig, VamanaIndex
 from repro_torch.kernels.backend import CorpusView, resolve_device
 from repro_torch.models.transformer import Transformer, TransformerConfig
@@ -60,6 +62,34 @@ def flat_cover_tree_from_numpy(children, radii, root_ids, scale, T, n,
         radii=np.array(radii, np.float64), root_ids=np.array(root_ids,
                                                              np.int32),
         scale=float(scale), T=float(T), n=int(n))
+
+
+def sharded_index_from_numpy(adjacency, medoid, emb_cheap, emb_expensive,
+                             config, *, mesh=None,
+                             device=None) -> ShardedIndex:
+    """A :class:`ShardedIndex` from a stacked one's fields as numpy arrays
+    (adjacency (S, n_local, R), medoid (S,), emb_cheap / emb_expensive
+    (S, n_local, dim)) and a config. Shard s goes to ``mesh.devices[s]``
+    (without a mesh, every shard to ``device``); shards that share one
+    device are views of one tensor there."""
+    if not isinstance(config, VamanaConfig):
+        config = VamanaConfig(**config._asdict())
+    n_shards = len(medoid)
+    if mesh is None:
+        mesh = search_mesh(n_shards,
+                           devices=[resolve_device(device)] * n_shards)
+
+    def shards(a):
+        if len(set(mesh.devices)) == 1:
+            return tuple(tensor_from_numpy(a, mesh.devices[0]).unbind(0))
+        return tuple(tensor_from_numpy(a[s], dev)
+                     for s, dev in enumerate(mesh.devices))
+
+    return ShardedIndex(
+        adjacency=shards(np.asarray(adjacency, np.int32)),
+        medoid=tuple(int(m) for m in np.asarray(medoid)),
+        emb_cheap=shards(emb_cheap), emb_expensive=shards(emb_expensive),
+        config=config)
 
 
 def _flatten(tree: dict, prefix: str = "") -> dict:

@@ -823,3 +823,43 @@ class ShardedStepper:
         if isinstance(scored, torch.Tensor):
             scored = (scored,)
         return collectives.bitmap_count(scored)
+
+
+def greedy_search(dist_fn: Callable[[torch.Tensor], torch.Tensor],
+                  adjacency: torch.Tensor, entry_ids: torch.Tensor, *,
+                  n_points: int, beam_width: int,
+                  pool_size: int | None = None, quota=NO_QUOTA,
+                  max_steps=None, scored_init=None,
+                  calls_init=0) -> SearchResult:
+    """One query through the batched engine (B = 1).
+
+    ``dist_fn`` maps (k,) int32 vertex ids -> (k,) distances to the query
+    (ids < 0 -> +inf); ``entry_ids`` (E,), ``scored_init`` (N,). Returns
+    the one row of each field.
+    """
+    res = batched_greedy_search(
+        lambda _ctx, ids: dist_fn(ids[0])[None], adjacency, None,
+        entry_ids[None, :], n_points=n_points, beam_width=beam_width,
+        pool_size=pool_size, quota=quota, max_steps=max_steps,
+        scored_init=None if scored_init is None else scored_init[None, :],
+        calls_init=calls_init)
+    return SearchResult(*(a[0] for a in res))
+
+
+def greedy_search_batch(dist_fn_batch: Callable, adjacency: torch.Tensor,
+                        query_ctx, entry_ids: torch.Tensor,
+                        **kw) -> SearchResult:
+    """Batched search with a *per-query* distance function.
+
+    ``dist_fn_batch(q_ctx, ids)`` scores (k,) ids against one query's
+    context ``query_ctx[b]``; it is applied row by row. ``entry_ids`` is
+    (B, E), or (E,) for every query.
+    """
+    if entry_ids.ndim == 1:
+        entry_ids = entry_ids[None, :].expand(len(query_ctx), -1)
+
+    def per_row(ctx, ids):
+        return torch.stack([dist_fn_batch(c, i) for c, i in zip(ctx, ids)])
+
+    return batched_greedy_search(per_row, adjacency, query_ctx, entry_ids,
+                                 **kw)

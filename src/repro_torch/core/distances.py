@@ -38,6 +38,12 @@ def pairwise(x: torch.Tensor, y: torch.Tensor, metric: str = "l2") -> torch.Tens
     return 1.0 - xn @ yn.transpose(-1, -2)
 
 
+def point_to_points(q: torch.Tensor, xs: torch.Tensor,
+                    metric: str = "l2") -> torch.Tensor:
+    """Distance from one query (dim,) to the rows of ``xs`` (m, dim) -> (m,)."""
+    return pairwise(q[None, :], xs, metric)[0]
+
+
 class EmbeddingMetric:
     """A dissimilarity backed by a fixed (N, dim) embedding matrix."""
 
@@ -74,6 +80,11 @@ class EmbeddingMetric:
         d = pairwise(q_embs, self.embeddings, self.metric)
         dists, ids = torch.sort(d, dim=1, stable=True)
         return ids[:, :k].to(torch.int32), dists[:, :k]
+
+
+def dist_fn_from_embeddings(embeddings: torch.Tensor, metric: str = "l2"):
+    """``dist(q_emb (dim,), ids (k,)) -> (k,)`` over fixed embeddings."""
+    return EmbeddingMetric(embeddings, metric).dists
 
 
 def measure_capproximation(d_dists: torch.Tensor,

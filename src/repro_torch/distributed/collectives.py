@@ -22,6 +22,12 @@ The sorted dedup set is replicated like the pools, so its ops
 (``ops.sorted_set_*``) need no collective at all; :func:`member_count` is
 the replicated set's distinct count, the same number the partitioned bitmap
 sums to.
+
+The scatter-gather search (``core/distributed.py``) merges per-shard top-k
+lists with :func:`gather_topk_merge`. :func:`allgather_matmul` and
+:func:`matmul_reducescatter` are the ring matmuls: one hop of a shard (or
+of a partial sum) a step, in JAX's ring order. Where JAX takes an
+``axis_name``, these take the sequence of the shards.
 """
 from __future__ import annotations
 
@@ -118,3 +124,79 @@ def member_count(set_ids: torch.Tensor) -> torch.Tensor:
     :func:`bitmap_count` sums out of the partitioned bitmap (duplicate
     slots from the one-row duplicate-lane quirk collapse)."""
     return ops.sorted_set_unique_count(set_ids)
+
+
+def gather_topk_merge(ids_locals: Sequence[torch.Tensor],
+                      dists_locals: Sequence[torch.Tensor],
+                      k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-shard top-k cut, then the gather and merge into a global top-k.
+
+    ``ids_locals[s]`` / ``dists_locals[s]`` (B, P) are shard s's candidates
+    with *global* ids (+inf padded), on its device. Each shard keeps its k
+    best (``ops.local_topk``), the cuts are laid side by side shard-major
+    in each row on the first shard's device (JAX's ``all_gather`` then
+    ``moveaxis``) and cut again. Ties go to the lower shard; pools narrower
+    than ``k`` pad with (-1, +inf). Returns (B, k) ids and dists.
+    """
+    dev = ids_locals[0].device
+    cuts = [ops.local_topk(i, d, k) for i, d in zip(ids_locals, dists_locals)]
+    all_ids = torch.cat([i.to(dev) for i, _ in cuts], dim=1)
+    all_d = torch.cat([d.to(dev) for _, d in cuts], dim=1)
+    return ops.local_topk(all_ids, all_d, k)
+
+
+def allgather_matmul(xs: Sequence[torch.Tensor],
+                     ws: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """The full ``all_gather(x) @ w`` on every shard, by a ring.
+
+    ``xs[s]`` (m_local, k) is shard s's rows of a row-sharded M×K, ``ws[s]``
+    (k, n) its copy of the weight, both on shard s's device. At step i
+    shard d holds the rows of shard ``(d - i) mod S``, fills that block of
+    its (m_local·S, n) output and passes the rows on to shard d + 1.
+    Returns each shard's output on its device.
+    """
+    n_dev = len(xs)
+    m_local = xs[0].shape[0]
+    outs = [w.new_zeros((m_local * n_dev, w.shape[1])) for w in ws]
+    chunks = list(xs)
+    for i in range(n_dev):
+        for d in range(n_dev):
+            src = (d - i) % n_dev  # whose rows shard d holds
+            block = chunks[d] @ ws[d]
+            outs[d][src * m_local:(src + 1) * m_local] = block.to(
+                outs[d].dtype)
+        # one hop: shard d's rows move on to shard d + 1
+        chunks = [chunks[(d - 1) % n_dev].to(xs[d].device)
+                  for d in range(n_dev)]
+    return outs
+
+
+def matmul_reducescatter(xs: Sequence[torch.Tensor],
+                         ws: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """The (M/S, N) row blocks of ``x @ w``, reduce-scattered by a ring.
+
+    ``xs[s]`` (m, k_local) is shard s's columns of a column-sharded M×K and
+    ``ws[s]`` (k_local, n) its rows of a row-sharded K×N. The accumulator of
+    output block c starts on shard c + 1 and travels the ring, each shard
+    adding its partial product of block c, so block c sums the shards in
+    the order c + 1, c + 2, ..., c (mod S), as JAX's ring does. Returns
+    block s on shard s's device.
+    """
+    n_dev = len(xs)
+    m = xs[0].shape[0]
+    if m % n_dev:
+        raise ValueError(f"matmul_reducescatter: {m} rows do not divide "
+                         f"into {n_dev} shards")
+    m_local = m // n_dev
+
+    def block(d, i):  # shard d's partial product of the block it holds
+        row = ((d - i - 1) % n_dev) * m_local
+        return xs[d][row:row + m_local] @ ws[d]
+
+    dtype = torch.promote_types(xs[0].dtype, ws[0].dtype)
+    accs = [torch.zeros((m_local, w.shape[1]), dtype=dtype, device=w.device)
+            for w in ws]
+    for i in range(n_dev - 1):
+        accs = [accs[d] + block(d, i) for d in range(n_dev)]
+        accs = [accs[(d - 1) % n_dev].to(ws[d].device) for d in range(n_dev)]
+    return [accs[d] + block(d, n_dev - 1) for d in range(n_dev)]

@@ -27,7 +27,8 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels.l2_topk import _check_layout, _on, _raise_on, _stream
+from repro_torch.kernels.l2_topk import (_check_layout, _on, _raise_on,
+                                         _refuse_grad, _stream)
 
 MODES = ("sum", "mean")
 _DTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -145,6 +146,7 @@ def embedding_bag(table: torch.Tensor, idx: torch.Tensor, *,
         if table.device.type == "cpu":
             return embedding_bag_plain(table, idx, mode=mode)
         raise ValueError(f"embedding_bag: unsupported device {table.device}")
+    _refuse_grad("embedding_bag", table)
     (v, d), (b, l) = table.shape, idx.shape
     out = table.new_empty((b, d))
     if b == 0 or d == 0:

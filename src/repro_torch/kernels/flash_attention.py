@@ -40,7 +40,8 @@ import math
 
 import torch
 
-from repro_torch.kernels.l2_topk import _check_layout, _on, _raise_on, _stream
+from repro_torch.kernels.l2_topk import (_check_layout, _on, _raise_on,
+                                         _refuse_grad, _stream)
 
 #: the Pallas kernels' mask value: finite, so exp(m_prev - m_new) is never NaN
 NEG_INF = -1e30
@@ -106,10 +107,11 @@ def _check(name: str, q, k, v, dh: int, dv: int) -> None:
 def _weights(s: torch.Tensor, valid: torch.Tensor):
     """The Pallas kernels' softmax over the last axis of f32 scores ``s``:
     (unnormalised weights, max(l, 1e-30)). Masked scores are ``NEG_INF``,
-    so a row with no valid key has weights 0, not NaN."""
+    so a row with no valid key has weights 0, not NaN. Out of place, so
+    that autograd can differentiate the plain versions."""
     s = s.masked_fill(~valid, NEG_INF)
-    p = torch.exp(s - s.amax(-1, keepdim=True)).masked_fill_(~valid, 0.0)
-    return p, p.sum(-1, keepdim=True).clamp_(min=1e-30)
+    p = torch.exp(s - s.amax(-1, keepdim=True)).masked_fill(~valid, 0.0)
+    return p, p.sum(-1, keepdim=True).clamp(min=1e-30)
 
 
 # --------------------------------------------------------------------------
@@ -161,6 +163,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = _scale(sm_scale, dh)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, sm_scale=scale)
+    _refuse_grad("flash_attention", q, k, v)
     out = torch.empty((b, h, sq, dv), dtype=q.dtype, device=q.device)
     route = _attention_route(q.dtype, dh, dv)
     with _on(q):
@@ -270,6 +273,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = _scale(sm_scale, dh)
     if q.device.type == "cpu":
         return flash_decode_plain(q, k, v, length=length, sm_scale=scale)
+    _refuse_grad("flash_decode", q, k, v)
     lens = _kernel_lengths(length, b, s, q.device)
     chunk, n_split = decode_split(s, b * h)
     out = torch.empty((b, h, dv), dtype=q.dtype, device=q.device)

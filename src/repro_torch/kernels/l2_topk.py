@@ -121,6 +121,21 @@ def _raise_on(name: str, err: int) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
 
 
+def _refuse_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise when autograd would record a card route that has no backward.
+
+    A kernel fills its output through ctypes, out of autograd's sight, so
+    a gradient through it would be lost without a word. Call it before the
+    output is allocated; the plain versions on the CPU are differentiable
+    and never call it.
+    """
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward yet, and an input "
+            "requires grad; run it under torch.inference_mode() or "
+            "torch.no_grad(), or pass detached inputs")
+
+
 # --------------------------------------------------------------------------
 # gather → score
 # --------------------------------------------------------------------------
@@ -136,6 +151,12 @@ def pack_row_meta(view: CorpusView) -> torch.Tensor:
         zp = view.zero_points
         cols.append(torch.zeros_like(cols[-1]) if zp is None else zp.float())
     return torch.stack(cols, dim=1).contiguous()
+
+
+def pack_norms(view: CorpusView) -> torch.Tensor:
+    """(N, 2) f32 ``[‖x‖², 1/‖x‖]``: :func:`pack_row_meta` of an unquantized
+    view (the JAX package's historical norms operand)."""
+    return torch.stack([view.sq_norms, view.inv_norms], dim=1).contiguous()
 
 
 def gather_score_plain(rows: torch.Tensor, queries: torch.Tensor,
@@ -243,6 +264,13 @@ def gather_score(rows: torch.Tensor, queries: torch.Tensor, ids: torch.Tensor,
     _raise_on("gather_score", err)
     launches["gather_score"] += 1
     return out
+
+
+def gather_l2(corpus: torch.Tensor, queries: torch.Tensor,
+              ids: torch.Tensor) -> torch.Tensor:
+    """corpus (N, dim); queries (B, dim); ids (B, K) int32 -> (B, K) squared
+    l2: the historical sqeuclidean entry of :func:`gather_score`."""
+    return gather_score(corpus, queries, ids, metric="sqeuclidean")
 
 
 def gather_score_local_plain(rows: torch.Tensor, queries: torch.Tensor,

@@ -61,6 +61,12 @@ def gather_score(corpus, queries, ids, *, metric="sqeuclidean", backend=None,
     return _lt.gather_score(corpus_rows(src), queries, ids, metric=metric)
 
 
+def gather_l2(corpus, queries, ids, *, backend=None):
+    """The historical sqeuclidean entry of :func:`gather_score`."""
+    return gather_score(corpus, queries, ids, metric="sqeuclidean",
+                        backend=backend)
+
+
 def gather_score_local(corpus_local, queries, ids, offset, *,
                        metric="sqeuclidean", backend=None, quantize=None):
     """Shard-local gather→score over global ids: (B, K) -> (B, K) partials.
@@ -87,6 +93,28 @@ def gather_score_local(corpus_local, queries, ids, offset, *,
                                       meta=_lt.pack_row_meta(src))
     return _lt.gather_score_local(corpus_rows(src), queries, ids, offset,
                                   metric=metric)
+
+
+def local_topk(ids, dists, k):
+    """Per-row best ``k`` by distance, ties to the lowest index.
+
+    The per-shard cut before a gather-merge: each shard sends only its k
+    best (id, dist) pairs. ``k`` may exceed the row width: the cut is
+    clamped to it and padded with (-1, +inf) lanes, which sort last in any
+    later merge. The order is a stable sort of an f32 view of the keys
+    (``lax.top_k``'s tie rule, which ``torch.topk`` does not promise); the
+    distances keep their dtype.
+    """
+    b, width = ids.shape
+    kk = min(k, width)
+    order = torch.sort(dists.float(), dim=1, stable=True).indices[:, :kk]
+    out_ids = ids.gather(1, order)
+    out_dists = dists.gather(1, order)
+    if kk < k:
+        out_ids = torch.cat([out_ids, out_ids.new_full((b, k - kk), -1)], 1)
+        out_dists = torch.cat(
+            [out_dists, out_dists.new_full((b, k - kk), float("inf"))], 1)
+    return out_ids, out_dists
 
 
 # Padding sentinel for the sorted-membership dedup arrays: larger than any

@@ -97,6 +97,12 @@ def gather_score_ref(corpus: torch.Tensor, queries: torch.Tensor,
     return _score_rows(rows, queries, ids, metric)
 
 
+def l2_gather_dists_ref(corpus: torch.Tensor, queries: torch.Tensor,
+                        ids: torch.Tensor) -> torch.Tensor:
+    """Historical sqeuclidean entry of :func:`gather_score_ref`."""
+    return gather_score_ref(corpus, queries, ids, metric="sqeuclidean")
+
+
 def dequant_rows_ref(rows: torch.Tensor, scales: torch.Tensor,
                      zero_points: torch.Tensor | None = None) -> torch.Tensor:
     """THE dequantization semantics: f32 ``(code - zp) * scale``."""

@@ -190,3 +190,30 @@ def test_port_ops_validate_and_cast():
         (2, 3), dtype=torch.int64)).dtype == torch.float16
     with pytest.raises(ValueError, match="V >= 1"):
         tops.embedding_bag(torch.zeros((0, 4)), -torch.ones((2, 3)).long())
+
+
+def test_card_routes_refuse_autograd():
+    """The card routes fill their outputs through ctypes, out of autograd's
+    sight, so their guard raises while grad is on and an input requires
+    grad, and passes under ``inference_mode`` / ``no_grad`` or with no such
+    input. The CPU route, the plain version, still differentiates."""
+    from repro_torch.kernels.l2_topk import _refuse_grad
+
+    x = torch.ones(3, requires_grad=True)
+    with pytest.raises(RuntimeError, match="flash_attention: .*no backward"):
+        _refuse_grad("flash_attention", torch.ones(3), x)
+    for mode in (torch.inference_mode, torch.no_grad):
+        with mode():
+            _refuse_grad("flash_attention", x)
+    _refuse_grad("embedding_bag", x.detach(), torch.ones(2))
+    rng = np.random.default_rng(1)
+    q, k, v = (torch.from_numpy(_normal(rng, 1, 2, 5, 8)).requires_grad_()
+               for _ in range(3))
+    tops.flash_attention(q, k, v).sum().backward()
+    qd, kd, vd = (torch.from_numpy(_normal(rng, *s)).requires_grad_()
+                  for s in ((2, 2, 8), (2, 5, 2, 8), (2, 5, 2, 8)))
+    tops.flash_decode(qd, kd, vd, length=3).sum().backward()
+    assert kd.grad[:, 3:].eq(0).all() and vd.grad[:, :3].ne(0).any()
+    table = torch.from_numpy(_normal(rng, 6, 4)).requires_grad_()
+    tops.embedding_bag(table, torch.tensor([[0, 2, -1]])).sum().backward()
+    assert torch.isfinite(q.grad).all() and table.grad[2].eq(1).all()

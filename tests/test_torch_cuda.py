@@ -559,6 +559,34 @@ def test_embedding_bag_id_past_the_table_in_any_warp(dev, mode):
 
 
 @pytest.mark.cuda
+def test_card_routes_refuse_autograd(dev):
+    """The kernels have no backward: each wrapper raises on a CUDA input
+    that requires grad while grad is on, before it launches, and runs
+    under ``inference_mode`` and ``no_grad``."""
+    g = torch.Generator().manual_seed(7)
+    q, k, v = (_randn(g, 1, 2, 40, 64, dtype=torch.bfloat16).to(dev)
+               .requires_grad_() for _ in range(3))
+    qd = _randn(g, 2, 2, 64).to(dev).requires_grad_()
+    kd, vd = (_randn(g, 2, 50, 2, 64).to(dev) for _ in range(2))
+    table = _randn(g, 30, 18).to(dev).requires_grad_()
+    idx = torch.randint(-1, 30, (4, 6), generator=g,
+                        dtype=torch.int32).to(dev)
+    calls = [("flash_attention", lambda: ops.flash_attention(q, k, v)),
+             ("flash_decode", lambda: ops.flash_decode(qd, kd, vd, length=7)),
+             ("embedding_bag", lambda: ops.embedding_bag(table, idx))]
+    for name, call in calls:
+        before = dict(flash_attention.launches, **embedding_bag.launches)
+        with pytest.raises(RuntimeError, match=f"{name}: .*no backward"):
+            call()
+        assert dict(flash_attention.launches,
+                    **embedding_bag.launches) == before
+        for mode in (torch.inference_mode, torch.no_grad):
+            with mode():
+                out = call()
+            assert not out.requires_grad and torch.isfinite(out.float()).all()
+
+
+@pytest.mark.cuda
 def test_attention_and_bag_wrappers_refuse_what_the_kernels_do_not_take(dev):
     x = torch.zeros((1, 2, 8, 16), device=dev)
     strided = x.transpose(2, 3).contiguous().transpose(2, 3)
@@ -704,6 +732,7 @@ def test_tower_on_card_equals_cpu(dev, which):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("s", [200, 32])
+@torch.inference_mode()  # the kernel has no backward yet
 def test_blockwise_attention_on_card_is_the_kernel(dev, s):
     """GQA attention at a D-tower layer's head shape (32 over 8 heads, dh
     128, bf16; S of a doc-like length and of a query's 32 tokens) through
@@ -806,3 +835,49 @@ def test_sharded_serve_equals_unsharded_on_card(dev, index):
             assert (got.stats.D_calls, got.stats.d_calls) == (
                 want.stats.D_calls, want.stats.d_calls)
     eng.close(timeout=60)
+
+
+@pytest.mark.cuda
+def test_scatter_gather_search_on_card_equals_cpu(dev):
+    """``core/distributed.py`` at S=2 on ``["cuda:0"] * 2`` against the
+    same two graphs searched with ``device="cpu"`` (tests/test_distributed.
+    py's data shapes, n=512): ids and D calls equal, dists within 1e-5; the
+    card's path launches ``gather_score`` and the merge, never the
+    shard-local gather; shard rows are views of the corpus on the card."""
+    from repro_torch import convert
+    from repro_torch.core import distributed
+    from repro_torch.core.vamana import VamanaConfig
+
+    rng = np.random.default_rng(12)
+    cD = rng.normal(size=(512, 48)).astype(np.float32)
+    cd = (cD[:, :8] + 0.1 * rng.normal(size=(512, 8))).astype(np.float32)
+    qD = (cD[:16] + 0.3 * rng.normal(size=(16, 48))).astype(np.float32)
+    qd = qD[:, :8].copy()
+    cfg = VamanaConfig(max_degree=12, l_build=16, pool_size=32,
+                       rev_candidates=12, build_batch=256)
+    one = torch.device("cuda", 0)
+    mesh = sharding.search_mesh(2, devices=[one] * 2)
+    corpus_d, corpus_D = torch.from_numpy(cd).to(one), torch.from_numpy(
+        cD).to(one)
+    idx = distributed.build_sharded(corpus_d, corpus_D, 2, cfg, mesh=mesh)
+    assert idx.emb_cheap[1].data_ptr() == corpus_d[256:].data_ptr()
+    stacked = lambda ts: np.stack([t.cpu().numpy() for t in ts])
+    host = convert.sharded_index_from_numpy(
+        stacked(idx.adjacency), np.array(idx.medoid), stacked(idx.emb_cheap),
+        stacked(idx.emb_expensive), cfg, device="cpu")
+    cpu_mesh = sharding.search_mesh(2, devices=["cpu"] * 2)
+    for quota in (10, 64):
+        l2_topk.reset_launches()
+        got = distributed.sharded_bimetric_search(
+            mesh, idx, qd, qD, quota=quota, k=10)
+        torch.cuda.synchronize()
+        assert l2_topk.launches["gather_score"] > 0
+        assert l2_topk.launches["beam_merge_topk"] > 0
+        assert l2_topk.launches["gather_score_local"] == 0
+        want = distributed.sharded_bimetric_search(
+            cpu_mesh, host, qd, qD, quota=quota, k=10)
+        assert torch.equal(got[0].cpu(), want[0])
+        assert torch.equal(got[2].cpu(), want[2])
+        torch.testing.assert_close(got[1].cpu(), want[1], rtol=1e-5,
+                                   atol=1e-5)
+        assert int(got[2].max()) <= 2 * max(10, quota // 2)

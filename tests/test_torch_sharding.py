@@ -442,24 +442,35 @@ def test_port_matches_jax_sharded_engine():
     port's sharded engine (N=130, S ∈ {2, 4}) and sharded
     ``bimetric_search`` (S=4); the ``ShardedStepper`` host drive (N=97,
     S ∈ {2, 4}, bitmap and sorted: ids, ``n_calls``, ``n_steps`` and
-    ``scored_count`` exact, dists within 1e-5); and the cover tree built in
+    ``scored_count`` exact, dists within 1e-5); the cover tree built in
     both packages from one proxy (the same table) and searched by
-    ``search_corpus(shards=4)`` (ids and ``n_calls`` exact). The JAX work
+    ``search_corpus(shards=4)`` (ids and ``n_calls`` exact); the
+    scatter-gather ``sharded_bimetric_search`` over the port's
+    ``build_sharded`` graphs (N=256, S=4) on JAX's (1, 4) data × model mesh
+    at a quota below k·S (ids and D calls exact, dists within 1e-5), with
+    JAX's index carried back by ``convert.sharded_index_from_numpy``; and
+    the ring matmuls against JAX's on a 4-device mesh (1e-4). The JAX work
     runs in threads, so its programs compile concurrently."""
     code = textwrap.dedent("""
         import os
         os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
         import sys; sys.path.insert(0, "src")
         from concurrent.futures import ThreadPoolExecutor
+        from functools import partial
         import jax, jax.numpy as jnp
         import numpy as np
         import torch
+        from jax.sharding import PartitionSpec as P
         from repro.core import beam as jbeam, bimetric as jbm
         from repro.core import covertree as jct, distances as jdist
-        from repro.core import vamana as jv
+        from repro.core import distributed as jdistr, vamana as jv
+        from repro.distributed import collectives as jcoll
+        from repro.launch.mesh import make_mesh, shard_map
+        from repro_torch import convert
         from repro_torch.core import beam as tbeam, bimetric as tbm
         from repro_torch.core import covertree as tct, distances as tdist
-        from repro_torch.core import vamana as tv
+        from repro_torch.core import distributed as tdistr, vamana as tv
+        from repro_torch.distributed import collectives as tcoll
         from repro_torch.distributed.sharding import search_mesh
         assert len(jax.devices()) == 4
 
@@ -547,12 +558,49 @@ def test_port_matches_jax_sharded_engine():
             flat = jct.flatten(jct.build(x_d, T=2.0))
             return flat, jct.search_corpus(flat, ccorpus, cqs, **ckw)
 
-        with ThreadPoolExecutor(6) as ex:
+        # scatter-gather over per-shard graphs: the port builds them, JAX
+        # takes them as its ShardedIndex; quota 20 < k·S = 40, so every
+        # shard's floor of k lifts the total to 40
+        drng = np.random.default_rng(256)
+        dD = drng.normal(size=(256, 16)).astype(np.float32)
+        dd = (dD[:, :8] + 0.1 * drng.normal(size=(256, 8))).astype(np.float32)
+        dqD = (dD[:6] + 0.3 * drng.normal(size=(6, 16))).astype(np.float32)
+        dqd = dqD[:, :8].copy()
+        tsidx = tdistr.build_sharded(t(dd), t(dD), 4, cfg, mesh=mesh(4))
+        stack = lambda xs: np.stack([np.asarray(x) for x in xs])
+        jsidx = jdistr.ShardedIndex(
+            adjacency=jnp.asarray(stack(tsidx.adjacency)),
+            medoid=jnp.asarray(np.array(tsidx.medoid, np.int32)),
+            emb_cheap=jnp.asarray(stack(tsidx.emb_cheap)),
+            emb_expensive=jnp.asarray(stack(tsidx.emb_expensive)),
+            config=jv.VamanaConfig(**cfg._asdict()))
+        mrng = np.random.default_rng(0)
+        mx, mw = (mrng.normal(size=s).astype(np.float32)
+                  for s in ((16, 12), (12, 10)))
+        rx, rw = (mrng.normal(size=s).astype(np.float32)
+                  for s in ((16, 24), (24, 10)))
+
+        def jax_distributed():
+            res = jax.block_until_ready(jdistr.sharded_bimetric_search(
+                make_mesh((1, 4), ("data", "model")), jsidx,
+                jnp.asarray(dqd), jnp.asarray(dqD), quota=20, k=10))
+            xm = make_mesh((4,), ("x",))
+            ag = shard_map(partial(jcoll.allgather_matmul, axis_name="x"),
+                           mesh=xm, in_specs=(P("x", None), P(None, None)),
+                           out_specs=P(None, None))
+            rs = shard_map(partial(jcoll.matmul_reducescatter,
+                                   axis_name="x"),
+                           mesh=xm, in_specs=(P(None, "x"), P("x", None)),
+                           out_specs=P("x", None))
+            return res, np.asarray(ag(mx, mw)), np.asarray(rs(rx, rw))
+
+        with ThreadPoolExecutor(7) as ex:
             futs = {2: ex.submit(jax_engine, 2), 4: ex.submit(jax_engine, 4),
                     "bimetric": ex.submit(jax_bimetric),
                     ("stepper", 2): ex.submit(jax_stepper, 2),
                     ("stepper", 4): ex.submit(jax_stepper, 4),
-                    "cover": ex.submit(jax_cover)}
+                    "cover": ex.submit(jax_cover),
+                    "distributed": ex.submit(jax_distributed)}
             want = {k: f.result() for k, f in futs.items()}
 
         for shards in (2, 4):
@@ -602,6 +650,23 @@ def test_port_matches_jax_sharded_engine():
                                   getattr(tres, name).numpy()), name
         np.testing.assert_allclose(tres.dists.numpy(), np.asarray(jres.dists),
                                    rtol=1e-5, atol=1e-5)
+        jres, jag, jrs = want["distributed"]
+        back = convert.sharded_index_from_numpy(
+            *(np.asarray(f) for f in jsidx[:4]), jsidx.config, mesh=mesh(4))
+        for sidx in (tsidx, back):
+            ids, dists, calls = tdistr.sharded_bimetric_search(
+                mesh(4), sidx, t(dqd), t(dqD), quota=20, k=10)
+            assert np.array_equal(ids.numpy(), np.asarray(jres[0]))
+            assert np.array_equal(calls.numpy(), np.asarray(jres[2]))
+            np.testing.assert_allclose(dists.numpy(), np.asarray(jres[1]),
+                                       rtol=1e-5, atol=1e-5)
+            assert (calls == 40).all()
+        ag = tcoll.allgather_matmul(list(t(mx).chunk(4)), [t(mw)] * 4)
+        rs = torch.cat(tcoll.matmul_reducescatter(list(t(rx).chunk(4, dim=1)),
+                                                  list(t(rw).chunk(4))))
+        for got, ref, dense in ((ag[0], jag, mx @ mw), (rs, jrs, rx @ rw)):
+            assert np.abs(got.numpy() - ref).max() < 1e-4
+            assert np.abs(got.numpy() - dense).max() < 1e-4
         print("PORT_SHARDED_OK")
     """)
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
