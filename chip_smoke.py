@@ -86,10 +86,25 @@ Phases (any failure exits nonzero and prints no result line):
    ``sharded_bimetric_search`` at each Q beside phase 4's bi-metric recall,
    ``gather_score`` and the merge launched and the local gather not; each
    shard within max(k, Q // 4) D calls; the ring matmuls against one dense
-   ``torch.matmul``.
+   ``torch.matmul``;
+11. training the d tower: ``cheap_tower()`` at full width from a seed,
+   InfoNCE at temperature 0.2 on ``contrastive_batch_fn(64, 256,
+   32768)`` (at the default 0.05 a random tower's loss, ~4e-6, is below
+   what f32 logits near 20 resolve), 30 ``Trainer`` steps (AdamW lr 1e-3,
+   warmup 20) on the card through the forward and
+   the backward ``flash_attention`` kernels, both counted; the loss curve,
+   step ms, tokens/s, the forward / backward / optimizer split and peak
+   memory; the losses finite and falling (mean of the last 5 below the
+   first 5); then 4 steps at ``grad_accum=2`` against a ``grad_accum=1``
+   run of the two halves' mean loss (InfoNCE's negatives are in-batch, so
+   a micro-batch's loss is its own); after the path, the backward kernel
+   against its plain version at d's and D's layer shapes and the edges
+   (non-causal Sq < Skv, Sq > Skv with empty rows, dv != dh, f16, 32-row
+   tiles), timed beside its bound, the plain version and SDPA's backward.
 
-Phases 6 and 8(a) run under ``torch.inference_mode()``: the kernels have
-no backward, and their wrappers refuse an input that requires grad.
+Phases 6, 8 and 9 run under ``torch.inference_mode()`` (serving records
+no autograd graph); ``flash_decode`` and ``embedding_bag`` have no backward
+and refuse an input that requires grad.
 
 Ends with a JSON line of every ported kernel and the result line
 ``{"ok": true, "device": {...}}``. Needs one CUDA device; imports no JAX.
@@ -98,6 +113,7 @@ Ends with a JSON line of every ported kernel and the result line
 from __future__ import annotations
 
 import argparse
+import functools
 import itertools
 import json
 import math
@@ -1191,7 +1207,9 @@ def off_path(dev, sizes, rehearse):
     launches = dict(**fa.launches, **eb.launches)  # read just after the path
     if not rehearse:
         for name, n in launches.items():
-            require(n > 0, f"{name} was never launched on phase 6's path")
+            if name != "flash_attention_bwd":  # phase 11's path
+                require(n > 0, f"{name} was never launched on phase 6's "
+                        "path")
         # the full-width 16-bit rows on the tensor cores, the f32 rows on the
         # SIMT route
         for c, r in zip(cases, routes):
@@ -1841,7 +1859,7 @@ def tower_slice(dev, sizes, rehearse):
     cheap, expensive = models["cheap"], models["expensive"]
     batch, doc_len, q_len = tw["batch"], tw["doc_len"], tw["query_len"]
 
-    with torch.inference_mode():  # the card routes have no backward
+    with torch.inference_mode():  # serving's mode: no autograd graph
         out["attention"] = tower_attention(dev, [
             (name, batch, m.cfg.n_heads, m.cfg.n_kv_heads, s, m.cfg.head_dim,
              m.cfg.dtype) for name, m in models.items()
@@ -2722,6 +2740,266 @@ def scatter_gather_slice(dev, ph4, diskann_runs, quotas, rehearse):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 11: training the d tower
+# --------------------------------------------------------------------------
+# the backward kernel against its plain version on the same card inputs:
+# within tol x the largest |gradient| (f32 sums of up to S products in
+# another order; a 16-bit gradient is rounded once on either side); fixed
+# before the first run, as the card tests' BWD_TOL
+BWD_TOL = {F32: 1e-5, BF16: 2e-2, F16: 2e-3}
+# B, H, Sq, Skv, dh, dv, causal, dtype, role: d's training layer and D's
+# layer (32 query heads; the kernel sees the 8 KV heads repeated), timed;
+# then the edges: non-causal and causal Sq < Skv, Sq > Skv (rows with no
+# key), dv != dh, the 32-row tiles (MLA's 192/128, 256) and f16
+BWD_CASES = [
+    (64, 6, 256, 256, 64, 64, True, F32, "d (bge-micro-like) training layer"),
+    (4, 32, 256, 256, 128, 128, True, BF16, "D (sfr-mistral-7b) layer"),
+    (2, 3, 37, 100, 64, 64, False, F32, None),
+    (2, 3, 37, 100, 64, 64, True, BF16, None),
+    (2, 2, 100, 37, 64, 64, True, F32, None),
+    (1, 2, 70, 70, 48, 32, True, F32, None),
+    (1, 2, 70, 90, 192, 128, True, BF16, None),
+    (1, 2, 50, 80, 256, 256, False, F16, None),
+    (2, 2, 65, 65, 128, 128, True, F16, None),
+]
+
+
+def _valid_pairs(sq, skv, causal):
+    if not causal:
+        return sq * skv
+    off = skv - sq
+    return sum(max(0, min(skv, i + off + 1)) for i in range(sq))
+
+
+def check_attention_backward(dev, rehearse):
+    """``flash_attention_bwd`` against ``flash_attention_bwd_plain`` on the
+    same card inputs (out from the forward kernel, a seeded cotangent) at
+    :data:`BWD_CASES`, bit-equal on a second call (no atomics); the timed
+    rows beside the bound (five Sq x Skv x d products over the valid pairs,
+    or the bytes of q, k, v, out, dout, dq, dk, dv), the plain version, and
+    SDPA's backward (its forward + backward less its forward). Returns
+    (rows, max error)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    rows, worst = [], 0.0
+    for b, h, sq, skv, dh, dv, causal, dt, role in BWD_CASES:
+        if rehearse:
+            b, h, sq, skv = 1, 2, min(sq, 24), min(skv, 24)
+        q, k, v = _attn_inputs(g, dev, b, h, sq, skv, dh, dv, dt)
+        dout = torch.randn(b, h, sq, dv, generator=g, device=dev).to(dt)
+        with torch.inference_mode():
+            out = fa.flash_attention(q, k, v, causal=causal)
+        got = fa.flash_attention_bwd(q, k, v, out, dout, causal=causal)
+        want = fa.flash_attention_bwd_plain(q, k, v, out, dout, causal=causal)
+        what = f"flash_attention_bwd {(b, h, sq, skv, dh, dv, causal, dt)}"
+        err = 0.0
+        for x, w, name in zip(got, want, ("dq", "dk", "dv")):
+            require(x.dtype == dt and x.shape == w.shape
+                    and bool(torch.isfinite(x.float()).all()),
+                    f"{what}: {name} dtype, shape or non-finite values")
+            e = float((x.float() - w.float()).abs().max())
+            require(e <= BWD_TOL[dt] * float(w.float().abs().max()),
+                    f"{what}: {name} max err {e:.3e}")
+            err = max(err, e)
+        if causal and sq > skv:
+            require(bool((got[0][:, :, : sq - skv] == 0).all()),
+                    f"{what}: a row with no key has a dq")
+        again = fa.flash_attention_bwd(q, k, v, out, dout, causal=causal)
+        require(all(torch.equal(x, y) for x, y in zip(got, again)),
+                f"{what}: two calls differ")
+        worst = max(worst, err)
+        row = dict(role=role, B=b, H=h, Sq=sq, Skv=skv, dh=dh, dv=dv,
+                   causal=causal, dtype=str(dt), max_abs_err=err)
+        if role is not None:
+            pairs = b * h * _valid_pairs(sq, skv, causal)
+            item = q.element_size()
+            # q, k, v, out and dout read once; dq, dk, dv written once
+            nbytes = item * (2 * (q.numel() + k.numel() + v.numel())
+                             + 2 * out.numel())
+            row["bound_ms"], row["bound_by"] = bound(
+                nbytes, 2 * (3 * dh + 2 * dv) * pairs, _ops_rate(dt))
+            if not rehearse:
+                row["ms"] = time_ms(lambda: fa.flash_attention_bwd(
+                    q, k, v, out, dout, causal=causal))
+                row["plain_ms"] = time_ms(lambda: fa.flash_attention_bwd_plain(
+                    q, k, v, out, dout, causal=causal), reps=5, inner=2)
+                leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+
+                def sdpa_fwd_bwd():
+                    o = F.scaled_dot_product_attention(*leaves,
+                                                       is_causal=causal)
+                    return torch.autograd.grad(o, leaves, dout)
+
+                with torch.no_grad():
+                    fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                        q, k, v, is_causal=causal))
+                row["library"] = ("F.scaled_dot_product_attention backward "
+                                  "(forward + backward less forward)")
+                row["library_fwd_bwd_ms"] = time_ms(sdpa_fwd_bwd)
+                row["library_ms"] = row["library_fwd_bwd_ms"] - fwd_ms
+        rows.append(row)
+        log("  " + json.dumps(row))
+        del q, k, v, out, dout, got, want, again
+    return rows, worst
+
+
+def _wall_s(fn, reps):
+    """Median wall seconds of ``fn()`` between two synchronizes."""
+    times = []
+    for _ in range(reps):
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def train_slice(dev, sizes, rehearse):
+    """Phase 11: ``Trainer.run`` -> ``info_nce_loss`` -> ``embed_pool``
+    under grad -> ``blockwise_attention`` -> the ``flash_attention``
+    forward and backward kernels -> AdamW, on the d tower at full width,
+    launches counted from 0 over the run; then the grad_accum check and
+    the forward / backward / optimizer split."""
+    from repro_torch.data.pipeline import (DeterministicIterator,
+                                           contrastive_batch_fn)
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer
+    from repro_torch.train import contrastive, optimizer, trainer
+
+    tz = sizes["train"]
+    cfg = tz["tower"]()
+    model = transformer.init_params(tz["seed"], cfg, device=dev)
+    make = contrastive_batch_fn(tz["batch"], tz["seq"], cfg.vocab)
+    loss_fn = functools.partial(contrastive.info_nce_loss,
+                                temperature=tz["temperature"])
+    held_out = {k: torch.as_tensor(x).to(dev)
+                for k, x in make(tz["seed"] + 99, 0).items()}
+
+    def held_out_losses(m):
+        """(loss, acc) at the trained temperature and at the default 0.05,
+        on one batch no step sees."""
+        with torch.no_grad():
+            out = {}
+            for t in (tz["temperature"], 0.05):
+                loss, aux = contrastive.info_nce_loss(m, held_out,
+                                                      temperature=t)
+                out[f"T={t}"] = dict(loss=float(loss), acc=float(aux["acc"]))
+            return out
+
+    # the cosine over the run's own steps: over 100 (as
+    # examples/train_biencoder.py) lr stays near its peak to the end, and the
+    # loss of the last 5 steps hardly fell below the first 5's (PERF.md §6)
+    opt = optimizer.AdamWConfig(lr=1e-3, warmup_steps=tz["warmup"],
+                                total_steps=tz["steps"])
+    tcfg = trainer.TrainerConfig(total_steps=tz["steps"], log_every=10)
+    out = dict(tower=cfg.name, batch=tz["batch"], seq=tz["seq"],
+               steps=tz["steps"], lr=opt.lr, warmup=opt.warmup_steps,
+               temperature=tz["temperature"],
+               held_out_before=held_out_losses(model))
+    if dev.type == "cuda":
+        # what earlier phases still hold counts in the peak: report it too
+        out["memory_allocated_at_start"] = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    tr = trainer.Trainer(loss_fn, model, opt, tcfg, device=dev)
+    fa.reset_launches()  # the path starts here
+    t0 = time.perf_counter()
+    res = tr.run(DeterministicIterator(make, seed=tz["seed"], device=dev),
+                 log=lambda msg: log("    " + msg))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    launches = dict(fa.launches)  # read just after the path
+    out["run_s"] = time.perf_counter() - t0
+    losses = res["losses"]
+    out.update(losses=losses, launches=launches,
+               step_ms=[1e3 * t for t in tr.step_times],
+               stragglers=res["stragglers"])
+    tail = tr.step_times[-20:]
+    out["step_ms_median_last20"] = 1e3 * statistics.median(tail)
+    tokens = 2 * tz["batch"] * tz["seq"]  # queries and docs
+    out["tokens_per_step"] = tokens
+    out["tokens_per_s"] = tokens / statistics.median(tail)
+    if dev.type == "cuda":
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    log(f"  loss curve {json.dumps([round(x, 6) for x in losses])}")
+    log(f"  step {out['step_ms_median_last20']:.3f} ms (median of the last "
+        f"20), {out['tokens_per_s']:.0f} tokens/s, launches {launches}, "
+        f"max_memory_allocated {out.get('max_memory_allocated')} bytes "
+        f"({out.get('memory_allocated_at_start')} at the phase's start)")
+    require(all(math.isfinite(x) for x in losses), "a loss is not finite")
+    first, last = statistics.mean(losses[:5]), statistics.mean(losses[-5:])
+    out["loss_first5"], out["loss_last5"] = first, last
+    require(last < first, f"the loss did not fall: first 5 {first:.6g}, "
+            f"last 5 {last:.6g}")
+    out["held_out_after"] = held_out_losses(tr.params)
+    log(f"  held-out batch before {json.dumps(out['held_out_before'])}, "
+        f"after {json.dumps(out['held_out_after'])}")
+    per_step = 2 * cfg.n_layers  # two towers' passes a step, one per layer
+    if not rehearse:
+        require(launches["flash_attention_simt"] == per_step * tz["steps"],
+                f"simt launches {launches['flash_attention_simt']}")
+        require(launches["flash_attention_bwd"] == per_step * tz["steps"],
+                f"backward launches {launches['flash_attention_bwd']}")
+
+    # the forward / backward / optimizer split at the trained weights
+    batch = {k: torch.as_tensor(x).to(dev) for k, x in make(99, 0).items()}
+    params = list(tr.params.parameters())
+    out["forward_ms"] = 1e3 * _wall_s(lambda: loss_fn(tr.params, batch)[0],
+                                      5)
+    out["forward_backward_ms"] = 1e3 * _wall_s(
+        lambda: torch.autograd.grad(loss_fn(tr.params, batch)[0], params), 5)
+    out["backward_ms"] = out["forward_backward_ms"] - out["forward_ms"]
+    out["optimizer_and_rest_ms"] = (out["step_ms_median_last20"]
+                                    - out["forward_backward_ms"])
+    log(f"  split: forward {out['forward_ms']:.3f} ms, backward "
+        f"{out['backward_ms']:.3f} ms, optimizer and the rest "
+        f"{out['optimizer_and_rest_ms']:.3f} ms")
+
+    # grad_accum=2 against grad_accum=1 on the mean of the halves' losses,
+    # both from the trained weights on the same batches
+    half = tz["batch"] // 2
+
+    def halves_loss(m, b):
+        la = loss_fn(m, {k: x[:half] for k, x in b.items()})
+        lb = loss_fn(m, {k: x[half:] for k, x in b.items()})
+        return (la[0] + lb[0]) / 2, {}
+
+    accum = {}
+    for name, fn, ga in (("grad_accum=2", loss_fn, 2),
+                         ("grad_accum=1, halves", halves_loss, 1)):
+        t = trainer.Trainer(fn, tr.params, opt, trainer.TrainerConfig(
+            total_steps=tz["accum_steps"], grad_accum=ga, log_every=100),
+            device=dev)
+        r = t.run(DeterministicIterator(make, seed=tz["seed"] + 1,
+                                        device=dev), log=None)
+        accum[name] = (r["losses"], {n: p.detach() for n, p in
+                                     t.params.named_parameters()})
+    (l2, p2), (l1, p1) = accum.values()
+    loss_err = max(abs(a - b) for a, b in zip(l2, l1))
+    steps_n = tz["accum_steps"]
+    param_err = max(float((p2[n] - p1[n]).abs().max()) for n in p1)
+    off_frac = max(float(((p2[n] - p1[n]).abs() > opt.lr * steps_n / 10)
+                         .float().mean()) for n in p1)
+    out["grad_accum"] = dict(steps=steps_n, losses_accum2=l2,
+                             losses_accum1_halves=l1, max_loss_diff=loss_err,
+                             max_param_diff=param_err,
+                             frac_params_past_lr_steps_over_10=off_frac)
+    log(f"  grad_accum: {json.dumps(out['grad_accum'])}")
+    require(all(abs(a - b) <= 1e-4 + 1e-3 * abs(b) for a, b in zip(l2, l1)),
+            f"grad_accum=2 losses {l2} against {l1}")
+    require(param_err <= 2 * opt.lr * steps_n and off_frac <= 1e-2,
+            f"grad_accum=2 params off by {param_err:.3e} ({off_frac:.4f} "
+            "of the elements past lr * steps / 10)")
+    del tr, model, accum, p1, p2
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=171_332,
@@ -2783,7 +3061,10 @@ def main() -> int:
                                  docs=150, doc_len=24, queries=8,
                                  query_len=8, batch=64, quotas=(20, 40)),
                      serve=dict(queries=8, few=4, slots=4, quotas=(20, 40),
-                                rerank_q=20, wait=120))
+                                rerank_q=20, wait=120),
+                     train=dict(tower=cheap_tower_smoke, batch=8, seq=16,
+                                steps=10, warmup=3, seed=0, accum_steps=2,
+                                temperature=0.2))
     else:
         # timing shapes: build wave (B=1024), stage-1 wave, stage-2 wave,
         # stage-2 entry wave (K = Q/2 seeds), re-rank scoring wave (K = Q)
@@ -2822,7 +3103,16 @@ def main() -> int:
                      # BiMetricEngine, 16 slots, Q alternating 50 and 200;
                      # (d)-(f) on the first 16 requests
                      serve=dict(queries=64, few=16, slots=16,
-                                quotas=(50, 200), rerank_q=50, wait=600))
+                                quotas=(50, 200), rerank_q=50, wait=600),
+                     # phase 11: the d tower at full width, InfoNCE on
+                     # contrastive_batch_fn(64, 256, 32768) (phase 8's doc
+                     # length), 30 steps, AdamW lr 1e-3, warmup 20, at
+                     # temperature 0.2 (at the default 0.05 a random d
+                     # tower's loss is ~4e-6, at f32's resolution of logits
+                     # near 20: it cannot be seen to fall)
+                     train=dict(tower=cheap_tower, batch=64, seq=256,
+                                steps=30, warmup=20, seed=0, accum_steps=4,
+                                temperature=0.2))
 
     t0 = time.perf_counter()
     log("phase 2: kernels vs plain versions")
@@ -2862,7 +3152,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     log("phase 6: the kernels off the search path (ops entry points)")
-    with torch.inference_mode():  # the card routes have no backward
+    with torch.inference_mode():  # serving's mode: no autograd graph
         off_errs = check_off_path(dev, sizes["bag_table"][0])
         log(f"  checks vs plain: max |kernel - plain| {json.dumps(off_errs)}")
         off_rows, off_launches = off_path(dev, sizes, rehearse)
@@ -2902,6 +3192,15 @@ def main() -> int:
     sg["cross"] = sg_cross
     report["scatter_gather"] = sg
     report["phase10_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    log("phase 11: training the d tower (Trainer -> info_nce_loss -> "
+        "flash_attention forward + backward kernels -> AdamW)")
+    tn = train_slice(dev, sizes, rehearse)
+    tn["bwd_rows"], bwd_err = check_attention_backward(dev, rehearse)
+    report["train"] = tn
+    report["phase11_s"] = time.perf_counter() - t0
+    log(f"  phase 11 took {report['phase11_s']:.1f} s")
 
     kernels = [
         dict(name="gather_score", route="cuda",
@@ -2969,16 +3268,37 @@ def main() -> int:
             extra["launches_serve"] = sum(
                 n for k, n in sv["launches"].items()
                 if k.startswith(name + "_"))
+            extra["launches_train"] = sum(
+                n for k, n in tn["launches"].items()
+                if k in ("flash_attention_simt", "flash_attention_wgmma"))
         kernels.append(dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{src}.cu",
             replaces=f"src/repro/kernels/{replaces}",
             launches=sum(n for k, n in off_launches.items()
-                         if k == name or k.startswith(name + "_")),
+                         if k == name or (k.startswith(name + "_")
+                                          and k != "flash_attention_bwd")),
             max_abs_err=max(errs), ms=row.get("ms"),
             plain_ms=row.get("plain_ms"), bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row.get("library_ms"),
             device_ms=row.get("device_ms"), **extra))
+    # the backward: no TPU kernel; its row is d's training layer, the shape
+    # of phase 11's path
+    d_row, big_row = tn["bwd_rows"][:2]
+    kernels.append(dict(
+        name="flash_attention_bwd", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/models/layers.py:86",
+        replaces_note="no TPU counterpart: JAX differentiates the jnp scan "
+                      "of blockwise_attention with jax.grad",
+        launches=tn["launches"]["flash_attention_bwd"], max_abs_err=bwd_err,
+        ms=d_row.get("ms"), plain_ms=d_row.get("plain_ms"),
+        bound_ms=d_row["bound_ms"], bound_by=d_row["bound_by"],
+        library_ms=d_row.get("library_ms"),
+        launches_per_step=tn["launches"]["flash_attention_bwd"] // tn["steps"],
+        ms_D_layer=big_row.get("ms"), plain_ms_D_layer=big_row.get("plain_ms"),
+        bound_ms_D_layer=big_row["bound_ms"],
+        library_ms_D_layer=big_row.get("library_ms")))
     report["kernels"] = kernels
     report["smoke_s"] = time.perf_counter() - t_start
     log(f"smoke finished in {report['smoke_s']:.1f} s (from start of main)")

@@ -1,5 +1,5 @@
 """Carry index, corpus and model state built elsewhere (as numpy arrays) into
-the port.
+the port, and the port's parameters and gradients back out as numpy.
 
 The JAX package and the port draw different random bits, so tests that run
 both on one state build it once, hand it across as numpy arrays and wrap it
@@ -8,8 +8,11 @@ bit for bit.
 """
 from __future__ import annotations
 
+from collections.abc import Mapping
+
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.core.covertree import FlatCoverTree
 from repro_torch.core.distributed import ShardedIndex
@@ -31,6 +34,20 @@ def tensor_from_numpy(a, device=None) -> torch.Tensor:
         raw, dt = _BY_NAME[a.dtype.name]
         return torch.from_numpy(a.view(raw)).view(dt).to(dev)
     return torch.from_numpy(a).to(dev)
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """``t``'s values as a host numpy array (bit-exact; bf16 and fp8 as
+    ``ml_dtypes`` arrays, the JAX package's types)."""
+    t = t.detach().cpu().contiguous()
+    for name, (raw, dt) in _BY_NAME.items():
+        if t.dtype == dt:
+            import ml_dtypes
+
+            bits = torch.int16 if raw == np.uint16 else torch.uint8
+            return t.view(bits).numpy().view(raw).view(getattr(ml_dtypes,
+                                                                name))
+    return t.numpy()
 
 
 def index_from_numpy(adjacency, medoid, config, device=None) -> VamanaIndex:
@@ -131,3 +148,34 @@ def transformer_from_numpy(params: dict, cfg: TransformerConfig,
                     f"{want[name].dtype}")
             want[name].copy_(t)
     return model
+
+
+def transformer_to_numpy(tensors: nn.Module | Mapping[str, torch.Tensor]
+                         ) -> dict:
+    """JAX's parameter pytree (``transformer.init_params``' layout, leaves
+    as numpy arrays) from a :class:`Transformer`'s parameters, or from a
+    mapping of its parameter names to tensors (their gradients, say): the
+    inverse of :func:`transformer_from_numpy`. ``blocks.<i>.<name>`` rows are
+    stacked in layer order on a leading L axis under ``dense_blocks``."""
+    named = (dict(tensors.named_parameters()) if isinstance(tensors, nn.Module)
+             else dict(tensors))
+    out: dict = {}
+    layers: dict[str, dict[int, np.ndarray]] = {}
+
+    def put(path: str, arr) -> None:
+        *heads, leaf = path.split(".")
+        node = out
+        for key in heads:
+            node = node.setdefault(key, {})
+        node[leaf] = arr
+
+    for name, t in named.items():
+        if name.startswith("blocks."):
+            _, i, rest = name.split(".", 2)
+            layers.setdefault(rest, {})[int(i)] = tensor_to_numpy(t)
+        else:
+            put(name, tensor_to_numpy(t))
+    for rest, per_layer in layers.items():
+        put(f"dense_blocks.{rest}",
+            np.stack([per_layer[i] for i in sorted(per_layer)]))
+    return out

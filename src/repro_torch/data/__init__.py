@@ -1,1 +1,1 @@
-"""Synthetic bi-metric corpora."""
+"""Synthetic bi-metric corpora and the deterministic batch pipeline."""

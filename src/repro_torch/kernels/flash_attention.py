@@ -22,6 +22,12 @@ PyTorch version beside it:
   chunk of one row's keys (:func:`decode_split`), 16-byte loads with four
   keys in flight per lane group, and writes its partial softmax state; a
   second kernel combines a row's partials.
+* :func:`flash_attention_bwd` is the gradient of :func:`flash_attention`
+  (``csrc/flash_attention_bwd.cu``, SIMT, f32 accumulation, no float
+  atomics). It replaces no Pallas kernel: JAX differentiates its jnp scan
+  (``repro.models.layers.blockwise_attention``) with ``jax.grad``. On a CUDA
+  tensor that requires grad, :func:`flash_attention` records the forward
+  kernel in a ``torch.autograd.Function`` whose backward launches it.
 
 Both compute the Pallas kernels' function, which differs from the oracles
 ``ref.flash_attention_ref`` / ``ref.flash_decode_ref`` only on a row with no
@@ -30,8 +36,8 @@ valid key: masked scores are the finite ``NEG_INF`` and the output is
 lengths are clamped to [0, S], as the oracle reads them.
 
 Dispatch is by device only: a CUDA tensor launches the kernel (or raises),
-a CPU tensor runs the plain version. Each launch adds one to
-:data:`launches`.
+a CPU tensor runs the plain version (which autograd differentiates). Each
+launch adds one to :data:`launches`.
 """
 from __future__ import annotations
 
@@ -39,6 +45,7 @@ import ctypes
 import math
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from repro_torch.kernels.l2_topk import (_check_layout, _on, _raise_on,
                                          _refuse_grad, _stream)
@@ -52,7 +59,7 @@ _DTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: kernel launches since the last :func:`reset_launches`, by kernel name;
 #: each route of :func:`flash_attention` counts under its own
 launches = {"flash_attention_wgmma": 0, "flash_attention_simt": 0,
-            "flash_decode": 0}
+            "flash_attention_bwd": 0, "flash_decode": 0}
 
 
 def reset_launches() -> None:
@@ -85,6 +92,19 @@ def _wgmma_lib():
         lib.flash_attention_wgmma_launch.argtypes = [p, p, p, p, i, i, i, i, i,
                                                      i, f, i, p]
         lib.flash_attention_wgmma_launch.restype = i
+        lib._typed = True
+    return lib
+
+
+def _bwd_lib():
+    from repro_torch.kernels import _build
+
+    lib = _build.load("flash_attention_bwd")
+    if not getattr(lib, "_typed", False):
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.flash_attention_bwd_launch.argtypes = [p] * 9 + [i] * 6 + [f, i,
+                                                                       p]
+        lib.flash_attention_bwd_launch.restype = i
         lib._typed = True
     return lib
 
@@ -128,42 +148,62 @@ def _attention_route(dtype: torch.dtype, dh: int, dv: int) -> str:
     return "simt"
 
 
+def _valid(sq: int, skv: int, causal: bool, device) -> torch.Tensor:
+    """(Sq, Skv) bool: key j is valid for query i (bottom-right causal)."""
+    if not causal:
+        return torch.ones((sq, skv), dtype=torch.bool, device=device)
+    pos = torch.arange(skv, device=device)[None, :]
+    return pos <= torch.arange(sq, device=device)[:, None] + (skv - sq)
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True,
                           sm_scale: float | None = None) -> torch.Tensor:
     """The plain PyTorch version of :func:`flash_attention`."""
     sq, dh = q.shape[2], q.shape[3]
-    skv = k.shape[2]
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
     s *= _scale(sm_scale, dh)
-    pos = torch.arange(skv, device=q.device)[None, :]
-    valid = (pos <= torch.arange(sq, device=q.device)[:, None] + (skv - sq)
-             if causal else torch.ones((sq, skv), dtype=torch.bool,
-                                       device=q.device))
-    p, l = _weights(s, valid)
+    p, l = _weights(s, _valid(sq, k.shape[2], causal, q.device))
     return (torch.matmul(p, v.float()) / l).to(q.dtype)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True,
-                    sm_scale: float | None = None) -> torch.Tensor:
-    """q (B, H, Sq, dh); k (B, H, Skv, dh); v (B, H, Skv, dv) ->
-    (B, H, Sq, dv) in q's dtype.
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, out: torch.Tensor,
+                              dout: torch.Tensor, *, causal: bool = True,
+                              sm_scale: float | None = None):
+    """The plain PyTorch version of :func:`flash_attention_bwd`: P
+    recomputed in f32, ``dV = P^T dO``, ``dP = dO V^T``, ``dS = P o (dP -
+    rowsum(dO o O))``, ``dQ = dS K scale``, ``dK = dS^T Q scale``; each
+    gradient in its input's dtype. ``out`` is the forward's output, as the
+    kernel reads it."""
+    sq, dh = q.shape[2], q.shape[3]
+    scale = _scale(sm_scale, dh)
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), dout.float()
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    p, l = _weights(s, _valid(sq, k.shape[2], causal, q.device))
+    p = p / l
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    ds = p * (dp - (dof * out.float()).sum(-1, keepdim=True))
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
-    Key j is valid for query i iff, when ``causal``, j <= i + Skv - Sq.
-    ``sm_scale`` defaults to 1/sqrt(dh). q, k, v share one dtype (f32, bf16
-    or f16); accumulation is f32.
-    """
+
+def _check_shapes(name: str, q, k, v):
     b, h, sq, dh = q.shape
     skv, dv = k.shape[2], v.shape[3]
     if k.shape != (b, h, skv, dh) or v.shape[:3] != (b, h, skv):
-        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)} disagree")
-    _check("flash_attention", q, k, v, dh, dv)
-    scale = _scale(sm_scale, dh)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal=causal, sm_scale=scale)
-    _refuse_grad("flash_attention", q, k, v)
+    _check(name, q, k, v, dh, dv)
+    return b, h, sq, skv, dh, dv
+
+
+def _forward_card(q, k, v, causal: bool, scale: float) -> torch.Tensor:
+    """The forward kernel on CUDA tensors checked by the caller."""
+    b, h, sq, dh = q.shape
+    skv, dv = k.shape[2], v.shape[3]
     out = torch.empty((b, h, sq, dv), dtype=q.dtype, device=q.device)
     route = _attention_route(q.dtype, dh, dv)
     with _on(q):
@@ -184,6 +224,88 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _raise_on("flash_attention", err)
     launches[f"flash_attention_{route}"] += 1
     return out
+
+
+def _backward_card(q, k, v, out, dout, causal: bool, scale: float):
+    """The backward kernel on CUDA tensors checked by the caller: (dq, dk,
+    dv), one counted launch (three kernels)."""
+    b, h, sq, dh = q.shape
+    skv, dv = k.shape[2], v.shape[3]
+    dq, dk, dvt = (torch.empty_like(t) for t in (q, k, v))
+    # each query's log-sum-exp, then Delta = rowsum(dout o out), in f32
+    work = torch.empty(2 * b * h * sq, dtype=torch.float32, device=q.device)
+    with _on(q):
+        err = _bwd_lib().flash_attention_bwd_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dvt.data_ptr(),
+            work.data_ptr(), _DTYPE[q.dtype], b * h, sq, skv, dh, dv, scale,
+            int(causal), _stream(q))
+    _raise_on("flash_attention_bwd", err)
+    launches["flash_attention_bwd"] += 1
+    return dq, dk, dvt
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel, differentiated by the backward kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float):
+        out = _forward_card(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = _backward_card(q, k, v, out, dout.contiguous(),
+                                    ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    sm_scale: float | None = None) -> torch.Tensor:
+    """q (B, H, Sq, dh); k (B, H, Skv, dh); v (B, H, Skv, dv) ->
+    (B, H, Sq, dv) in q's dtype.
+
+    Key j is valid for query i iff, when ``causal``, j <= i + Skv - Sq.
+    ``sm_scale`` defaults to 1/sqrt(dh). q, k, v share one dtype (f32, bf16
+    or f16); accumulation is f32. Differentiable: on a CUDA tensor that
+    requires grad (grad on) the backward is :func:`flash_attention_bwd`'s
+    kernel, on a CPU tensor autograd through the plain version.
+    """
+    _check_shapes("flash_attention", q, k, v)
+    scale = _scale(sm_scale, q.shape[3])
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, sm_scale=scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, scale)
+    return _forward_card(q, k, v, causal, scale)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, dout: torch.Tensor, *,
+                        causal: bool = True,
+                        sm_scale: float | None = None):
+    """The gradient of :func:`flash_attention`: q, k, v as there, ``out`` its
+    output and ``dout`` the cotangent of ``out`` (both (B, H, Sq, dv), the
+    inputs' dtype) -> (dq, dk, dv) in the inputs' dtype. A query with no
+    valid key gets a zero dq and adds nothing to dk and dv."""
+    b, h, sq, skv, dh, dv = _check_shapes("flash_attention_bwd", q, k, v)
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != (b, h, sq, dv) or t.dtype != q.dtype:
+            raise ValueError(f"flash_attention_bwd: {name} is "
+                             f"{tuple(t.shape)} {t.dtype}, want "
+                             f"{(b, h, sq, dv)} {q.dtype}")
+    _check_layout("flash_attention_bwd", q, out, dout)
+    scale = _scale(sm_scale, dh)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, dout, causal=causal,
+                                         sm_scale=scale)
+    return _backward_card(q, k, v, out, dout, causal, scale)
 
 
 # --------------------------------------------------------------------------

@@ -7,8 +7,9 @@ Plain functions on tensors, in the JAX package's layouts: activations are
 statistics, RoPE angles and the softmax run in float32, as in JAX.
 
 Attention goes through the port's hand-written ``flash_attention`` kernel on
-a CUDA tensor (the tensor-core route for bf16/f16, the SIMT route for f32)
-and through its plain version on a CPU tensor. Not here yet: ``layer_norm``,
+a CUDA tensor (the tensor-core route for bf16/f16, the SIMT route for f32;
+under grad its backward is the hand-written ``flash_attention_bwd``) and
+through its plain version on a CPU tensor. Not here yet: ``layer_norm``,
 ``decode_attention`` and ``mlp``.
 """
 from __future__ import annotations
@@ -108,6 +109,9 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensor, its plain version on a CPU tensor. The kernel takes H heads of
     k and v in (B, H, S, d) layout, so every operand is copied once into
     that layout (``heads_first``), GQA k/v repeated to H heads on the way.
+    Differentiable: the gradient of a repeated k/v head is summed back over
+    its ``rep`` copies by autograd through ``heads_first``'s ``expand``,
+    which is JAX's gradient (its einsums never materialise the repeat).
 
     The kernel places the queries at the end of the KV window (query i at
     ``Skv - Sq + i``). That is JAX's mask when ``q_offset == Skv - Sq``,

@@ -9,11 +9,13 @@ transformer_from_numpy``). :func:`init_params` draws them on the card from a
 seeded ``torch.Generator``; pass ``device="cpu"`` for the CPU.
 
 Attention runs in ``layers.blockwise_attention`` (the hand-written
-``flash_attention`` kernel on the card); the plain products (``x @ W``) are
-PyTorch's. JAX's ``constrain_batch`` / ``constrain_seq`` are sharding hints
+``flash_attention`` kernel on the card, and its backward kernel under
+grad); the plain products (``x @ W``) are PyTorch's. ``remat="full"``
+recomputes each block in the backward pass
+(``torch.utils.checkpoint``), as JAX's ``jax.checkpoint`` per block. JAX's ``constrain_batch`` / ``constrain_seq`` are sharding hints
 that do nothing without a mesh, and are left out. Not here yet: MoE, MLA,
-the MTP head (their flags raise ``NotImplementedError``), the loss, and the
-decode path.
+the MTP head (their flags raise ``NotImplementedError``), the LM loss, and
+the decode path.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from typing import Any, NamedTuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import layers
@@ -178,8 +181,10 @@ class Transformer(nn.Module):
         s = tokens.shape[1]
         x = self.embed[lookup_ids(tokens, self.cfg.vocab)].to(self.cfg.dtype)
         positions = torch.arange(s, device=x.device)
+        remat = self.cfg.remat != "none" and torch.is_grad_enabled()
         for blk in self.blocks:
-            x = blk(x, positions)
+            x = (checkpoint(blk, x, positions, use_reentrant=False) if remat
+                 else blk(x, positions))
         x = layers.rms_norm(x, self.final_norm)
         logits = x @ self.embed.T if with_logits else None  # tied head
         zero = torch.zeros((), dtype=torch.float32, device=x.device)

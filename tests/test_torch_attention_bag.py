@@ -192,24 +192,41 @@ def test_port_ops_validate_and_cast():
         tops.embedding_bag(torch.zeros((0, 4)), -torch.ones((2, 3)).long())
 
 
-def test_card_routes_refuse_autograd():
-    """The card routes fill their outputs through ctypes, out of autograd's
-    sight, so their guard raises while grad is on and an input requires
-    grad, and passes under ``inference_mode`` / ``no_grad`` or with no such
-    input. The CPU route, the plain version, still differentiates."""
+def test_card_routes_refuse_autograd(monkeypatch):
+    """``flash_decode`` and ``embedding_bag`` fill their outputs on the card
+    through ctypes, out of autograd's sight, and have no backward kernel:
+    their guard raises while grad is on and an input requires grad, and
+    passes under ``inference_mode`` / ``no_grad`` or with no such input.
+    ``flash_attention`` has its backward kernel: its card route records a
+    ``torch.autograd.Function`` (run here with the card's forward and
+    backward replaced by the plain versions) whose gradients are the plain
+    version's. The CPU route, the plain version, still differentiates."""
+    from repro_torch.kernels import flash_attention as tfa
     from repro_torch.kernels.l2_topk import _refuse_grad
 
     x = torch.ones(3, requires_grad=True)
-    with pytest.raises(RuntimeError, match="flash_attention: .*no backward"):
-        _refuse_grad("flash_attention", torch.ones(3), x)
+    with pytest.raises(RuntimeError, match="flash_decode: .*no backward"):
+        _refuse_grad("flash_decode", torch.ones(3), x)
     for mode in (torch.inference_mode, torch.no_grad):
         with mode():
-            _refuse_grad("flash_attention", x)
+            _refuse_grad("flash_decode", x)
     _refuse_grad("embedding_bag", x.detach(), torch.ones(2))
     rng = np.random.default_rng(1)
     q, k, v = (torch.from_numpy(_normal(rng, 1, 2, 5, 8)).requires_grad_()
                for _ in range(3))
     tops.flash_attention(q, k, v).sum().backward()
+    monkeypatch.setattr(tfa, "_forward_card", lambda q, k, v, c, s:
+                        tfa.flash_attention_plain(q, k, v, causal=c,
+                                                  sm_scale=s))
+    monkeypatch.setattr(tfa, "_backward_card", lambda q, k, v, o, do, c, s:
+                        tfa.flash_attention_bwd_plain(q, k, v, o, do, causal=c,
+                                                      sm_scale=s))
+    qc, kc, vc = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    out = tfa._FlashAttention.apply(qc, kc, vc, True, 8 ** -0.5)
+    assert out.grad_fn is not None
+    out.sum().backward()
+    for got, want in zip((qc.grad, kc.grad, vc.grad), (q.grad, k.grad, v.grad)):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
     qd, kd, vd = (torch.from_numpy(_normal(rng, *s)).requires_grad_()
                   for s in ((2, 2, 8), (2, 5, 2, 8), (2, 5, 2, 8)))
     tops.flash_decode(qd, kd, vd, length=3).sum().backward()

@@ -560,19 +560,21 @@ def test_embedding_bag_id_past_the_table_in_any_warp(dev, mode):
 
 @pytest.mark.cuda
 def test_card_routes_refuse_autograd(dev):
-    """The kernels have no backward: each wrapper raises on a CUDA input
-    that requires grad while grad is on, before it launches, and runs
-    under ``inference_mode`` and ``no_grad``."""
+    """``flash_decode`` and ``embedding_bag`` have no backward: each wrapper
+    raises on a CUDA input that requires grad while grad is on, before it
+    launches, and runs under ``inference_mode`` and ``no_grad``.
+    ``flash_attention`` records its backward kernel instead: the output has
+    a ``grad_fn``, backward launches ``flash_attention_bwd`` once, and the
+    gradients are the plain version's (autograd on the CPU)."""
     g = torch.Generator().manual_seed(7)
-    q, k, v = (_randn(g, 1, 2, 40, 64, dtype=torch.bfloat16).to(dev)
-               .requires_grad_() for _ in range(3))
+    q, k, v = (_randn(g, 1, 2, 40, 64, dtype=torch.bfloat16) for _ in range(3))
+    qc, kc, vc = (t.to(dev).requires_grad_() for t in (q, k, v))
     qd = _randn(g, 2, 2, 64).to(dev).requires_grad_()
     kd, vd = (_randn(g, 2, 50, 2, 64).to(dev) for _ in range(2))
     table = _randn(g, 30, 18).to(dev).requires_grad_()
     idx = torch.randint(-1, 30, (4, 6), generator=g,
                         dtype=torch.int32).to(dev)
-    calls = [("flash_attention", lambda: ops.flash_attention(q, k, v)),
-             ("flash_decode", lambda: ops.flash_decode(qd, kd, vd, length=7)),
+    calls = [("flash_decode", lambda: ops.flash_decode(qd, kd, vd, length=7)),
              ("embedding_bag", lambda: ops.embedding_bag(table, idx))]
     for name, call in calls:
         before = dict(flash_attention.launches, **embedding_bag.launches)
@@ -584,6 +586,126 @@ def test_card_routes_refuse_autograd(dev):
             with mode():
                 out = call()
             assert not out.requires_grad and torch.isfinite(out.float()).all()
+    cot = _randn(g, 1, 2, 40, 64, dtype=torch.bfloat16)
+    out = ops.flash_attention(qc, kc, vc)
+    assert out.grad_fn is not None
+    before = flash_attention.launches["flash_attention_bwd"]
+    out.backward(cot.to(dev))
+    assert flash_attention.launches["flash_attention_bwd"] == before + 1
+    qh, kh, vh = (t.clone().requires_grad_() for t in (q, k, v))
+    ops.flash_attention(qh, kh, vh).backward(cot)
+    for got, want in zip((qc.grad, kc.grad, vc.grad), (qh.grad, kh.grad,
+                                                       vh.grad)):
+        assert got.dtype == torch.bfloat16
+        assert (got.cpu().float() - want.float()).abs().max() <= (
+            ATTN_TOL[torch.bfloat16] * want.float().abs().max())
+
+
+# the backward kernel vs its plain version on the same card inputs: within
+# tol x the largest |gradient| (f32 sums of up to Skv or Sq products in
+# another order; a 16-bit gradient is rounded once on either side)
+BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 2e-3}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,sq,skv,dh,dv,causal,dtype", [
+    (64, 6, 256, 256, 64, 64, True, torch.float32),    # d's training layer
+    (4, 32, 256, 256, 128, 128, True, torch.bfloat16),  # D's layer
+    (2, 3, 37, 100, 64, 64, False, torch.float32),     # non-causal
+    (2, 3, 37, 100, 64, 64, True, torch.bfloat16),     # Sq < Skv causal
+    (2, 2, 100, 37, 64, 64, True, torch.float32),      # Sq > Skv: empty rows
+    (1, 2, 70, 70, 48, 32, True, torch.float32),       # dv != dh
+    (1, 2, 70, 90, 192, 128, True, torch.bfloat16),    # MLA widths, 32-tiles
+    (1, 2, 50, 80, 256, 256, False, torch.float16),    # widest head
+    (2, 2, 65, 65, 128, 128, True, torch.float16),
+    (1, 3, 33, 47, 20, 20, True, torch.bfloat16),      # head of 20: scalar loads
+])
+def test_attention_backward_kernel_vs_plain(dev, b, h, sq, skv, dh, dv,
+                                            causal, dtype):
+    g = torch.Generator(device=dev).manual_seed(sq + skv + dh)
+    q, k, v = (torch.randn(*s, generator=g, device=dev).to(dtype) for s in
+               ((b, h, sq, dh), (b, h, skv, dh), (b, h, skv, dv)))
+    dout = torch.randn(b, h, sq, dv, generator=g, device=dev).to(dtype)
+    with torch.inference_mode():
+        out = ops.flash_attention(q, k, v, causal=causal)
+    before = flash_attention.launches["flash_attention_bwd"]
+    got = flash_attention.flash_attention_bwd(q, k, v, out, dout,
+                                              causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches["flash_attention_bwd"] == before + 1
+    want = flash_attention.flash_attention_bwd_plain(q, k, v, out, dout,
+                                                     causal=causal)
+    for x, w in zip(got, want):
+        assert x.dtype == dtype and x.shape == w.shape
+        assert torch.isfinite(x.float()).all()
+        err = (x.float() - w.float()).abs().max()
+        assert err <= BWD_TOL[dtype] * w.float().abs().max(), err
+    if causal and sq > skv:
+        assert (got[0][:, :, : sq - skv] == 0).all()
+    again = flash_attention.flash_attention_bwd(q, k, v, out, dout,
+                                                causal=causal)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))  # no atomics
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_blockwise_attention_backward_on_card_equals_cpu(dev, dtype):
+    """GQA (32 query heads over 8), S=64: the card's gradients (forward
+    kernel, backward kernel, the repeat folded back by autograd) against
+    the CPU's (autograd of the plain version)."""
+    from repro_torch.models import layers
+
+    g = torch.Generator().manual_seed(3)
+    q = torch.randn(2, 64, 32, 128, generator=g).to(dtype)
+    k, v = (torch.randn(2, 64, 8, 128, generator=g).to(dtype)
+            for _ in range(2))
+    cot = torch.randn(2, 64, 32, 128, generator=g)
+    grads = {}
+    for where in ("cpu", dev):
+        ins = [t.detach().clone().to(where).requires_grad_()
+               for t in (q, k, v)]
+        out = layers.blockwise_attention(*ins, causal=True)
+        (out.float() * cot.to(where)).sum().backward()
+        grads[str(where)] = [t.grad.cpu().float() for t in ins]
+    for got, want in zip(grads[str(dev)], grads["cpu"]):
+        err = (got - want).abs().max()
+        assert err <= BWD_TOL[dtype] * want.abs().max(), err
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_equals_cpu(dev):
+    """One InfoNCE ``Trainer`` step of the smoke tower (f32), micro-batched
+    in two, on the card against the same step on the CPU: the loss within
+    1e-4 + 1e-3 relative and the parameters within lr/10 on all but 1 % of
+    their elements, 2·lr on all (tests/test_torch_train.py's limits); the
+    step launches the forward and backward kernels in every layer."""
+    from repro_torch.configs.bimetric_paper import cheap_tower_smoke
+    from repro_torch.data.pipeline import contrastive_batch_fn
+    from repro_torch.models import transformer
+    from repro_torch.train import contrastive, optimizer, trainer
+
+    cfg = cheap_tower_smoke()
+    model = transformer.init_params(4, cfg, device="cpu")
+    batch = contrastive_batch_fn(16, 32, cfg.vocab)(0, 0)
+    opt = optimizer.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    tcfg = trainer.TrainerConfig(total_steps=1, grad_accum=2, log_every=100)
+    res = {}
+    for where in ("cpu", "cuda"):
+        flash_attention.reset_launches()
+        tr = trainer.Trainer(contrastive.info_nce_loss, model, opt, tcfg,
+                             device=where)
+        out = tr.run(iter([batch]), log=None)
+        res[where] = (out["losses"][0], {
+            n: p.detach().cpu() for n, p in tr.params.named_parameters()})
+    # two towers (queries, docs) x layers x micro-batches
+    assert flash_attention.launches["flash_attention_simt"] == 2 * 2 * cfg.n_layers
+    assert flash_attention.launches["flash_attention_bwd"] == 2 * 2 * cfg.n_layers
+    np.testing.assert_allclose(res["cuda"][0], res["cpu"][0], rtol=1e-3,
+                               atol=1e-4)
+    for name, want in res["cpu"][1].items():
+        err = (res["cuda"][1][name] - want).abs()
+        assert err.max() <= 2 * opt.lr, name
+        assert (err > opt.lr / 10).float().mean() <= 1e-2, name
 
 
 @pytest.mark.cuda
@@ -732,7 +854,7 @@ def test_tower_on_card_equals_cpu(dev, which):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("s", [200, 32])
-@torch.inference_mode()  # the kernel has no backward yet
+@torch.inference_mode()  # serving's mode: no autograd recording
 def test_blockwise_attention_on_card_is_the_kernel(dev, s):
     """GQA attention at a D-tower layer's head shape (32 over 8 heads, dh
     128, bf16; S of a doc-like length and of a query's 32 tokens) through
