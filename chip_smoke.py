@@ -92,7 +92,8 @@ Phases (any failure exits nonzero and prints no result line):
    32768)`` (at the default 0.05 a random tower's loss, ~4e-6, is below
    what f32 logits near 20 resolve), 30 ``Trainer`` steps (AdamW lr 1e-3,
    warmup 20) on the card through the forward and
-   the backward ``flash_attention`` kernels, both counted; the loss curve,
+   the backward ``flash_attention`` kernels, both counted (the backward by
+   route: d's f32 heads of 64 take the 3xTF32 one); the loss curve,
    step ms, tokens/s, the forward / backward / optimizer split and peak
    memory; the losses finite and falling (mean of the last 5 below the
    first 5); then 4 steps at ``grad_accum=2`` against a ``grad_accum=1``
@@ -100,7 +101,11 @@ Phases (any failure exits nonzero and prints no result line):
    a micro-batch's loss is its own); after the path, the backward kernel
    against its plain version at d's and D's layer shapes and the edges
    (non-causal Sq < Skv, Sq > Skv with empty rows, dv != dh, f16, 32-row
-   tiles), timed beside its bound, the plain version and SDPA's backward.
+   tiles, each route's tile edges, heads left to the SIMT kernel), each on
+   the route ``_backward_route`` picks, given the forward's log-sum-exp;
+   the two layers timed (eager, graph replay, the profiler's split) beside
+   the bound of the route's operations, the SIMT kernel on the same
+   inputs, the plain version and SDPA's backward timed alone.
 
 Phases 6, 8 and 9 run under ``torch.inference_mode()`` (serving records
 no autograd graph); ``flash_decode`` and ``embedding_bag`` have no backward
@@ -135,6 +140,7 @@ import torch  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
+TF32_OPS_PER_S = 495e12  # dense TF32 tensor-core rate
 
 CROSS_RTOL = 1e-5  # near-tie allowance between the card and the CPU
 L2_BYTES = 50e6  # the H100's L2 cache
@@ -154,10 +160,11 @@ def log(*a):
     print(*a, flush=True)
 
 
-def time_ms(fn, reps=11, inner=10, warmup=3):
+def time_ms(fn, reps=11, inner=10, warmup=3, spread=False):
     """Per-call device time of ``fn`` (ms): the median over ``reps`` CUDA-event
     windows of ``inner`` back-to-back calls each, so the host's launch work
-    overlaps the device's instead of being counted."""
+    overlaps the device's instead of being counted. ``spread``: (median,
+    min, max) of the windows."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -171,6 +178,8 @@ def time_ms(fn, reps=11, inner=10, warmup=3):
         e.record()
         e.synchronize()
         times.append(s.elapsed_time(e) / inner)
+    if spread:
+        return statistics.median(times), min(times), max(times)
     return statistics.median(times)
 
 
@@ -1207,7 +1216,7 @@ def off_path(dev, sizes, rehearse):
     launches = dict(**fa.launches, **eb.launches)  # read just after the path
     if not rehearse:
         for name, n in launches.items():
-            if name != "flash_attention_bwd":  # phase 11's path
+            if not name.startswith("flash_attention_bwd"):  # phase 11's
                 require(n > 0, f"{name} was never launched on phase 6's "
                         "path")
         # the full-width 16-bit rows on the tensor cores, the f32 rows on the
@@ -2751,7 +2760,10 @@ BWD_TOL = {F32: 1e-5, BF16: 2e-2, F16: 2e-3}
 # B, H, Sq, Skv, dh, dv, causal, dtype, role: d's training layer and D's
 # layer (32 query heads; the kernel sees the 8 KV heads repeated), timed;
 # then the edges: non-causal and causal Sq < Skv, Sq > Skv (rows with no
-# key), dv != dh, the 32-row tiles (MLA's 192/128, 256) and f16
+# key), dv != dh, the 32-row tiles (MLA's 192/128, 256) and f16; then the
+# tensor-core routes' tile edges (Sq, Skv one past a tile or short of it,
+# Sq > Skv under causal masking, padded widths) and heads they leave to the
+# SIMT kernel. Each row runs the route _backward_route picks for it.
 BWD_CASES = [
     (64, 6, 256, 256, 64, 64, True, F32, "d (bge-micro-like) training layer"),
     (4, 32, 256, 256, 128, 128, True, BF16, "D (sfr-mistral-7b) layer"),
@@ -2762,6 +2774,13 @@ BWD_CASES = [
     (1, 2, 70, 90, 192, 128, True, BF16, None),
     (1, 2, 50, 80, 256, 256, False, F16, None),
     (2, 2, 65, 65, 128, 128, True, F16, None),
+    (1, 2, 130, 75, 128, 128, True, F32, None),
+    (1, 2, 67, 131, 96, 64, False, F32, None),
+    (2, 2, 150, 90, 64, 64, True, BF16, None),
+    (1, 3, 200, 333, 40, 24, True, F16, None),
+    (1, 2, 129, 129, 128, 64, False, BF16, None),
+    (1, 2, 45, 61, 20, 12, True, F32, None),
+    (1, 2, 40, 40, 160, 64, True, F32, None),
 ]
 
 
@@ -2772,16 +2791,99 @@ def _valid_pairs(sq, skv, causal):
     return sum(max(0, min(skv, i + off + 1)) for i in range(sq))
 
 
-def check_attention_backward(dev, rehearse):
-    """``flash_attention_bwd`` against ``flash_attention_bwd_plain`` on the
-    same card inputs (out from the forward kernel, a seeded cotangent) at
-    :data:`BWD_CASES`, bit-equal on a second call (no atomics); the timed
-    rows beside the bound (five Sq x Skv x d products over the valid pairs,
-    or the bytes of q, k, v, out, dout, dq, dk, dv), the plain version, and
-    SDPA's backward (its forward + backward less its forward). Returns
-    (rows, max error)."""
+def _bwd_bound(route, dt, nbytes, pairs, dh, dv):
+    """(ms, "bytes" or "operations") of the backward's function (five
+    products of 2 d flops per valid pair) at the rate of the route's
+    operations: three TF32 products each on the tf32 route, the 16-bit
+    tensor-core rate on wgmma, the f32 rate outside the tensor cores on
+    SIMT (and for 16-bit SIMT, the tensor-core rate the inputs allow)."""
+    flops = 2 * (3 * dh + 2 * dv) * pairs
+    if route == "tf32":
+        return bound(nbytes, 3 * flops, TF32_OPS_PER_S)
+    return bound(nbytes, flops, _ops_rate(dt))
+
+
+def _device_split(fn, n=20):
+    """Device ms per call of each CUDA kernel ``fn`` launches, from
+    ``torch.profiler`` over ``n`` calls (kernel names cut to 80
+    characters), and how many launches of each the profile recorded. The
+    profile drops some records (14-15 of 20 launches on that machine), so
+    a kernel's ms per call is its mean over the launches recorded times
+    its launches a call, taken as its count over the least count (every
+    ``fn`` here launches some kernel once a call); ``{"error": ...}``
+    where the profiler reports nothing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    totals, counts = {}, {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "device_time_total", None)
+        if t is None:
+            t = getattr(ev, "cuda_time_total", 0)
+        if t and ev.count:
+            totals[ev.key[:80]] = t
+            counts[ev.key[:80]] = ev.count
+    if not totals:
+        return {"error": "no device time in the profile"}, {}
+    least = min(counts.values())
+    split = {k: totals[k] / counts[k] * max(1, round(counts[k] / least))
+             / 1e3 for k in totals}
+    return split, counts
+
+
+def _sdpa_backward(q, k, v, dout, causal):
+    """SDPA's backward timed alone: its graph built once, then only
+    ``autograd.grad(o, leaves, dout, retain_graph=True)`` between the
+    events; the backend that ran (from the graph's node), the spread of
+    the windows and the kernels' device time from the profiler; beside it
+    the older reading, forward + backward less the forward."""
     import torch.nn.functional as F
 
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    o = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+    ms, lo, hi = time_ms(lambda: torch.autograd.grad(
+        o, leaves, dout, retain_graph=True), spread=True)
+    out = dict(library="F.scaled_dot_product_attention backward alone "
+                       "(autograd.grad on a graph built once)",
+               library_backend=type(o.grad_fn).__name__, library_ms=ms,
+               library_ms_min=lo, library_ms_max=hi)
+    # the kernels' device time alone, without the autograd engine's host work
+    split, counts = _device_split(lambda: torch.autograd.grad(
+        o, leaves, dout, retain_graph=True))
+    out["library_device_split_ms"] = split
+    out["library_device_split_counts"] = counts
+    if "error" not in split:
+        out["library_device_ms"] = sum(split.values())
+
+    def fwd_bwd():
+        x = F.scaled_dot_product_attention(*leaves, is_causal=causal)
+        return torch.autograd.grad(x, leaves, dout)
+
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal))
+    out["library_fwd_bwd_ms"] = time_ms(fwd_bwd)
+    out["library_fwd_bwd_less_fwd_ms"] = out["library_fwd_bwd_ms"] - fwd_ms
+    del o, leaves
+    return out
+
+
+def check_attention_backward(dev, rehearse):
+    """``flash_attention_bwd`` against ``flash_attention_bwd_plain`` on the
+    same card inputs (out and each row's log-sum-exp from the forward
+    kernel, as autograd saves them; a seeded cotangent) at
+    :data:`BWD_CASES`, each on the route ``_backward_route`` picks (its
+    counter must move), bit-equal on a second call (no atomics). The timed
+    rows: the route with the forward's log-sum-exp (the training path) and
+    without it, the SIMT kernel on the same inputs (with and without),
+    beside the bound of the
+    route's operations (and the f32 bound of the SIMT kernel), the plain
+    version, and SDPA's backward timed alone. Returns (rows, max error)."""
     from repro_torch.kernels import flash_attention as fa
 
     g = torch.Generator(device=dev).manual_seed(23)
@@ -2789,13 +2891,20 @@ def check_attention_backward(dev, rehearse):
     for b, h, sq, skv, dh, dv, causal, dt, role in BWD_CASES:
         if rehearse:
             b, h, sq, skv = 1, 2, min(sq, 24), min(skv, 24)
+        route = fa._backward_route(dt, dh, dv)
         q, k, v = _attn_inputs(g, dev, b, h, sq, skv, dh, dv, dt)
         dout = torch.randn(b, h, sq, dv, generator=g, device=dev).to(dt)
         with torch.inference_mode():
-            out = fa.flash_attention(q, k, v, causal=causal)
-        got = fa.flash_attention_bwd(q, k, v, out, dout, causal=causal)
+            out, lse = fa.flash_attention_lse(q, k, v, causal=causal)
+        key = f"flash_attention_bwd_{route}"
+        before = fa.launches[key]
+        got = fa.flash_attention_bwd(q, k, v, out, dout, causal=causal,
+                                     lse=lse)
         want = fa.flash_attention_bwd_plain(q, k, v, out, dout, causal=causal)
         what = f"flash_attention_bwd {(b, h, sq, skv, dh, dv, causal, dt)}"
+        if dev.type == "cuda":
+            require(fa.launches[key] == before + 1,
+                    f"{what}: not counted under {key}")
         err = 0.0
         for x, w, name in zip(got, want, ("dq", "dk", "dv")):
             require(x.dtype == dt and x.shape == w.shape
@@ -2808,42 +2917,48 @@ def check_attention_backward(dev, rehearse):
         if causal and sq > skv:
             require(bool((got[0][:, :, : sq - skv] == 0).all()),
                     f"{what}: a row with no key has a dq")
-        again = fa.flash_attention_bwd(q, k, v, out, dout, causal=causal)
+        again = fa.flash_attention_bwd(q, k, v, out, dout, causal=causal,
+                                       lse=lse)
         require(all(torch.equal(x, y) for x, y in zip(got, again)),
                 f"{what}: two calls differ")
         worst = max(worst, err)
-        row = dict(role=role, B=b, H=h, Sq=sq, Skv=skv, dh=dh, dv=dv,
-                   causal=causal, dtype=str(dt), max_abs_err=err)
+        row = dict(role=role, route=route, B=b, H=h, Sq=sq, Skv=skv, dh=dh,
+                   dv=dv, causal=causal, dtype=str(dt), max_abs_err=err)
         if role is not None:
             pairs = b * h * _valid_pairs(sq, skv, causal)
             item = q.element_size()
             # q, k, v, out and dout read once; dq, dk, dv written once
             nbytes = item * (2 * (q.numel() + k.numel() + v.numel())
                              + 2 * out.numel())
-            row["bound_ms"], row["bound_by"] = bound(
-                nbytes, 2 * (3 * dh + 2 * dv) * pairs, _ops_rate(dt))
+            row["bound_ms"], row["bound_by"] = _bwd_bound(
+                route, dt, nbytes, pairs, dh, dv)
+            row["bound_ms_simt"], row["bound_by_simt"] = bound(
+                nbytes, 2 * (3 * dh + 2 * dv) * pairs, F32_OPS_PER_S)
             if not rehearse:
-                row["ms"] = time_ms(lambda: fa.flash_attention_bwd(
-                    q, k, v, out, dout, causal=causal))
+                def run(route_=None, lse_=lse):
+                    return fa._backward_card(q, k, v, out, dout, causal,
+                                             dh ** -0.5, lse_, route_)
+
+                row["ms"], row["ms_min"], row["ms_max"] = time_ms(
+                    run, spread=True)
+                # the device's time alone: CUDA-graph replay, as for the
+                # other kernels; the profiler's split by kernel beside it
+                row["device_ms"] = time_graph_ms(run)
+                row["device_split_ms"], row["device_split_counts"] = (
+                    _device_split(run))
+                row["ms_no_lse"] = time_ms(lambda: run(lse_=None))
+                if route != "simt":
+                    row["simt_ms"] = time_ms(lambda: run("simt"))
+                    # the SIMT kernel recomputing the log-sum-exp: eight
+                    # products a valid pair, against the route's seven
+                    row["simt_no_lse_ms"] = time_ms(
+                        lambda: run("simt", None))
                 row["plain_ms"] = time_ms(lambda: fa.flash_attention_bwd_plain(
                     q, k, v, out, dout, causal=causal), reps=5, inner=2)
-                leaves = [t.detach().requires_grad_() for t in (q, k, v)]
-
-                def sdpa_fwd_bwd():
-                    o = F.scaled_dot_product_attention(*leaves,
-                                                       is_causal=causal)
-                    return torch.autograd.grad(o, leaves, dout)
-
-                with torch.no_grad():
-                    fwd_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                        q, k, v, is_causal=causal))
-                row["library"] = ("F.scaled_dot_product_attention backward "
-                                  "(forward + backward less forward)")
-                row["library_fwd_bwd_ms"] = time_ms(sdpa_fwd_bwd)
-                row["library_ms"] = row["library_fwd_bwd_ms"] - fwd_ms
+                row.update(_sdpa_backward(q, k, v, dout, causal))
         rows.append(row)
         log("  " + json.dumps(row))
-        del q, k, v, out, dout, got, want, again
+        del q, k, v, out, lse, dout, got, want, again
     return rows, worst
 
 
@@ -2946,6 +3061,10 @@ def train_slice(dev, sizes, rehearse):
                 f"simt launches {launches['flash_attention_simt']}")
         require(launches["flash_attention_bwd"] == per_step * tz["steps"],
                 f"backward launches {launches['flash_attention_bwd']}")
+        # d's f32 heads of 64 take the 3xTF32 tensor-core route
+        require(launches["flash_attention_bwd_tf32"]
+                == launches["flash_attention_bwd"],
+                f"backward launches by route {launches}")
 
     # the forward / backward / optimizer split at the trained weights
     batch = {k: torch.as_tensor(x).to(dev) for k, x in make(99, 0).items()}
@@ -3264,10 +3383,12 @@ def main() -> int:
             errs += [r["max_abs_err"] for r in tw["attention"]]
             extra["launches_towers"] = sum(
                 n for k, n in tw["launches"].items()
-                if k.startswith(name + "_"))
+                if k.startswith(name + "_")
+                and not k.startswith("flash_attention_bwd"))
             extra["launches_serve"] = sum(
                 n for k, n in sv["launches"].items()
-                if k.startswith(name + "_"))
+                if k.startswith(name + "_")
+                and not k.startswith("flash_attention_bwd"))
             extra["launches_train"] = sum(
                 n for k, n in tn["launches"].items()
                 if k in ("flash_attention_simt", "flash_attention_wgmma"))
@@ -3276,29 +3397,43 @@ def main() -> int:
             source=f"src/repro_torch/kernels/csrc/{src}.cu",
             replaces=f"src/repro/kernels/{replaces}",
             launches=sum(n for k, n in off_launches.items()
-                         if k == name or (k.startswith(name + "_")
-                                          and k != "flash_attention_bwd")),
+                         if k == name or (k.startswith(name + "_") and not
+                                          k.startswith("flash_attention_bwd"))),
             max_abs_err=max(errs), ms=row.get("ms"),
             plain_ms=row.get("plain_ms"), bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row.get("library_ms"),
             device_ms=row.get("device_ms"), **extra))
     # the backward: no TPU kernel; its row is d's training layer, the shape
-    # of phase 11's path
+    # of phase 11's path (the tf32 route in csrc/flash_attention_bwd.cu),
+    # with D's layer (the wgmma route) beside it
     d_row, big_row = tn["bwd_rows"][:2]
     kernels.append(dict(
         name="flash_attention_bwd", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        source_wgmma="src/repro_torch/kernels/csrc/flash_attention_bwd_wgmma.cu",
         replaces="src/repro/models/layers.py:86",
         replaces_note="no TPU counterpart: JAX differentiates the jnp scan "
                       "of blockwise_attention with jax.grad",
         launches=tn["launches"]["flash_attention_bwd"], max_abs_err=bwd_err,
-        ms=d_row.get("ms"), plain_ms=d_row.get("plain_ms"),
+        launches_by_route={r: tn["launches"][f"flash_attention_bwd_{r}"]
+                           for r in ("wgmma", "tf32", "simt")},
+        route_d_layer=d_row["route"], ms=d_row.get("ms"),
+        plain_ms=d_row.get("plain_ms"),
         bound_ms=d_row["bound_ms"], bound_by=d_row["bound_by"],
+        bound_ms_f32=d_row["bound_ms_simt"],
         library_ms=d_row.get("library_ms"),
+        device_ms=d_row.get("device_ms"),
+        library_device_ms=d_row.get("library_device_ms"),
+        simt_ms=d_row.get("simt_ms"), simt_no_lse_ms=d_row.get("simt_no_lse_ms"),
         launches_per_step=tn["launches"]["flash_attention_bwd"] // tn["steps"],
+        route_D_layer=big_row["route"],
         ms_D_layer=big_row.get("ms"), plain_ms_D_layer=big_row.get("plain_ms"),
         bound_ms_D_layer=big_row["bound_ms"],
-        library_ms_D_layer=big_row.get("library_ms")))
+        bound_by_D_layer=big_row["bound_by"],
+        library_ms_D_layer=big_row.get("library_ms"),
+        device_ms_D_layer=big_row.get("device_ms"),
+        library_device_ms_D_layer=big_row.get("library_device_ms"),
+        simt_ms_D_layer=big_row.get("simt_ms")))
     report["kernels"] = kernels
     report["smoke_s"] = time.perf_counter() - t_start
     log(f"smoke finished in {report['smoke_s']:.1f} s (from start of main)")

@@ -28,7 +28,10 @@
 //   loads per 4 RM FMAs. P goes through shared memory row-major and V is
 //   read as float4, RM + 4 NCG loads per 16 RM NCG FMAs of O += P V. The
 //   online (m, l) follow the Pallas kernel (expf, masked scores -1e30, their
-//   weight 0); tiles past the block's last query are skipped.
+//   weight 0); tiles past the block's last query are skipped. Given an lse
+//   pointer (the autograd forward, flash_attention.py), the block also
+//   writes each row's f32 log-sum-exp m + log(max(l, 1e-30)) for the
+//   backward; the inference forward passes null and writes nothing more.
 //   Shared memory: (BQ dh + 64 dh + 64 * 64 NCG + BQ * 68) floats.
 //
 // flash_decode — replaces repro/kernels/flash_attention.py:flash_decode
@@ -137,8 +140,9 @@ __device__ __forceinline__ void stage_t(float* dst, const T* src, int row0, int 
 template <typename T, int RM, int NCG, bool VEC>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                            const T* __restrict__ v, T* __restrict__ out, int Sq, int Skv,
-                            int dh, int dv, float scale, int causal) {
+                            const T* __restrict__ v, T* __restrict__ out,
+                            float* __restrict__ lse, int Sq, int Skv, int dh, int dv, float scale,
+                            int causal) {
   constexpr int BQ = 16 * RM, VW = 64 * NCG;
   extern __shared__ float4 smem4[];
   float* qt = reinterpret_cast<float*>(smem4);  // dh x BQ
@@ -259,6 +263,7 @@ flash_attention_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float den = fmaxf(half_sum(l[a]), 1e-30f);
     const int row = q0 + ty * RM + a;
     if (row >= Sq) continue;
+    if (lse && tx == 0) lse[bh * Sq + row] = m[a] + logf(den);
     T* o = out + (bh * Sq + row) * dv;
 #pragma unroll
     for (int c = 0; c < NCG; ++c)
@@ -272,7 +277,7 @@ flash_attention_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int RM, int NCG>
 cudaError_t launch_attention_t(const void* q, const void* k, const void* v, void* out,
-                               int BH, int Sq, int Skv, int dh, int dv, float scale,
+                               float* lse, int BH, int Sq, int Skv, int dh, int dv, float scale,
                                int causal, bool vec, cudaStream_t stream) {
   const size_t smem = attention_smem(16 * RM, dh, NCG);
   auto kernel = vec ? flash_attention_simt_kernel<T, RM, NCG, true>
@@ -286,7 +291,7 @@ cudaError_t launch_attention_t(const void* q, const void* k, const void* v, void
   kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(q),
                                            static_cast<const T*>(k),
                                            static_cast<const T*>(v), static_cast<T*>(out),
-                                           Sq, Skv, dh, dv, scale, causal);
+                                           lse, Sq, Skv, dh, dv, scale, causal);
   return cudaGetLastError();
 }
 
@@ -296,11 +301,11 @@ constexpr size_t kTwoBlocks = 113 * 1024;
 
 template <typename T>
 cudaError_t launch_attention_dv(const void* q, const void* k, const void* v, void* out,
-                                int BH, int Sq, int Skv, int dh, int dv, float scale,
+                                float* lse, int BH, int Sq, int Skv, int dh, int dv, float scale,
                                 int causal, bool vec, cudaStream_t s) {
   const int ncg = (dv + 63) / 64;
 #define LAUNCH(RM, NCG) \
-  launch_attention_t<T, RM, NCG>(q, k, v, out, BH, Sq, Skv, dh, dv, scale, causal, vec, s)
+  launch_attention_t<T, RM, NCG>(q, k, v, out, lse, BH, Sq, Skv, dh, dv, scale, causal, vec, s)
   if (ncg <= 2 && attention_smem(128, dh, ncg) <= kTwoBlocks)
     return ncg == 1 ? LAUNCH(8, 1) : LAUNCH(8, 2);
   switch (ncg) {
@@ -597,11 +602,13 @@ cudaError_t launch_decode_t(const DecodeArgs& a, int BH, bool vec, cudaStream_t 
 extern "C" {
 
 // q (BH, Sq, dh), k (BH, Skv, dh), v (BH, Skv, dv), out (BH, Sq, dv), all of
-// dtype; dh, dv <= 256. Rows are read four elements at a time when dh and dv
-// are multiples of 4 and the bases 16-byte aligned. Returns the launch's
-// cudaGetLastError() (or the shared-memory opt-in's error).
+// dtype; dh, dv <= 256; lse null or (BH, Sq) f32, each row's log-sum-exp of
+// scale q k^T over its valid keys (-1e30 for a row with none). Rows are
+// read four elements at a time when dh and dv are multiples of 4 and the
+// bases 16-byte aligned. Returns the launch's cudaGetLastError() (or the
+// shared-memory opt-in's error).
 int flash_attention_simt_launch(const void* q, const void* k, const void* v, void* out,
-                                int dtype, int BH, int Sq, int Skv, int dh, int dv,
+                                float* lse, int dtype, int BH, int Sq, int Skv, int dh, int dv,
                                 float scale, int causal, void* stream) {
   if (BH == 0 || Sq == 0 || dv == 0) return 0;
   if (dh > kMaxHeadDim || dv > kMaxHeadDim) return static_cast<int>(cudaErrorInvalidValue);
@@ -611,14 +618,14 @@ int flash_attention_simt_launch(const void* q, const void* k, const void* v, voi
                     reinterpret_cast<uintptr_t>(v)) % 16 == 0;
   switch (dtype) {
     case kF32:
-      return static_cast<int>(launch_attention_dv<float>(q, k, v, out, BH, Sq, Skv, dh, dv,
-                                                         scale, causal, vec, s));
+      return static_cast<int>(launch_attention_dv<float>(q, k, v, out, lse, BH, Sq, Skv, dh,
+                                                         dv, scale, causal, vec, s));
     case kBF16:
-      return static_cast<int>(launch_attention_dv<__nv_bfloat16>(q, k, v, out, BH, Sq, Skv,
-                                                                 dh, dv, scale, causal, vec, s));
+      return static_cast<int>(launch_attention_dv<__nv_bfloat16>(
+          q, k, v, out, lse, BH, Sq, Skv, dh, dv, scale, causal, vec, s));
     case kF16:
-      return static_cast<int>(launch_attention_dv<__half>(q, k, v, out, BH, Sq, Skv, dh, dv,
-                                                          scale, causal, vec, s));
+      return static_cast<int>(launch_attention_dv<__half>(q, k, v, out, lse, BH, Sq, Skv, dh,
+                                                          dv, scale, causal, vec, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

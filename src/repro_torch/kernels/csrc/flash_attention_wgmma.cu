@@ -40,7 +40,11 @@
 //   zeros, as it does rows past Sq or Skv: zeros add nothing to either
 //   product. The tensor maps are encoded per call on the host from the
 //   tensors' pointers (cuTensorMapEncodeTiled, taken from the driver
-//   through the runtime, so the library does not link libcuda).
+//   through the runtime, so the library does not link libcuda; the helpers
+//   are in tma.cuh, shared with the backward). Given an lse pointer (the
+//   autograd forward), the epilogue also writes each row's f32
+//   log-sum-exp, (m + log2 l) ln 2, for the backward; the inference forward
+//   passes null.
 
 #include <cuda.h>
 #include <stdint.h>
@@ -48,100 +52,20 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "tma.cuh"
 #include "wgmma.cuh"
 
 namespace {
 
 constexpr float kNegInf = -1e30f;  // the Pallas kernels' mask value
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kBQ = 128;          // query rows per block
 constexpr int kThreads = 384;     // producer + two consumer warpgroups
 constexpr int kRow = 128;         // bytes per swizzled row (64 16-bit elements)
 constexpr int kConsumerWarps = 8; // arrivals that release a stage or Q
 
 enum DType { kBF16 = 1, kF16 = 2 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// wgmma matrix descriptor of a 128-byte swizzled operand at shared address
-// `addr` (1024-byte aligned atoms): lbo, sbo in bytes
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3ffff) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
-         (1ull << 62);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t ok;
-  asm volatile(
-      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(ok)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return ok != 0;
-}
-// wait until the phase of parity `parity` has completed (a plain loop: a
-// branch out of it, such as a timeout, would put the consumers' products
-// on a divergent path, which ptxas serializes)
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  while (!mbar_try_wait(bar, parity)) {
-  }
-}
-// the producer's wait, which is outside every product: if a copy never
-// lands (a tensor map or a byte count that disagrees with the tiles), the
-// consumers wait for it forever and so does this; past 2^34 cycles
-// (seconds; a stage is freed within microseconds) it traps, and the launch
-// fails with an error instead of hanging
-__device__ __forceinline__ void mbar_wait_or_trap(uint32_t bar, uint32_t parity) {
-  const long long t0 = clock64();
-  while (!mbar_try_wait(bar, parity)) {
-    if (clock64() - t0 > (1ll << 34)) __trap();
-  }
-}
-
-// box {64 columns, rows, 1} at (c0, c1, c2) of a 3-D tensor map into `dst`;
-// completes `bar`'s transaction bytes
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int c0, int c1,
-                                         int c2, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// 2^x on the special-function unit: no branches, so it can run while a
-// product is in flight (|rel err| < 2^-22, far below the 16-bit P)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// two f32 values rounded to the 16-bit type, the first in the low half
-template <typename T> __device__ __forceinline__ uint32_t pack2(float lo, float hi);
-template <> __device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-template <> __device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
-  __half2 h = __floats2half2_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
 
 // (a, b) as bf16 pairs hi + lo: lo is what rounding a and b to bf16 lost,
 // itself rounded, so hi + lo keeps about 16 bits of each
@@ -310,8 +234,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                              const __grid_constant__ CUtensorMap tm_k,
                              const __grid_constant__ CUtensorMap tm_v, T* __restrict__ out,
-                             int n_items, int BH, int Sq, int Skv, int dv, int dhp,
-                             float scale2, int causal) {
+                             float* __restrict__ lse, int n_items, int BH, int Sq, int Skv,
+                             int dv, int dhp, float scale2, int causal) {
   extern __shared__ uint8_t smem_raw[];
   const uint32_t q_s = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t k_bytes = BK * dhp * 2, stage_bytes = BK * (dhp + DVP) * 2;
@@ -484,6 +408,10 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
     for (int r = 0; r < 2; ++r) {
       const int row = it.q0 + row_lo + 8 * r;
       if (row >= Sq) continue;
+      // the natural log-sum-exp of the row, -1e30 when it has no valid key
+      if (lse && col0 == 0)
+        lse[static_cast<size_t>(it.bh) * Sq + row] =
+            m[r] <= kNegInf ? kNegInf : (m[r] + log2f(l[r])) * kLn2;
       T* orow = out + (static_cast<size_t>(it.bh) * Sq + row) * dv;
 #pragma unroll
       for (int j = 0; j < DVP / 8; ++j) {
@@ -496,66 +424,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-// cuTensorMapEncodeTiled, from the driver through the runtime
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                         &q) != cudaSuccess)
-      return nullptr;
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) !=
-        cudaSuccess)
-      return nullptr;
-#endif
-    if (q != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// (BH, rows, D) 16-bit tensor as 3-D tiles of {64 columns, box_rows rows,
-// one bh}, 128-byte swizzle, zeros past every edge
-bool tensor_map(CUtensorMap* map, const void* base, CUtensorMapDataType type, int D, int rows,
-                int BH, int box_rows) {
-  const EncodeTiled enc = encode_tiled();
-  if (!enc) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D),
-                              static_cast<cuuint64_t>(rows > 0 ? rows : 1),
-                              static_cast<cuuint64_t>(BH)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
-                                 static_cast<cuuint64_t>(D) * 2 * (rows > 0 ? rows : 1)};
-  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_rows), 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return enc(map, type, 3, const_cast<void*>(base), dims, strides, box, elem,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// SMs of the device that holds `p` (cached per device)
-int sm_count(const void* p) {
-  static int counts[64] = {0};
-  cudaPointerAttributes attr;
-  if (cudaPointerGetAttributes(&attr, p) != cudaSuccess || attr.device < 0 || attr.device >= 64)
-    return 0;
-  if (!counts[attr.device] &&
-      cudaDeviceGetAttribute(&counts[attr.device], cudaDevAttrMultiProcessorCount,
-                             attr.device) != cudaSuccess)
-    return 0;
-  return counts[attr.device];
-}
-
 template <typename T, int DVP, int BK, int STAGES>
-cudaError_t launch_t(const void* q, const void* k, const void* v, void* out, int n_items,
+cudaError_t launch_t(const void* q, const void* k, const void* v, void* out, float* lse,
+                     int n_items,
                      int BH, int Sq, int Skv, int dh, int dv, int dhp,
                      float scale2, int causal, cudaStream_t stream) {
   const CUtensorMapDataType type = std::is_same<T, __nv_bfloat16>::value
@@ -575,12 +446,13 @@ cudaError_t launch_t(const void* q, const void* k, const void* v, void* out, int
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return e;
   kernel<<<n_items < sms ? n_items : sms, kThreads, smem, stream>>>(
-      tm_q, tm_k, tm_v, static_cast<T*>(out), n_items, BH, Sq, Skv, dv, dhp, scale2, causal);
+      tm_q, tm_k, tm_v, static_cast<T*>(out), lse, n_items, BH, Sq, Skv, dv, dhp, scale2, causal);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_dv(const void* q, const void* k, const void* v, void* out, int n_items,
+cudaError_t launch_dv(const void* q, const void* k, const void* v, void* out, float* lse,
+                      int n_items,
                       int BH, int Sq, int Skv, int dh, int dv, float scale2,
                       int causal, cudaStream_t s) {
   const int dhp = (dh + 63) / 64 * 64, dvp = (dv + 63) / 64 * 64;
@@ -590,7 +462,7 @@ cudaError_t launch_dv(const void* q, const void* k, const void* v, void* out, in
   const int bk = dhp <= 128 && dvp <= 128 ? 128 : dvp == 256 ? 32 : 64;
   // a ring of three stages, two at dv 192 (three would pass 227 KB at dh 256)
 #define LAUNCH(DVP, BK)                                                                  \
-  launch_t<T, DVP, BK, DVP == 192 ? 2 : 3>(q, k, v, out, n_items, BH, Sq, Skv, dh, dv, dhp, \
+  launch_t<T, DVP, BK, DVP == 192 ? 2 : 3>(q, k, v, out, lse, n_items, BH, Sq, Skv, dh, dv, dhp, \
                                            scale2, causal, s)
   switch (dvp) {
     case 64: return bk == 128 ? LAUNCH(64, 128) : LAUNCH(64, 64);
@@ -606,12 +478,14 @@ cudaError_t launch_dv(const void* q, const void* k, const void* v, void* out, in
 extern "C" {
 
 // q (BH, Sq, dh), k (BH, Skv, dh), v (BH, Skv, dv), out (BH, Sq, dv), bf16 or
-// f16; dh, dv multiples of 8 in [8, 256]; every base 16-byte aligned.
+// f16; dh, dv multiples of 8 in [8, 256]; every base 16-byte aligned. lse:
+// null, or (BH, Sq) f32 for each row's log-sum-exp of scale q k^T over its
+// valid keys (-1e30 for a row with none), which the backward reads.
 // min(items, SMs) blocks walk the ceil(Sq / 128) * BH items. Returns the
 // launch's cudaGetLastError(), or cudaErrorInvalidValue if a tensor map
 // cannot be encoded.
 int flash_attention_wgmma_launch(const void* q, const void* k, const void* v, void* out,
-                                 int dtype, int BH, int Sq, int Skv, int dh, int dv,
+                                 float* lse, int dtype, int BH, int Sq, int Skv, int dh, int dv,
                                  float scale, int causal, void* stream) {
   const int n_items = (Sq + kBQ - 1) / kBQ * BH;
   if (n_items == 0 || dv == 0) return 0;
@@ -622,10 +496,10 @@ int flash_attention_wgmma_launch(const void* q, const void* k, const void* v, vo
   switch (dtype) {
     case kBF16:
       return static_cast<int>(
-          launch_dv<__nv_bfloat16>(q, k, v, out, n_items, BH, Sq, Skv, dh, dv, scale2, causal, s));
+          launch_dv<__nv_bfloat16>(q, k, v, out, lse, n_items, BH, Sq, Skv, dh, dv, scale2, causal, s));
     case kF16:
       return static_cast<int>(
-          launch_dv<__half>(q, k, v, out, n_items, BH, Sq, Skv, dh, dv, scale2, causal, s));
+          launch_dv<__half>(q, k, v, out, lse, n_items, BH, Sq, Skv, dh, dv, scale2, causal, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

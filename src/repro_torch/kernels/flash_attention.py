@@ -23,11 +23,26 @@ PyTorch version beside it:
   keys in flight per lane group, and writes its partial softmax state; a
   second kernel combines a row's partials.
 * :func:`flash_attention_bwd` is the gradient of :func:`flash_attention`
-  (``csrc/flash_attention_bwd.cu``, SIMT, f32 accumulation, no float
-  atomics). It replaces no Pallas kernel: JAX differentiates its jnp scan
+  (f32 accumulation, no float atomics, so two calls are bit-equal). It
+  replaces no Pallas kernel: JAX differentiates its jnp scan
   (``repro.models.layers.blockwise_attention``) with ``jax.grad``. On a CUDA
   tensor that requires grad, :func:`flash_attention` records the forward
-  kernel in a ``torch.autograd.Function`` whose backward launches it.
+  kernel in a ``torch.autograd.Function``; the forward then also writes
+  each query's log-sum-exp (:func:`flash_attention_lse`), and the backward
+  reads it instead of recomputing it. A prologue (``csrc/
+  flash_attention_bwd.cu``) forms Delta = rowsum(dO o O), then one of three
+  routes, chosen by :func:`_backward_route` from the dtype and head dims
+  alone, runs a dK/dV pass over key tiles and a dQ pass over query tiles:
+
+  - ``"wgmma"`` (``csrc/flash_attention_bwd_wgmma.cu``), bf16/f16 with dh
+    and dv multiples of 8 up to 128: every product on the tensor cores
+    (``wgmma``, TMA copies, P and dS rounded to the inputs' type);
+  - ``"tf32"`` (``csrc/flash_attention_bwd.cu``), f32 with the same widths:
+    every product on the tensor cores as 3xTF32 (``mma.sync``, each operand
+    split into a TF32 high part and its remainder, three products), operands
+    double-buffered through ``cp.async``;
+  - ``"simt"`` (``csrc/flash_attention_bwd.cu``), every other shape
+    (heads above 128, widths not multiples of 8): f32 SIMT arithmetic.
 
 Both compute the Pallas kernels' function, which differs from the oracles
 ``ref.flash_attention_ref`` / ``ref.flash_decode_ref`` only on a row with no
@@ -59,7 +74,12 @@ _DTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: kernel launches since the last :func:`reset_launches`, by kernel name;
 #: each route of :func:`flash_attention` counts under its own
 launches = {"flash_attention_wgmma": 0, "flash_attention_simt": 0,
-            "flash_attention_bwd": 0, "flash_decode": 0}
+            "flash_attention_bwd": 0, "flash_attention_bwd_wgmma": 0,
+            "flash_attention_bwd_tf32": 0, "flash_attention_bwd_simt": 0,
+            "flash_decode": 0}
+#: the backward's routes, as :func:`_backward_route` names them; each call
+#: counts under ``flash_attention_bwd`` and under its route's key
+BWD_ROUTES = ("wgmma", "tf32", "simt")
 
 
 def reset_launches() -> None:
@@ -73,8 +93,8 @@ def _lib():
     lib = _build.load("flash_attention")
     if not getattr(lib, "_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_attention_simt_launch.argtypes = [p, p, p, p, i, i, i, i, i,
-                                                    i, f, i, p]
+        lib.flash_attention_simt_launch.argtypes = [p, p, p, p, p, i, i, i, i,
+                                                    i, i, f, i, p]
         lib.flash_attention_simt_launch.restype = i
         lib.flash_decode_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
                                             i, i, i, f, p]
@@ -89,8 +109,8 @@ def _wgmma_lib():
     lib = _build.load("flash_attention_wgmma")
     if not getattr(lib, "_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_attention_wgmma_launch.argtypes = [p, p, p, p, i, i, i, i, i,
-                                                     i, f, i, p]
+        lib.flash_attention_wgmma_launch.argtypes = [p, p, p, p, p, i, i, i, i,
+                                                     i, i, f, i, p]
         lib.flash_attention_wgmma_launch.restype = i
         lib._typed = True
     return lib
@@ -102,9 +122,25 @@ def _bwd_lib():
     lib = _build.load("flash_attention_bwd")
     if not getattr(lib, "_typed", False):
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.flash_attention_bwd_launch.argtypes = [p] * 9 + [i] * 6 + [f, i,
-                                                                       p]
+        lib.flash_attention_bwd_prologue.argtypes = ([p] * 6 + [i] * 7
+                                                     + [f, i, p])
+        lib.flash_attention_bwd_prologue.restype = i
+        lib.flash_attention_bwd_launch.argtypes = ([p] * 9 + [i] * 6
+                                                   + [f, i, i, p])
         lib.flash_attention_bwd_launch.restype = i
+        lib._typed = True
+    return lib
+
+
+def _bwd_wgmma_lib():
+    from repro_torch.kernels import _build
+
+    lib = _build.load("flash_attention_bwd_wgmma")
+    if not getattr(lib, "_typed", False):
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.flash_attention_bwd_wgmma_launch.argtypes = ([p] * 9 + [i] * 6
+                                                         + [f, i, p])
+        lib.flash_attention_bwd_wgmma_launch.restype = i
         lib._typed = True
     return lib
 
@@ -148,6 +184,19 @@ def _attention_route(dtype: torch.dtype, dh: int, dv: int) -> str:
     return "simt"
 
 
+def _backward_route(dtype: torch.dtype, dh: int, dv: int) -> str:
+    """Which backward kernel runs a CUDA call, from the dtype and head dims
+    alone: with dh and dv multiples of 8 in [8, 128], ``"wgmma"`` for bf16
+    and f16 and ``"tf32"`` (3xTF32 tensor-core products) for f32; every other
+    shape ``"simt"``."""
+    if all(0 < d <= 128 and d % 8 == 0 for d in (dh, dv)):
+        if dtype in (torch.bfloat16, torch.float16):
+            return "wgmma"
+        if dtype == torch.float32:
+            return "tf32"
+    return "simt"
+
+
 def _valid(sq: int, skv: int, causal: bool, device) -> torch.Tensor:
     """(Sq, Skv) bool: key j is valid for query i (bottom-right causal)."""
     if not causal:
@@ -160,11 +209,24 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True,
                           sm_scale: float | None = None) -> torch.Tensor:
     """The plain PyTorch version of :func:`flash_attention`."""
+    return flash_attention_lse_plain(q, k, v, causal=causal,
+                                     sm_scale=sm_scale)[0]
+
+
+def flash_attention_lse_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, *, causal: bool = True,
+                              sm_scale: float | None = None):
+    """The plain PyTorch version of :func:`flash_attention_lse`: (out, lse),
+    lse (B, H, Sq) f32 = m + log(max(l, 1e-30)) of the scaled scores over
+    the valid keys (``NEG_INF`` for a row with none)."""
     sq, dh = q.shape[2], q.shape[3]
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
     s *= _scale(sm_scale, dh)
-    p, l = _weights(s, _valid(sq, k.shape[2], causal, q.device))
-    return (torch.matmul(p, v.float()) / l).to(q.dtype)
+    valid = _valid(sq, k.shape[2], causal, q.device)
+    p, l = _weights(s, valid)
+    m = s.masked_fill(~valid, NEG_INF).amax(-1, keepdim=True)
+    out = (torch.matmul(p, v.float()) / l).to(q.dtype)
+    return out, (m + torch.log(l)).squeeze(-1)
 
 
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
@@ -200,12 +262,15 @@ def _check_shapes(name: str, q, k, v):
     return b, h, sq, skv, dh, dv
 
 
-def _forward_card(q, k, v, causal: bool, scale: float) -> torch.Tensor:
-    """The forward kernel on CUDA tensors checked by the caller."""
+def _forward_card(q, k, v, causal: bool, scale: float,
+                  lse: torch.Tensor | None = None) -> torch.Tensor:
+    """The forward kernel on CUDA tensors checked by the caller; with
+    ``lse`` ((B, H, Sq) f32) it also writes each row's log-sum-exp."""
     b, h, sq, dh = q.shape
     skv, dv = k.shape[2], v.shape[3]
     out = torch.empty((b, h, sq, dv), dtype=q.dtype, device=q.device)
     route = _attention_route(q.dtype, dh, dv)
+    lse_p = None if lse is None else lse.data_ptr()
     with _on(q):
         stream = _stream(q)
         if route == "wgmma":
@@ -214,53 +279,83 @@ def _forward_card(q, k, v, causal: bool, scale: float) -> torch.Tensor:
                                  "16-byte aligned q, k, v")
             err = _wgmma_lib().flash_attention_wgmma_launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                _DTYPE[q.dtype], b * h, sq, skv, dh, dv, scale, int(causal),
-                stream)
+                lse_p, _DTYPE[q.dtype], b * h, sq, skv, dh, dv, scale,
+                int(causal), stream)
         else:
             err = _lib().flash_attention_simt_launch(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                _DTYPE[q.dtype], b * h, sq, skv, dh, dv, scale, int(causal),
-                stream)
+                lse_p, _DTYPE[q.dtype], b * h, sq, skv, dh, dv, scale,
+                int(causal), stream)
     _raise_on("flash_attention", err)
     launches[f"flash_attention_{route}"] += 1
     return out
 
 
-def _backward_card(q, k, v, out, dout, causal: bool, scale: float):
-    """The backward kernel on CUDA tensors checked by the caller: (dq, dk,
-    dv), one counted launch (three kernels)."""
+def _backward_card(q, k, v, out, dout, causal: bool, scale: float,
+                   lse: torch.Tensor | None = None, route: str | None = None):
+    """The backward on CUDA tensors checked by the caller: (dq, dk, dv), one
+    counted launch (the prologue and the route's two passes). ``lse`` is the
+    forward's (B, H, Sq) f32 log-sum-exp; without it the prologue
+    recomputes it. ``route`` overrides :func:`_backward_route` to time one
+    route against another on the same inputs; the kernel refuses a shape
+    its route does not take."""
     b, h, sq, dh = q.shape
     skv, dv = k.shape[2], v.shape[3]
+    route = route or _backward_route(q.dtype, dh, dv)
     dq, dk, dvt = (torch.empty_like(t) for t in (q, k, v))
-    # each query's log-sum-exp, then Delta = rowsum(dout o out), in f32
-    work = torch.empty(2 * b * h * sq, dtype=torch.float32, device=q.device)
+    if route != "simt" and any(t.data_ptr() % 16 for t in
+                               (q, k, v, dout, dq, dk, dvt)):
+        raise ValueError(f"flash_attention_bwd: the {route} route needs "
+                         "16-byte aligned q, k, v, dout")
+    # Delta = rowsum(dout o out), then (without the forward's) each query's
+    # log-sum-exp, in f32
+    n = b * h * sq
+    work = torch.empty((1 if lse is not None else 2) * n, dtype=torch.float32,
+                       device=q.device)
+    lse_p = lse.data_ptr() if lse is not None else work.data_ptr() + 4 * n
+    delta_p = work.data_ptr()
+    dims = (_DTYPE[q.dtype], b * h, sq, skv, dh, dv, scale, int(causal))
     with _on(q):
-        err = _bwd_lib().flash_attention_bwd_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dvt.data_ptr(),
-            work.data_ptr(), _DTYPE[q.dtype], b * h, sq, skv, dh, dv, scale,
-            int(causal), _stream(q))
+        stream = _stream(q)
+        lib = _bwd_lib()
+        err = lib.flash_attention_bwd_prologue(
+            q.data_ptr(), k.data_ptr(), out.data_ptr(), dout.data_ptr(), lse_p,
+            delta_p, int(lse is not None), *dims, stream)
+        if err == 0:
+            ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+                    dq.data_ptr(), dk.data_ptr(), dvt.data_ptr(), lse_p,
+                    delta_p)
+            if route == "wgmma":
+                err = _bwd_wgmma_lib().flash_attention_bwd_wgmma_launch(
+                    *ptrs, *dims, stream)
+            else:
+                err = lib.flash_attention_bwd_launch(
+                    *ptrs, *dims, int(route == "tf32"), stream)
     _raise_on("flash_attention_bwd", err)
     launches["flash_attention_bwd"] += 1
+    launches[f"flash_attention_bwd_{route}"] += 1
     return dq, dk, dvt
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The forward kernel, differentiated by the backward kernel."""
+    """The forward kernel, which also writes each row's log-sum-exp,
+    differentiated by the backward kernel."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale: float):
-        out = _forward_card(q, k, v, causal, scale)
-        ctx.save_for_backward(q, k, v, out)
+        b, h, sq = q.shape[:3]
+        lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+        out = _forward_card(q, k, v, causal, scale, lse)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.scale = causal, scale
         return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = _backward_card(q, k, v, out, dout.contiguous(),
-                                    ctx.causal, ctx.scale)
+                                    ctx.causal, ctx.scale, lse)
         return dq, dk, dv, None, None
 
 
@@ -286,14 +381,32 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return _forward_card(q, k, v, causal, scale)
 
 
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, sm_scale: float | None = None):
+    """:func:`flash_attention` that also returns each row's log-sum-exp:
+    (out, lse), lse (B, H, Sq) f32 over the valid keys of the scaled scores
+    (``NEG_INF`` for a row with none), as the autograd forward saves it for
+    the backward. Not differentiable; one counted forward launch."""
+    b, h, sq = _check_shapes("flash_attention_lse", q, k, v)[:3]
+    scale = _scale(sm_scale, q.shape[3])
+    if q.device.type == "cpu":
+        return flash_attention_lse_plain(q, k, v, causal=causal,
+                                         sm_scale=scale)
+    _refuse_grad("flash_attention_lse", q, k, v)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    return _forward_card(q, k, v, causal, scale, lse), lse
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, dout: torch.Tensor, *,
-                        causal: bool = True,
-                        sm_scale: float | None = None):
+                        causal: bool = True, sm_scale: float | None = None,
+                        lse: torch.Tensor | None = None):
     """The gradient of :func:`flash_attention`: q, k, v as there, ``out`` its
     output and ``dout`` the cotangent of ``out`` (both (B, H, Sq, dv), the
     inputs' dtype) -> (dq, dk, dv) in the inputs' dtype. A query with no
-    valid key gets a zero dq and adds nothing to dk and dv."""
+    valid key gets a zero dq and adds nothing to dk and dv. ``lse``, the
+    forward's (B, H, Sq) f32 log-sum-exp (:func:`flash_attention_lse`),
+    spares the kernel recomputing it; the plain version does not read it."""
     b, h, sq, skv, dh, dv = _check_shapes("flash_attention_bwd", q, k, v)
     for name, t in (("out", out), ("dout", dout)):
         if t.shape != (b, h, sq, dv) or t.dtype != q.dtype:
@@ -301,11 +414,18 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"{tuple(t.shape)} {t.dtype}, want "
                              f"{(b, h, sq, dv)} {q.dtype}")
     _check_layout("flash_attention_bwd", q, out, dout)
+    if lse is not None and (lse.shape != (b, h, sq)
+                            or lse.dtype != torch.float32
+                            or lse.device != q.device
+                            or not lse.is_contiguous()):
+        raise ValueError(f"flash_attention_bwd: lse is {tuple(lse.shape)} "
+                         f"{lse.dtype} on {lse.device}, want a contiguous "
+                         f"{(b, h, sq)} float32 beside q")
     scale = _scale(sm_scale, dh)
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, dout, causal=causal,
                                          sm_scale=scale)
-    return _backward_card(q, k, v, out, dout, causal, scale)
+    return _backward_card(q, k, v, out, dout, causal, scale, lse)
 
 
 # --------------------------------------------------------------------------

@@ -215,10 +215,13 @@ def test_card_routes_refuse_autograd(monkeypatch):
     q, k, v = (torch.from_numpy(_normal(rng, 1, 2, 5, 8)).requires_grad_()
                for _ in range(3))
     tops.flash_attention(q, k, v).sum().backward()
-    monkeypatch.setattr(tfa, "_forward_card", lambda q, k, v, c, s:
+    # the autograd forward also hands the card a log-sum-exp buffer, and
+    # its backward reads it back
+    monkeypatch.setattr(tfa, "_forward_card", lambda q, k, v, c, s, lse=None:
                         tfa.flash_attention_plain(q, k, v, causal=c,
                                                   sm_scale=s))
-    monkeypatch.setattr(tfa, "_backward_card", lambda q, k, v, o, do, c, s:
+    monkeypatch.setattr(tfa, "_backward_card",
+                        lambda q, k, v, o, do, c, s, lse=None:
                         tfa.flash_attention_bwd_plain(q, k, v, o, do, causal=c,
                                                       sm_scale=s))
     qc, kc, vc = (t.detach().clone().requires_grad_() for t in (q, k, v))

@@ -608,43 +608,95 @@ BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 2e-3}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,h,sq,skv,dh,dv,causal,dtype", [
-    (64, 6, 256, 256, 64, 64, True, torch.float32),    # d's training layer
-    (4, 32, 256, 256, 128, 128, True, torch.bfloat16),  # D's layer
-    (2, 3, 37, 100, 64, 64, False, torch.float32),     # non-causal
-    (2, 3, 37, 100, 64, 64, True, torch.bfloat16),     # Sq < Skv causal
-    (2, 2, 100, 37, 64, 64, True, torch.float32),      # Sq > Skv: empty rows
-    (1, 2, 70, 70, 48, 32, True, torch.float32),       # dv != dh
-    (1, 2, 70, 90, 192, 128, True, torch.bfloat16),    # MLA widths, 32-tiles
-    (1, 2, 50, 80, 256, 256, False, torch.float16),    # widest head
-    (2, 2, 65, 65, 128, 128, True, torch.float16),
-    (1, 3, 33, 47, 20, 20, True, torch.bfloat16),      # head of 20: scalar loads
+@pytest.mark.parametrize("b,h,sq,skv,dh,dv,causal,dtype,route", [
+    (64, 6, 256, 256, 64, 64, True, torch.float32, "tf32"),  # d's layer
+    (4, 32, 256, 256, 128, 128, True, torch.bfloat16, "wgmma"),  # D's layer
+    (2, 3, 37, 100, 64, 64, False, torch.float32, "tf32"),   # non-causal
+    (2, 3, 37, 100, 64, 64, True, torch.bfloat16, "wgmma"),  # Sq < Skv causal
+    (2, 2, 100, 37, 64, 64, True, torch.float32, "tf32"),    # Sq > Skv: empty rows
+    (1, 2, 70, 70, 48, 32, True, torch.float32, "tf32"),     # dv != dh, padded
+    (1, 2, 70, 90, 192, 128, True, torch.bfloat16, "simt"),  # MLA widths, 32-tiles
+    (1, 2, 50, 80, 256, 256, False, torch.float16, "simt"),  # widest head
+    (2, 2, 65, 65, 128, 128, True, torch.float16, "wgmma"),
+    (1, 3, 33, 47, 20, 20, True, torch.bfloat16, "simt"),    # head of 20: scalar loads
+    # the new routes' tile edges: Sq, Skv past a tile; Sq > Skv causal
+    (1, 2, 130, 75, 128, 128, True, torch.float32, "tf32"),  # 32-row other tiles
+    (1, 2, 67, 131, 96, 64, False, torch.float32, "tf32"),   # dh != dv, both padded
+    (1, 2, 77, 61, 32, 128, True, torch.float32, "tf32"),    # a wide dv only
+    (2, 2, 150, 90, 64, 64, True, torch.bfloat16, "wgmma"),  # Sq > Skv
+    (1, 3, 200, 333, 40, 24, True, torch.float16, "wgmma"),  # widths padded to 64
+    (1, 2, 129, 129, 128, 64, False, torch.bfloat16, "wgmma"),  # one past a tile
+    # shapes the new routes leave to the SIMT kernel
+    (1, 2, 45, 61, 20, 12, True, torch.float32, "simt"),     # not multiples of 8
+    (1, 2, 40, 40, 160, 64, True, torch.float32, "simt"),    # head above 128
 ])
 def test_attention_backward_kernel_vs_plain(dev, b, h, sq, skv, dh, dv,
-                                            causal, dtype):
+                                            causal, dtype, route):
+    """Each route against the plain version, with the forward's log-sum-exp
+    (as autograd runs it) and without it (the prologue recomputes it);
+    counted once under the total and once under its route; bit-equal on a
+    second call."""
+    assert flash_attention._backward_route(dtype, dh, dv) == route
     g = torch.Generator(device=dev).manual_seed(sq + skv + dh)
     q, k, v = (torch.randn(*s, generator=g, device=dev).to(dtype) for s in
                ((b, h, sq, dh), (b, h, skv, dh), (b, h, skv, dv)))
     dout = torch.randn(b, h, sq, dv, generator=g, device=dev).to(dtype)
     with torch.inference_mode():
-        out = ops.flash_attention(q, k, v, causal=causal)
-    before = flash_attention.launches["flash_attention_bwd"]
-    got = flash_attention.flash_attention_bwd(q, k, v, out, dout,
-                                              causal=causal)
-    torch.cuda.synchronize()
-    assert flash_attention.launches["flash_attention_bwd"] == before + 1
+        out, lse = flash_attention.flash_attention_lse(q, k, v, causal=causal)
     want = flash_attention.flash_attention_bwd_plain(q, k, v, out, dout,
                                                      causal=causal)
-    for x, w in zip(got, want):
-        assert x.dtype == dtype and x.shape == w.shape
-        assert torch.isfinite(x.float()).all()
-        err = (x.float() - w.float()).abs().max()
-        assert err <= BWD_TOL[dtype] * w.float().abs().max(), err
+    key = f"flash_attention_bwd_{route}"
+    for given in (lse, None):
+        before = dict(flash_attention.launches)
+        got = flash_attention.flash_attention_bwd(q, k, v, out, dout,
+                                                  causal=causal, lse=given)
+        torch.cuda.synchronize()
+        after = flash_attention.launches
+        assert after["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+        assert after[key] == before[key] + 1
+        assert sum(after[f"flash_attention_bwd_{r}"] for r in
+                   flash_attention.BWD_ROUTES) == sum(
+            before[f"flash_attention_bwd_{r}"] for r in
+            flash_attention.BWD_ROUTES) + 1
+        for x, w in zip(got, want):
+            assert x.dtype == dtype and x.shape == w.shape
+            assert torch.isfinite(x.float()).all()
+            err = (x.float() - w.float()).abs().max()
+            assert err <= BWD_TOL[dtype] * w.float().abs().max(), (given is None,
+                                                                    err)
+        if causal and sq > skv:
+            assert (got[0][:, :, : sq - skv] == 0).all()
+        again = flash_attention.flash_attention_bwd(q, k, v, out, dout,
+                                                    causal=causal, lse=given)
+        assert all(torch.equal(x, y) for x, y in zip(got, again))  # no atomics
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,sq,skv,dh,dv,causal,dtype", [
+    (2, 6, 256, 256, 64, 64, True, torch.float32),     # SIMT forward
+    (1, 4, 256, 256, 128, 128, True, torch.bfloat16),  # wgmma forward
+    (1, 2, 100, 37, 64, 48, True, torch.float16),      # empty rows
+    (1, 2, 37, 100, 24, 24, False, torch.float32),
+    (1, 2, 90, 70, 20, 20, True, torch.bfloat16),      # 16-bit on SIMT
+])
+def test_forward_lse_kernel_vs_plain(dev, b, h, sq, skv, dh, dv, causal,
+                                     dtype):
+    """The log-sum-exp the forward writes for the backward against the plain
+    version's; the output it returns beside it is the inference forward's,
+    bit for bit."""
+    g = torch.Generator(device=dev).manual_seed(sq * skv + dh)
+    q, k, v = (torch.randn(*s, generator=g, device=dev).to(dtype) for s in
+               ((b, h, sq, dh), (b, h, skv, dh), (b, h, skv, dv)))
+    with torch.inference_mode():
+        out, lse = flash_attention.flash_attention_lse(q, k, v, causal=causal)
+        plain = ops.flash_attention(q, k, v, causal=causal)
+    _, want = flash_attention.flash_attention_lse_plain(q, k, v,
+                                                        causal=causal)
+    assert lse.dtype == torch.float32 and lse.shape == (b, h, sq)
+    assert torch.equal(out, plain)
+    torch.testing.assert_close(lse, want, atol=2e-4, rtol=1e-5)
     if causal and sq > skv:
-        assert (got[0][:, :, : sq - skv] == 0).all()
-    again = flash_attention.flash_attention_bwd(q, k, v, out, dout,
-                                                causal=causal)
-    assert all(torch.equal(x, y) for x, y in zip(got, again))  # no atomics
+        assert (lse[:, :, : sq - skv] == flash_attention.NEG_INF).all()
 
 
 @pytest.mark.cuda
