@@ -31,8 +31,11 @@ Phases (any failure exits nonzero and prints no result line):
    version at the JAX sweep shapes and the edge cases, then once at the
    full widths of the configurations it serves (sfr-mistral-7b and
    bge-micro-like attention layers, decode at a 32k cache at batch 8 and,
-   full, at batch 1, DIN's bag), with
-   times beside the bound, the plain version and the library call; the
+   full, at batch 1; qwen3-0.6b's grouped cache, 16 query heads over 8 kv
+   heads, at batch 8, also as MQA and in f32, lengths 1, S and one inside a
+   split; DIN's bag), with
+   times beside the bound, the plain version and the library call (SDPA
+   with ``enable_gqa`` on a grouped cache); the
    16-bit attention rows must launch the tensor-core route, the f32 rows the
    SIMT one. The bag is also checked at every row width and dtype, with its
    bags split over several warps and not, on tables whose base is not
@@ -98,18 +101,40 @@ Phases (any failure exits nonzero and prints no result line):
    memory; the losses finite and falling (mean of the last 5 below the
    first 5); then 4 steps at ``grad_accum=2`` against a ``grad_accum=1``
    run of the two halves' mean loss (InfoNCE's negatives are in-batch, so
-   a micro-batch's loss is its own); after the path, the backward kernel
+   a micro-batch's loss is its own); a second uninterrupted run bit-equal
+   to the first, and a run checkpointed every 15 steps and killed at step
+   20 before its final save, whose async checkpoint of step 15 a fresh
+   ``Trainer`` resumes (the step and the data cursor) to 30, its losses 16-30
+   and its params, master copy and moments bit-equal, with the save's
+   time beside the step's; after the path, the backward kernel
    against its plain version at d's and D's layer shapes and the edges
    (non-causal Sq < Skv, Sq > Skv with empty rows, dv != dh, f16, 32-row
    tiles, each route's tile edges, heads left to the SIMT kernel), each on
    the route ``_backward_route`` picks, given the forward's log-sum-exp;
    the two layers timed (eager, graph replay, the profiler's split) beside
    the bound of the route's operations, the SIMT kernel on the same
-   inputs, the plain version and SDPA's backward timed alone.
+   inputs, the plain version and SDPA's backward timed alone;
+12. the LM path, ``qwen3_0_6b.full()`` at full width from a seed: (a)
+   ``prefill`` of 8 prompts of 32,704 tokens into a 32,768 cache and 64
+   greedy ``decode_step``s that fill it (``flash_decode`` on the grouped
+   cache, 28 launches a step), the first and last step's logits against
+   the forward's on the same tokens, one step under
+   ``set_sync_debug_mode("error")``, prefill s, ms a step beside its byte
+   bound, tokens/s, peak memory and a traced step; (b) a copy cut to 2
+   layers decoded on the card and on the CPU; (c) ``launch/train.py``'s
+   path, ``loss_fn`` under the ``Trainer`` at batch 2 and seq 4,096 (two
+   chunks of the cross entropy; the backward on the wgmma route), 12
+   steps, then again with checkpoints, killed after the launcher's async
+   one at step 10 and before its final save, and resumed from it through
+   the launcher, bit-equal;
+13. ``launch/train_biencoder.main`` at ``--scale 100m``, 10 steps, then 20
+   on the same checkpoint directory (it must resume from step 10), its
+   search launching the gather and the merge; recall@10 under the teacher.
 
-Phases 6, 8 and 9 run under ``torch.inference_mode()`` (serving records
-no autograd graph); ``flash_decode`` and ``embedding_bag`` have no backward
-and refuse an input that requires grad.
+Phases 6, 8, 9 and 12's decoding run under ``torch.inference_mode()``
+(serving records no autograd graph); ``flash_decode`` and
+``embedding_bag`` have no backward and refuse an input that requires
+grad.
 
 Ends with a JSON line of every ported kernel and the result line
 ``{"ok": true, "device": {...}}``. Needs one CUDA device; imports no JAX.
@@ -956,6 +981,16 @@ DECODE_CHECKS = [
     (3, 2, 1000, 128, 128, BF16, (0, 1, 1000)),
     (3, 2, 333, 192, 128, BF16, (0, 1, 333)),
 ]
+# grouped caches (B, H, Hkv, S, dh, dv, dtype, lengths): GQA and MQA, on the
+# vector path (qwen3-0.6b's 16 over 8 heads of 128; rows of 24/40) and the
+# scalar one (18/30), each at a length per row that includes 1 and S
+DECODE_GQA_CHECKS = [
+    (3, 16, 8, 1000, 128, 128, BF16, (1, 517, 1000)),
+    (2, 8, 1, 333, 64, 64, F32, (333, 1)),
+    (3, 6, 2, 200, 24, 40, F16, (1, 77, 200)),
+    (2, 4, 2, 100, 18, 30, F32, (100, 1)),
+    (2, 12, 3, 300, 128, 128, F16, None),
+]
 # the split-KV grid's edges (B, H, S, dh, dv, dtype): each row of a case
 # takes one of the lengths 0, 1, chunk - 1, chunk, chunk + 1, S and past S
 # (decode_split's chunk for S and B*H); S below one chunk and S no multiple
@@ -1007,10 +1042,12 @@ def _attn_inputs(g, dev, b, h, sq, skv, dh, dv, dtype):
             for s in ((b, h, sq, dh), (b, h, skv, dh), (b, h, skv, dv))]
 
 
-def _decode_inputs(g, dev, b, h, s, dh, dv, dtype):
+def _decode_inputs(g, dev, b, h, s, dh, dv, dtype, hkv=None):
+    """q (B, H, dh) and a cache of ``hkv`` (default H) kv heads."""
+    hkv = h if hkv is None else hkv
     return (torch.randn(b, h, dh, generator=g, device=dev, dtype=dtype),
-            torch.randn(b, s, h, dh, generator=g, device=dev, dtype=dtype),
-            torch.randn(b, s, h, dv, generator=g, device=dev, dtype=dtype))
+            torch.randn(b, s, hkv, dh, generator=g, device=dev, dtype=dtype),
+            torch.randn(b, s, hkv, dv, generator=g, device=dev, dtype=dtype))
 
 
 def _bag_ids(g, dev, v, b, l):
@@ -1049,16 +1086,22 @@ def check_off_path(dev, big_v):
         if causal and sq > skv:
             require(bool((got[:, :, : sq - skv] == 0).all()),
                     f"{what}: empty rows are not 0")
-    for b, h, s, dh, dv, dt, lens in DECODE_CHECKS:
-        q, k, v = _decode_inputs(g, dev, b, h, s, dh, dv, dt)
+    for b, h, hkv, s, dh, dv, dt, lens in (
+            [(b, h, h, s, dh, dv, dt, lens)
+             for b, h, s, dh, dv, dt, lens in DECODE_CHECKS]
+            + DECODE_GQA_CHECKS):
+        q, k, v = _decode_inputs(g, dev, b, h, s, dh, dv, dt, hkv)
         length = (torch.randint(1, s + 1, (b,), generator=g, device=dev)
                   if lens is None else torch.tensor(lens, device=dev))
+        before = fa.launches["flash_decode"]
         got = ops.flash_decode(q, k, v, length=length)
         want = fa.flash_decode_plain(q, k, v, length=length)
-        what = f"flash_decode {(b, h, s, dh, dv, dt, lens)}"
+        what = f"flash_decode {(b, h, hkv, s, dh, dv, dt, lens)}"
+        require(dev.type != "cuda" or fa.launches["flash_decode"] == before + 1,
+                f"{what}: not one launch per call")
         errs["flash_decode"] = max(errs["flash_decode"], _agree(
             got, want, ATTN_TOL[dt], what))
-        if lens is not None:
+        if lens is not None and lens[0] == 0:
             require(bool((got[0] == 0).all()), f"{what}: length 0 is not 0")
     for b, h, s, dh, dv, dt in DECODE_EDGES:
         q, k, v = _decode_inputs(g, dev, b, h, s, dh, dv, dt)
@@ -1149,31 +1192,43 @@ def off_path(dev, sizes, rehearse):
                 q, k, v, is_causal=True),
             library_name="F.scaled_dot_product_attention(is_causal=True)",
             tol=MAIN_TOL[dt]))
-    for role, b, h, s, d, dt, full in sizes["decode"]:
-        q, k, v = _decode_inputs(g, dev, b, h, s, d, d, dt)
-        length = (torch.full((b,), s, device=dev, dtype=torch.int32) if full
-                  else torch.randint(1, s + 1, (b,), generator=g, device=dev,
-                                     dtype=torch.int32))
+    # the grouped rows draw from a generator of their own, so that every
+    # other row's inputs are the ones before grouped caches
+    g_gqa = torch.Generator(device=dev).manual_seed(18)
+    for role, b, h, hkv, s, d, dt, lengths in sizes["decode"]:
+        gen = g if hkv == h else g_gqa
+        q, k, v = _decode_inputs(gen, dev, b, h, s, d, d, dt, hkv)
+        # "full": every key; a tuple: those lengths, then seeded in [1, S]
+        length = (torch.full((b,), s, device=dev, dtype=torch.int32)
+                  if lengths == "full" else
+                  torch.randint(1, s + 1, (b,), generator=gen, device=dev,
+                                dtype=torch.int32))
+        if isinstance(lengths, tuple):
+            length[:len(lengths)] = torch.tensor(lengths, device=dev)
         valid = int(length.sum())
         item = q.element_size()
         mask = (torch.arange(s, device=dev)[None, :] < length[:, None])[
             :, None, None]
+        # the yardstick's layout, (B, Hkv, S, d), made outside its timing
         kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+        gqa = {"enable_gqa": True} if hkv != h else {}
         cases.append(dict(
             kernel="flash_decode", role=role, shape=dict(
-                B=b, H=h, S=s, dh=d, dv=d, dtype=str(dt), valid_keys=valid,
+                B=b, H=h, Hkv=hkv, S=s, dh=d, dv=d, dtype=str(dt),
+                valid_keys=valid, lengths=length.tolist() if b <= 8 else None,
                 chunk=fa.decode_split(s, b * h)[0]),
-            bound=bound(item * (valid * h * 2 * d + 2 * b * h * d) + 4 * b,
+            # the valid cache read once (each kv head once), q and out
+            bound=bound(item * (valid * hkv * 2 * d + 2 * b * h * d) + 4 * b,
                         2 * 2 * d * h * valid, _ops_rate(dt)),
             run=lambda q=q, k=k, v=v, n=length: ops.flash_decode(
                 q, k, v, length=n),
             plain=lambda q=q, k=k, v=v, n=length: fa.flash_decode_plain(
                 q, k, v, length=n),
-            library=lambda q=q, kt=kt, vt=vt, mask=mask:
+            library=lambda q=q, kt=kt, vt=vt, mask=mask, gqa=gqa:
                 F.scaled_dot_product_attention(
-                    q[:, :, None], kt, vt, attn_mask=mask)[:, :, 0],
+                    q[:, :, None], kt, vt, attn_mask=mask, **gqa)[:, :, 0],
             library_name="F.scaled_dot_product_attention, (B, 1, 1, S) bool "
-                         "mask",
+                         "mask" + (", enable_gqa=True" if gqa else ""),
             tol=MAIN_TOL[dt]))
     v_rows, d = sizes["bag_table"]
     table = torch.randn(v_rows, d, generator=g, device=dev)
@@ -1817,7 +1872,7 @@ def profile_batch(fn):
         if not us or ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         name = ev.key.lower()
-        kind = ("attention" if "flash_attention" in name else "products"
+        kind = ("attention" if "flash_" in name else "products"
                 if any(w in name for w in ("nvjet", "gemm", "xmma", "cutlass",
                                            "cublas")) else "other")
         kinds[kind] += us / 1e3
@@ -3115,7 +3170,414 @@ def train_slice(dev, sizes, rehearse):
     require(param_err <= 2 * opt.lr * steps_n and off_frac <= 1e-2,
             f"grad_accum=2 params off by {param_err:.3e} ({off_frac:.4f} "
             "of the elements past lr * steps / 10)")
-    del tr, model, accum, p1, p2
+    del accum, p1, p2
+
+    # a second uninterrupted run, then a run killed after its async
+    # checkpoint and resumed by a fresh Trainer: both bit-equal to the first
+    def make_trainer(ckpt_dir):
+        return trainer.Trainer(loss_fn, model, opt, trainer.TrainerConfig(
+            total_steps=tz["steps"], ckpt_dir=ckpt_dir,
+            ckpt_every=tz["steps"] // 2, log_every=100), device=dev)
+
+    def make_iter(state=None):
+        if state is None:
+            return DeterministicIterator(make, seed=tz["seed"], device=dev)
+        return DeterministicIterator.from_state(make, state, device=dev)
+
+    stop = tz["steps"] // 2
+    out["resume"] = check_resume(make_trainer, make_iter, tr, losses, stop,
+                                 stop + max(1, stop // 3), "phase 11")
+    out["resume"]["step_ms"] = out["step_ms_median_last20"]
+    log(f"  resume: {json.dumps(out['resume'])}")
+    del tr, model
+    return out
+
+
+def same_state(a, b, what):
+    """Two trainers' params, optimizer state (step, f32 master, moments) and
+    error feedback, bit for bit."""
+    from repro_torch.checkpoint.manager import flatten
+
+    sa, sb = flatten(a._tree()), flatten(b._tree())
+    require(sa.keys() == sb.keys(), f"{what}: the states' leaves differ")
+    diff = [p for p in sa if not torch.equal(sa[p], sb[p])]
+    require(not diff, f"{what}: {len(diff)} of {len(sa)} tensors differ, "
+            f"first {diff[:4]}")
+    return len(sa)
+
+
+def drop_final_save(manager, stop, past, what):
+    """Leave on disk what a job killed between its async checkpoint at
+    ``stop`` and step ``past`` leaves: the final synchronous save at
+    ``past``, which that job would not have written, is removed, so a
+    resume reads the checkpoint that the worker thread wrote while the
+    next steps updated the tensors in place."""
+    import shutil
+
+    steps = manager.all_steps()
+    require(steps == [stop, past],
+            f"{what}: checkpoints at {steps}, not [{stop}, {past}]")
+    shutil.rmtree(Path(manager.directory) / f"step_{past:08d}")
+
+
+def check_resume(make_trainer, make_iter, ref, ref_losses, stop, past, what):
+    """Against ``ref``, a Trainer run uninterrupted to the end, from
+    ``make_trainer(None)``'s start: (1) a second uninterrupted run, bit for
+    bit; (2) a run with a checkpoint directory (``ckpt_every=stop``) taken
+    on to ``past``, killed there as if before its final save, and a fresh
+    Trainer that restores the async checkpoint at ``stop`` and the data
+    cursor and runs to the end: its losses after ``stop``, its params,
+    master copy and moments bit-equal. Returns the save's and the
+    restore's seconds."""
+    import tempfile
+
+    again = make_trainer(None)
+    r = again.run(make_iter(), log=None)
+    require(r["losses"] == ref_losses,
+            f"{what}: two uninterrupted runs' losses differ")
+    n = same_state(again, ref, f"{what}: two uninterrupted runs")
+    del again
+    out = dict(stop=stop, past=past, tensors=n)
+    with tempfile.TemporaryDirectory() as d:
+        first = make_trainer(d)
+        it = make_iter()
+        first.run(it, steps=past, data_state_fn=it.state, log=None)
+        out.update({f"save_{k}": v for k, v in first.manager.timings.items()})
+        drop_final_save(first.manager, stop, past, what)
+        del first, it
+        fresh = make_trainer(d)
+        t0 = time.perf_counter()
+        state = fresh.maybe_restore(make_iter().state())
+        out["restore_s"] = time.perf_counter() - t0
+        require(fresh.step == stop, f"{what}: restored step {fresh.step}")
+        r = fresh.run(make_iter(state), log=None)
+        require(r["losses"] == ref_losses[stop:],
+                f"{what}: the resumed losses {r['losses']} differ from "
+                f"{ref_losses[stop:]}")
+        same_state(fresh, ref, f"{what}: the resumed run")
+        del fresh
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 12: the LM path (qwen3-0.6b): prefill and decode, and training
+# --------------------------------------------------------------------------
+# decode logits against the forward's on the same tokens: a cosine per row
+# and max |diff| over max |logit| (the towers' bf16 limits); fixed before
+# the first run
+LM_COS, LM_REL = 0.999, 2e-2
+
+
+def _logits_gap(got, want):
+    """(B, V) logits against ``want``'s: the least cosine of a row, max
+    |diff| over max |logit| (``rel``), the root-mean-square ratio, and where
+    the max |diff| falls."""
+    import torch.nn.functional as F
+
+    g, w = got.float().cpu(), want.float().cpu()
+    diff = (g - w).abs()
+    at = divmod(int(diff.argmax()), g.shape[-1])
+    res = dict(min_cos=float(F.cosine_similarity(g, w, dim=-1).min()),
+               max_abs=float(diff.max()),
+               max_abs_logit=float(w.abs().max()),
+               # the spread of the whole difference, beside its extreme
+               rms_rel=float(diff.square().mean().sqrt()
+                             / w.square().mean().sqrt()),
+               max_at=dict(row=at[0], token=at[1], want=float(w[at]),
+                           got=float(g[at])))
+    res["rel"] = res["max_abs"] / res["max_abs_logit"]
+    return res
+
+
+def _logits_agree(got, want, what):
+    require(got.shape == want.shape and bool(torch.isfinite(got).all()),
+            f"{what}: shape {tuple(got.shape)} or non-finite logits")
+    res = _logits_gap(got, want)
+    require(res["min_cos"] >= LM_COS and res["rel"] <= LM_REL,
+            f"{what}: {res}")
+    return res
+
+
+def lm_decode(dev, model, lz, rehearse):
+    """(a) ``prefill`` of B prompts into a cache of ``max_seq``, then greedy
+    ``decode_step``s that fill it exactly; launches counted over the
+    steps; the first and last step's logits against the forward's on the
+    same tokens; one step under ``set_sync_debug_mode("error")``."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer as T
+
+    cfg = model.cfg
+    b, p, s = lz["batch"], lz["prompt"], lz["max_seq"]
+    n = s - p
+    rng = np.random.default_rng(lz["seed"])
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (b, p))).to(dev)
+    out = dict(config=cfg.name, batch=b, prompt=p, max_seq=s, steps=n)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    with torch.inference_mode():
+        fa.reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        logits, cache = T.prefill(model, prompts, max_seq=s)
+        sync()
+        out["prefill_s"] = time.perf_counter() - t0
+        out["prefill_launches"] = dict(fa.launches)
+        require(tuple(logits.shape) == (b, 1, cfg.vocab),
+                f"prefill logits {tuple(logits.shape)}")
+        toks = [logits[:, -1].argmax(-1, keepdim=True)]
+        fa.reset_launches()  # the decode path starts here
+        sync()
+        t0 = time.perf_counter()
+        for i in range(n):
+            guard = i == 1 and dev.type == "cuda"
+            if guard:  # a step that reads nothing back to the host
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                lg, cache = T.decode_step(model, toks[-1], cache)
+            finally:
+                if guard:
+                    torch.cuda.set_sync_debug_mode(0)
+            if i == 0:
+                first = lg
+            toks.append(lg[:, -1].argmax(-1, keepdim=True))
+        sync()
+        out["decode_s"] = time.perf_counter() - t0
+        launches = dict(fa.launches)  # read just after the path
+        out["launches"] = launches
+        require(int(cache.length) == s, f"cache length {int(cache.length)}")
+        require(rehearse or launches["flash_decode"] == cfg.n_layers * n,
+                f"flash_decode launched {launches['flash_decode']} times, "
+                f"not {cfg.n_layers} x {n}")
+        out["ms_per_step"] = 1e3 * out["decode_s"] / n
+        out["tokens_per_s"] = b * n / out["decode_s"]
+        # a step's least bytes: every weight once, the cache's valid part
+        # (its mean length over the steps) once, the new k and v written
+        item = torch.finfo(cfg.dtype).bits // 8
+        weights = sum(t.numel() * t.element_size() for t in model.parameters())
+        kv_row = cfg.n_layers * b * cfg.n_kv_heads * 2 * cfg.head_dim * item
+        step_bytes = weights + kv_row * (p + (n + 1) / 2 + 1)
+        out["step_bound_ms"] = 1e3 * step_bytes / HBM_BYTES_PER_S
+        out["step_bytes"] = step_bytes
+        # the references: the forward on the same tokens
+        seq = torch.cat([prompts] + toks[:-1], dim=1)
+        for name, lgt, upto in (("first", first, p + 1), ("last", lg, s)):
+            hid = T.forward(model, seq[:, :upto], with_logits=False).hidden
+            out[f"{name}_step_vs_forward"] = _logits_agree(
+                lgt[:, 0], hid[:, -1] @ model.embed.T,
+                f"decode step {name} vs forward")
+            del hid
+        out["tokens_head"] = seq[0, p:p + 8].tolist()
+        if not rehearse:  # one more step traced (the full cache's last slot)
+            out["profile_step"] = profile_batch(
+                lambda: T.decode_step(model, toks[-1], cache))
+    del cache
+    log(f"  (a) prefill {b} x {p} tokens in {out['prefill_s']:.3f} s; {n} "
+        f"decode steps {out['ms_per_step']:.3f} ms a step (byte bound "
+        f"{out['step_bound_ms']:.3f} ms), {out['tokens_per_s']:.1f} tokens/s; "
+        f"launches {launches}")
+    log(f"      first step vs forward {out['first_step_vs_forward']}; last "
+        f"{out['last_step_vs_forward']}; traced step "
+        f"{json.dumps(out.get('profile_step'))}")
+    return out
+
+
+def lm_cross(dev, model, lz):
+    """(b) a copy cut to the first layers, prefilled and decoded on the card
+    and on the CPU on the same tokens (the card's greedy choices)."""
+    from repro_torch.models import transformer as T
+
+    cz = lz["cross"]
+    card = _cut_copy(model, lz["cut_layers"], dev)
+    host = _cut_copy(model, lz["cut_layers"], "cpu")
+    rng = np.random.default_rng(lz["seed"] + 1)
+    prompts = torch.from_numpy(rng.integers(0, model.cfg.vocab,
+                                            (cz["batch"], cz["prompt"])))
+    s = cz["prompt"] + cz["steps"]
+    worst = dict(min_cos=1.0, rel=0.0)
+    with torch.inference_mode():
+        lc, cc = T.prefill(card, prompts.to(dev), max_seq=s)
+        lh, ch = T.prefill(host, prompts, max_seq=s)
+        for i in range(cz["steps"] + 1):
+            r = _logits_agree(lc[:, 0], lh[:, 0], f"cut copy, step {i}")
+            worst = dict(min_cos=min(worst["min_cos"], r["min_cos"]),
+                         rel=max(worst["rel"], r["rel"]))
+            if i == cz["steps"]:
+                break
+            tok = lc[:, -1].argmax(-1, keepdim=True)
+            lc, cc = T.decode_step(card, tok, cc)
+            lh, ch = T.decode_step(host, tok.cpu(), ch)
+    out = dict(layers=lz["cut_layers"], batch=cz["batch"],
+               prompt=cz["prompt"], steps=cz["steps"], **worst)
+    log(f"  (b) {lz['cut_layers']} layers, card vs CPU: {out}")
+    return out
+
+
+def lm_train(dev, lz, rehearse):
+    """(c) ``launch/train.py``'s path: ``loss_fn`` under the ``Trainer`` at
+    full width, launches counted by route over an uninterrupted run; the
+    forward / backward / optimizer split; then the run again with a
+    checkpoint directory, killed after its async checkpoint (the
+    launcher's every ``max(steps // 3, 10)`` steps) and resumed from it
+    through the launcher, bit-equal."""
+    import tempfile
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import transformer as T
+
+    tz = lz["train"]
+    args = ["--arch", tz["arch"], "--preset", tz["preset"], "--batch",
+            str(tz["batch"]), "--seq", str(tz["seq"]), "--device",
+            dev.type]
+    steps = ["--steps", str(tz["steps"])]
+    out = dict(arch=tz["arch"], preset=tz["preset"], batch=tz["batch"],
+               seq=tz["seq"], steps=tz["steps"])
+    if dev.type == "cuda":
+        out["memory_allocated_at_start"] = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()  # the path starts here
+    t0 = time.perf_counter()
+    ref, res = launch_train.main(args + steps)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    launches = dict(fa.launches)  # read just after the path
+    out["run_s"] = time.perf_counter() - t0
+    losses = res["losses"]
+    tail = ref.step_times[-(tz["steps"] - 2):]
+    out.update(losses=losses, launches=launches,
+               step_ms=[1e3 * t for t in ref.step_times],
+               step_ms_median=1e3 * statistics.median(tail),
+               tokens_per_s=tz["batch"] * tz["seq"] / statistics.median(tail),
+               ce_chunks=-(-tz["seq"] // ref.params.cfg.ce_chunk))
+    if dev.type == "cuda":
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    require(all(math.isfinite(x) for x in losses), "an LM loss is not finite")
+    n_layers = ref.params.cfg.n_layers
+    if not rehearse:
+        require(launches["flash_attention_bwd_wgmma"] > 0
+                and launches["flash_attention_bwd_wgmma"]
+                == launches["flash_attention_bwd"],
+                f"the LM's backward did not run on the wgmma route: "
+                f"{launches}")
+        require(launches["flash_attention_bwd"] == n_layers * tz["steps"],
+                f"backward launches {launches['flash_attention_bwd']}")
+    # the split at the trained weights, on one more batch
+    from repro_torch.data.pipeline import lm_batch_fn
+
+    batch = {k: torch.as_tensor(x).to(dev) for k, x in lm_batch_fn(
+        tz["batch"], tz["seq"], ref.params.cfg.vocab)(99, 0).items()}
+    params = list(ref.params.parameters())
+    out["forward_ms"] = 1e3 * _wall_s(
+        lambda: T.loss_fn(ref.params, batch)[0], 3)
+    out["forward_backward_ms"] = 1e3 * _wall_s(
+        lambda: torch.autograd.grad(T.loss_fn(ref.params, batch)[0], params,
+                                    allow_unused=True), 3)
+    out["backward_ms"] = out["forward_backward_ms"] - out["forward_ms"]
+    out["optimizer_and_rest_ms"] = (out["step_ms_median"]
+                                    - out["forward_backward_ms"])
+    del batch, params
+    log(f"  (c) loss curve {json.dumps([round(x, 5) for x in losses])}")
+    log(f"      step {out['step_ms_median']:.3f} ms (median of the last "
+        f"{len(tail)}), {out['tokens_per_s']:.0f} tokens/s; forward "
+        f"{out['forward_ms']:.3f} ms, backward {out['backward_ms']:.3f} ms, "
+        f"optimizer and the rest {out['optimizer_and_rest_ms']:.3f} ms; "
+        f"launches {launches}; max_memory_allocated "
+        f"{out.get('max_memory_allocated')} bytes")
+    # again with checkpoints, killed after the async one, then resumed by
+    # the launcher
+    with tempfile.TemporaryDirectory() as d:
+        first, r = launch_train.main(args + steps + ["--ckpt-dir", d])
+        require(r["losses"] == losses,
+                "the LM's losses differ between two uninterrupted runs")
+        stop = out["stop"] = first.cfg.ckpt_every
+        require(stop < tz["steps"], f"no async checkpoint before step "
+                f"{tz['steps']} (every {stop})")
+        out.update({f"save_{k}": v for k, v in first.manager.timings.items()})
+        drop_final_save(first.manager, stop, tz["steps"], "phase 12(c)")
+        del first
+        t0 = time.perf_counter()
+        again, r = launch_train.main(args + steps + ["--ckpt-dir", d])
+        out["resumed_run_s"] = time.perf_counter() - t0
+        require(again.step == tz["steps"] and r["losses"] == losses[stop:],
+                f"the resumed LM losses {r['losses']} differ from "
+                f"{losses[stop:]}")
+        out["resume_tensors"] = same_state(again, ref, "phase 12(c) resume")
+        del again
+    log(f"      resumed from step {stop}: losses and "
+        f"{out['resume_tensors']} state tensors bit-equal; a save "
+        f"{out['save_host_copy_s']:.3f} s to the host + "
+        f"{out['save_write_s']:.3f} s of writing, beside a "
+        f"{out['step_ms_median']:.3f} ms step")
+    del ref
+    return out
+
+
+def lm_slice(dev, sizes, rehearse):
+    """Phase 12: the LM path at ``sizes["lm"]``."""
+    from repro_torch.models import transformer as T
+
+    lz = sizes["lm"]
+    cfg = lz["cfg"]()
+    out = dict(config=cfg.name)
+    if dev.type == "cuda":
+        out["memory_allocated_at_start"] = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    model = T.init_params(lz["seed"], cfg, device=dev)
+    out["decode"] = lm_decode(dev, model, lz, rehearse)
+    if dev.type == "cuda":
+        out["decode"]["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        log(f"      peak memory {out['decode']['max_memory_allocated']} bytes")
+    out["cross"] = lm_cross(dev, model, lz)
+    del model
+    out["train"] = lm_train(dev, lz, rehearse)
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 13: the end-to-end bi-encoder example
+# --------------------------------------------------------------------------
+def biencoder_slice(dev, sizes, rehearse):
+    """Phase 13: ``launch/train_biencoder.main`` at ``--scale``, run to
+    ``stop`` steps and then to ``steps`` on one checkpoint directory: the
+    second run must resume from ``stop``; its search launches the gather
+    and the merge."""
+    import tempfile
+
+    from repro_torch.kernels import l2_topk
+    from repro_torch.launch import train_biencoder
+
+    bz = sizes["biencoder"]
+    out = dict(scale=bz["scale"], stop=bz["stop"], steps=bz["steps"])
+    with tempfile.TemporaryDirectory() as d:
+        args = ["--scale", bz["scale"], "--ckpt-dir", d, "--device", dev.type]
+        t0 = time.perf_counter()
+        first = train_biencoder.main(args + ["--steps", str(bz["stop"])])
+        out["first_s"] = time.perf_counter() - t0
+        require(first["resumed_from"] == 0, "the first run resumed")
+        l2_topk.reset_launches()  # the path starts here
+        t0 = time.perf_counter()
+        second = train_biencoder.main(args + ["--steps", str(bz["steps"])])
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        out["launches"] = dict(l2_topk.launches)  # read just after the path
+        out["second_s"] = time.perf_counter() - t0
+    require(second["resumed_from"] == bz["stop"],
+            f"resumed from step {second['resumed_from']}, not {bz['stop']}")
+    losses = first["losses"] + second["losses"]
+    require(all(math.isfinite(x) for x in losses), "a loss is not finite")
+    require(max(second["D_calls"]) <= train_biencoder.QUOTA,
+            f"D calls {max(second['D_calls'])} past the quota")
+    require(0.0 <= second["recall_at_10"] <= 1.0, "recall@10")
+    if not rehearse:
+        for name in ("gather_score", "beam_merge_topk"):
+            require(out["launches"][name] > 0,
+                    f"{name} was never launched on phase 13's path")
+    out.update(losses=losses, resumed_from=second["resumed_from"],
+               recall_at_10=second["recall_at_10"],
+               max_D_calls=max(second["D_calls"]))
+    log(f"  resumed from step {second['resumed_from']}; recall@10 "
+        f"{second['recall_at_10']:.4f} at Q={train_biencoder.QUOTA}; "
+        f"launches {out['launches']}; runs {out['first_s']:.1f} s + "
+        f"{out['second_s']:.1f} s")
     return out
 
 
@@ -3134,6 +3596,7 @@ def main() -> int:
     if not rehearse and not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
+    from repro_torch.configs import qwen3_0_6b
     from repro_torch.configs.bimetric_paper import (cheap_tower,
                                                     cheap_tower_smoke,
                                                     expensive_tower)
@@ -3169,9 +3632,15 @@ def main() -> int:
                      fn=800, fq=8,
                      attn=(("sfr-mistral-7b layer, toy", 1, 2, 64, 16, BF16),
                            ("bge-micro-like layer, toy", 4, 2, 32, 16, F32)),
-                     decode=(("decode, toy", 2, 2, 128, 16, BF16, False),
-                             ("decode, toy, full cache", 1, 2, 128, 16, BF16,
-                              True)),
+                     decode=(("decode, toy", 2, 2, 2, 128, 16, BF16, None),
+                             ("decode, toy, full cache", 1, 2, 2, 128, 16,
+                              BF16, "full"),
+                             ("decode, toy, GQA", 3, 4, 2, 128, 16, BF16,
+                              (1, 128, 40)),
+                             ("decode, toy, MQA", 3, 4, 1, 128, 16, BF16,
+                              (1, 128, 40)),
+                             ("decode, toy, GQA f32", 3, 4, 2, 128, 16, F32,
+                              (1, 128, 40))),
                      bag_table=(4096, 18),
                      bag=(("din train_batch, toy", 256, 100),
                           ("din serve_p99, toy", 16, 100)),
@@ -3183,7 +3652,13 @@ def main() -> int:
                                 rerank_q=20, wait=120),
                      train=dict(tower=cheap_tower_smoke, batch=8, seq=16,
                                 steps=10, warmup=3, seed=0, accum_steps=2,
-                                temperature=0.2))
+                                temperature=0.2),
+                     lm=dict(cfg=qwen3_0_6b.smoke, seed=0, batch=2,
+                             prompt=24, max_seq=32, cut_layers=1,
+                             cross=dict(batch=2, prompt=8, steps=3),
+                             train=dict(arch="qwen3-0.6b", preset="smoke",
+                                        batch=2, seq=16, steps=12)),
+                     biencoder=dict(scale="smoke", stop=2, steps=4))
     else:
         # timing shapes: build wave (B=1024), stage-1 wave, stage-2 wave,
         # stage-2 entry wave (K = Q/2 seeds), re-rank scoring wave (K = Q)
@@ -3203,10 +3678,20 @@ def main() -> int:
                      attn=(("prefill, one sfr-mistral-7b layer", 1, 32, 4096,
                             128, BF16),
                            ("one bge-micro-like layer", 256, 6, 512, 64, F32)),
+                     # then qwen3-0.6b's grouped cache (16 query heads
+                     # over 8 kv heads) at the same cut, with lengths 1, S
+                     # and one inside a split, also as MQA and in f32
                      decode=(("sfr-mistral-7b at decode_32k, B 128 cut to 8",
-                              8, 32, 32768, 128, BF16, False),
+                              8, 32, 32, 32768, 128, BF16, None),
                              ("sfr-mistral-7b at decode_32k, B=1, full cache",
-                              1, 32, 32768, 128, BF16, True)),
+                              1, 32, 32, 32768, 128, BF16, "full"),
+                             ("qwen3-0.6b at decode_32k, B 128 cut to 8, GQA "
+                              "16 over 8", 8, 16, 8, 32768, 128, BF16,
+                              (1, 32768, 1500)),
+                             ("qwen3-0.6b at decode_32k, MQA edge (1 kv head)",
+                              8, 16, 1, 32768, 128, BF16, (1, 32768, 1500)),
+                             ("qwen3-0.6b at decode_32k, GQA in f32", 8, 16,
+                              8, 32768, 128, F32, (1, 32768, 1500))),
                      bag_table=(1 << 20, 18),
                      bag=(("din train_batch", 65536, 100),
                           ("din serve_p99", 512, 100)),
@@ -3231,7 +3716,22 @@ def main() -> int:
                      # near 20: it cannot be seen to fall)
                      train=dict(tower=cheap_tower, batch=64, seq=256,
                                 steps=30, warmup=20, seed=0, accum_steps=4,
-                                temperature=0.2))
+                                temperature=0.2),
+                     # phase 12: qwen3-0.6b at full width from a seed;
+                     # decode_32k with batch 128 cut to 8 (as phase 6):
+                     # prompts of 32,704 tokens and 64 greedy steps fill a
+                     # 32,768 cache; the card-vs-CPU check cut to 2 layers;
+                     # train_4k with batch 256 cut to 2 at seq 4,096 (two
+                     # cross-entropy chunks), 12 steps, resumed from the
+                     # launcher's async checkpoint at 10
+                     lm=dict(cfg=qwen3_0_6b.full, seed=0, batch=8,
+                             prompt=32704, max_seq=32768, cut_layers=2,
+                             cross=dict(batch=2, prompt=64, steps=4),
+                             train=dict(arch="qwen3-0.6b", preset="full",
+                                        batch=2, seq=4096, steps=12)),
+                     # phase 13: examples/train_biencoder.py's pipeline at
+                     # --scale 100m, 10 steps, then resumed to 20
+                     biencoder=dict(scale="100m", stop=10, steps=20))
 
     t0 = time.perf_counter()
     log("phase 2: kernels vs plain versions")
@@ -3321,6 +3821,22 @@ def main() -> int:
     report["phase11_s"] = time.perf_counter() - t0
     log(f"  phase 11 took {report['phase11_s']:.1f} s")
 
+    t0 = time.perf_counter()
+    log("phase 12: the LM path, qwen3-0.6b (prefill -> decode_step -> "
+        "flash_decode on the grouped cache; loss_fn under the Trainer, "
+        "checkpointed and resumed)")
+    lm = lm_slice(dev, sizes, rehearse)
+    report["lm"] = lm
+    report["phase12_s"] = time.perf_counter() - t0
+    log(f"  phase 12 took {report['phase12_s']:.1f} s")
+
+    t0 = time.perf_counter()
+    log("phase 13: launch/train_biencoder (train d with a resume, embed, "
+        "build on d, search under the teacher)")
+    be = biencoder_slice(dev, sizes, rehearse)
+    report["biencoder"] = be
+    report["phase13_s"] = time.perf_counter() - t0
+
     kernels = [
         dict(name="gather_score", route="cuda",
              source="src/repro_torch/kernels/csrc/l2_topk.cu",
@@ -3331,6 +3847,7 @@ def main() -> int:
              launches_serve=sv["launches"]["gather_score"],
              launches_serve_sharded=sv["sharded"]["launches"]["gather_score"],
              launches_scatter_gather=sg["launches"]["gather_score"],
+             launches_biencoder=be["launches"]["gather_score"],
              max_abs_err=max(g_err, ct["wave_check"]["gather_max_abs_err"],
                              *(w["gather_max_abs_err"]
                                for w in tw["wave_checks"] + sv["wave_check"])),
@@ -3359,6 +3876,7 @@ def main() -> int:
              launches_serve_sharded=sv["sharded"]["launches"][
                  "beam_merge_topk"],
              launches_scatter_gather=sg["launches"]["beam_merge_topk"],
+             launches_biencoder=be["launches"]["beam_merge_topk"],
              max_abs_err=m_err,
              ms=m_timed.get("ms"), plain_ms=m_timed.get("plain_ms"),
              bound_ms=m_timed["bound_ms"], bound_by=m_timed["bound_by"],
@@ -3392,6 +3910,15 @@ def main() -> int:
             extra["launches_train"] = sum(
                 n for k, n in tn["launches"].items()
                 if k in ("flash_attention_simt", "flash_attention_wgmma"))
+            # phase 12: the prompts' prefill and the LM's training forward
+            extra["launches_lm_prefill"] = sum(
+                lm["decode"]["prefill_launches"][k]
+                for k in ("flash_attention_simt", "flash_attention_wgmma"))
+            extra["launches_lm_train"] = sum(
+                lm["train"]["launches"][k]
+                for k in ("flash_attention_simt", "flash_attention_wgmma"))
+        if name == "flash_decode":  # phase 12(a): decode_step, on its path
+            extra["launches_lm_decode"] = lm["decode"]["launches"][name]
         kernels.append(dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{src}.cu",
@@ -3426,6 +3953,9 @@ def main() -> int:
         library_device_ms=d_row.get("library_device_ms"),
         simt_ms=d_row.get("simt_ms"), simt_no_lse_ms=d_row.get("simt_no_lse_ms"),
         launches_per_step=tn["launches"]["flash_attention_bwd"] // tn["steps"],
+        launches_lm_train_by_route={
+            r: lm["train"]["launches"][f"flash_attention_bwd_{r}"]
+            for r in ("wgmma", "tf32", "simt")},
         route_D_layer=big_row["route"],
         ms_D_layer=big_row.get("ms"), plain_ms_D_layer=big_row.get("plain_ms"),
         bound_ms_D_layer=big_row["bound_ms"],

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the attention kernels at the towers' shapes, for an A/B of two
-checkouts.
+"""Time the attention kernels at the towers' and the decode cache's
+shapes, for an A/B of two checkouts.
 
     python3 scripts/time_attention.py [--src DIR]
 
@@ -19,7 +19,14 @@ back-to-back calls (``chip_smoke.time_ms``):
 * ``backward_ms``: ``flash_attention_bwd`` alone at d's and D's training
   layers (B=64 H=6 S=256 d=64 f32; B=4 H=32 S=256 d=128 bf16, causal),
   given the forward's log-sum-exp where the checkout has
-  ``flash_attention_lse``.
+  ``flash_attention_lse``;
+* ``decode_ms``: ``ops.flash_decode`` at ``chip_smoke.py`` phase 6's
+  decode rows, with the max |kernel - plain|: sfr-mistral-7b at
+  decode_32k (B=8 H=32 S=32,768 d=128 bf16, one kv head per query head,
+  lengths seeded in [1, S]; and B=1 with the full cache), then
+  qwen3-0.6b's grouped cache (16 query heads over 8 kv heads, and MQA); a
+  checkout that refuses a grouped cache prints ``"grouped": false`` for
+  those rows.
 
 Run it for each checkout in turns in one call (parent, change, change,
 parent). Needs one CUDA device; imports no JAX.
@@ -47,6 +54,15 @@ FORWARD = [
 BACKWARD = [
     ("d training layer", 64, 6, 256, 64, "float32"),
     ("D layer", 4, 32, 256, 128, "bfloat16"),
+]
+# role, B, H, Hkv, S, d, lengths ("full" or seeded in [1, S]), all bf16
+DECODE = [
+    ("sfr-mistral-7b decode_32k, B=8", 8, 32, 32, 32768, 128, "seeded"),
+    ("sfr-mistral-7b decode_32k, B=1, full cache", 1, 32, 32, 32768, 128,
+     "full"),
+    ("qwen3-0.6b decode_32k, B=8, GQA 16 over 8", 8, 16, 8, 32768, 128,
+     "seeded"),
+    ("qwen3-0.6b decode_32k, B=8, MQA", 8, 16, 1, 32768, 128, "seeded"),
 ]
 
 
@@ -112,6 +128,29 @@ def main() -> int:
              backward_ms=chip_smoke.time_ms(
                  lambda: fa.flash_attention_bwd(q, k, v, out, dout, **extra)))
         del q, k, v, out, dout, extra
+    for role, b, h, hkv, s, d, lengths in DECODE:
+        g = torch.Generator(device=dev).manual_seed(17)
+        q, k, v = (torch.randn(b, *shape, generator=g, device=dev,
+                               dtype=torch.bfloat16)
+                   for shape in ((h, d), (s, hkv, d), (s, hkv, d)))
+        length = (torch.full((b,), s, device=dev, dtype=torch.int32)
+                  if lengths == "full" else
+                  torch.randint(1, s + 1, (b,), generator=g, device=dev,
+                                dtype=torch.int32))
+        row = dict(role=role, B=b, H=h, Hkv=hkv, S=s, d=d,
+                   valid_keys=int(length.sum()))
+        with torch.inference_mode():
+            try:
+                got = ops.flash_decode(q, k, v, length=length)
+            except ValueError:
+                emit(**row, grouped=False)
+                continue
+            want = fa.flash_decode_plain(q, k, v, length=length)
+            row["max_abs_err"] = float((got.float() - want.float()).abs().max())
+            row["decode_ms"] = chip_smoke.time_ms(
+                lambda: ops.flash_decode(q, k, v, length=length))
+        emit(**row)
+        del q, k, v, got, want
     return 0
 
 

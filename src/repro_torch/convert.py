@@ -19,7 +19,8 @@ from repro_torch.core.distributed import ShardedIndex
 from repro_torch.distributed.sharding import search_mesh
 from repro_torch.core.vamana import VamanaConfig, VamanaIndex
 from repro_torch.kernels.backend import CorpusView, resolve_device
-from repro_torch.models.transformer import Transformer, TransformerConfig
+from repro_torch.models.transformer import (KVCache, Transformer,
+                                            TransformerConfig)
 
 _BY_NAME = {"bfloat16": (np.uint16, torch.bfloat16),
             "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
@@ -179,3 +180,19 @@ def transformer_to_numpy(tensors: nn.Module | Mapping[str, torch.Tensor]
         put(f"dense_blocks.{rest}",
             np.stack([per_layer[i] for i in sorted(per_layer)]))
     return out
+
+
+def kv_cache_from_numpy(k, v, length, device=None) -> KVCache:
+    """A :class:`KVCache` from JAX's (its k and v (L, B, S, Hkv, dh) and its
+    0-d length, as numpy arrays), bit for bit on ``device``."""
+    dev = resolve_device(device)
+    return KVCache(k=tensor_from_numpy(k, dev), v=tensor_from_numpy(v, dev),
+                   length=torch.tensor(int(np.asarray(length)),
+                                       dtype=torch.int32, device=dev))
+
+
+def kv_cache_to_numpy(cache: KVCache) -> tuple:
+    """(k, v, length) of a :class:`KVCache` as numpy arrays, JAX's
+    ``KVCache`` fields (length a 0-d int32)."""
+    return (tensor_to_numpy(cache.k), tensor_to_numpy(cache.v),
+            np.asarray(tensor_to_numpy(cache.length), np.int32))

@@ -8,12 +8,17 @@ The construction of the JAX package's ``repro.data.synthetic``, drawn from a
   attenuated local detail (``local_visibility``) to dim_d, with bounded
   multiplicative noise, and optional additive noise on the proxy *queries*
   only (``query_noise``) — the failure mode of small embedding models.
+
+The token batches for the training drivers (``make_lm_tokens``,
+``make_contrastive_pairs``) are drawn with NumPy, as JAX's are, so each
+array is byte for byte the JAX package's for each seed.
 """
 from __future__ import annotations
 
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import distances
@@ -86,3 +91,26 @@ def proxy_quality_sweep(quality: str) -> dict:
         "bge-base-like": dict(dim_d=48, noise=0.02, local_visibility=0.85,
                               query_noise=0.25),
     }[quality]
+
+
+def make_lm_tokens(*, batch: int, seq_len: int, vocab: int,
+                   seed: int = 0) -> dict[str, np.ndarray]:
+    """Synthetic LM batch (tokens + shifted labels) for training drivers."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, vocab, size=(batch, seq_len + 1), dtype=np.int32)
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def make_contrastive_pairs(*, batch: int, seq_len: int, vocab: int,
+                           seed: int = 0) -> dict[str, np.ndarray]:
+    """(query, positive-doc) token pairs for bi-encoder InfoNCE training.
+
+    Positives share a prefix with the query (synthetic relevance signal).
+    """
+    rng = np.random.default_rng(seed)
+    q = rng.integers(0, vocab, size=(batch, seq_len), dtype=np.int32)
+    d = q.copy()
+    tail = seq_len // 2
+    d[:, tail:] = rng.integers(0, vocab, size=(batch, seq_len - tail),
+                               dtype=np.int32)
+    return {"query_tokens": q, "doc_tokens": d}

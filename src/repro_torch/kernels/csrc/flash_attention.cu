@@ -36,10 +36,15 @@
 //
 // flash_decode — replaces repro/kernels/flash_attention.py:flash_decode
 //   (Pallas body _flash_decode_kernel), reached through ops.flash_decode.
-//   q (B, H, dh), k (B, S, H, dh), v (B, S, H, dv), lens (B,) -> (B, H, dv);
-//   key s of batch row b is valid iff s < clamp(lens[b], 0, S).
-//   Bound: bytes, the valid prefix of K and V (len * (dh + dv) * itemsize
-//   per (b, h)); two flops per element read.
+//   q (B, H, dh), k (B, S, Hkv, dh), v (B, S, Hkv, dv), lens (B,) ->
+//   (B, H, dv), H a multiple of Hkv: query head h reads kv head
+//   h / (H / Hkv), repeat_kv's order, from the grouped cache as it lies (no
+//   repeat is made); key s of batch row b is valid iff
+//   s < clamp(lens[b], 0, S).
+//   Bound: bytes, the valid prefix of K and V read once (len * Hkv *
+//   (dh + dv) * itemsize per b); two flops per element read. Each kv head
+//   is read by the H / Hkv blocks of its query heads, which sit next to each
+//   other on the grid's x axis, so the later reads mostly come from L2.
 //   Design: split-KV ("flash-decoding"). The grid is (B*H, n_split): B*H on
 //   x, whose limit is 2^31 - 1, the splits on y. The wrapper picks the
 //   chunk of keys per block from S and B*H alone (flash_attention.
@@ -333,7 +338,7 @@ struct DecodeArgs {
   void* out;
   float* part_acc;  // (B*H, n_split, dv) f32
   float* part_ml;   // (B*H, n_split, 2) f32: the split's (m, l)
-  int H, S, dh, dv, chunk, n_split;
+  int H, Hkv, S, dh, dv, chunk, n_split;
   float scale;
 };
 
@@ -396,6 +401,7 @@ flash_decode_split_kernel(const DecodeArgs a) {
   const size_t bh = blockIdx.x;
   const int split = blockIdx.y;
   const size_t b = bh / a.H, h = bh - b * a.H;
+  const size_t kvh = h / (a.H / a.Hkv);  // repeat_kv's order
   const int len = decode_len(a, b);
   const int start = split * a.chunk;
   if (start >= len) return;
@@ -403,10 +409,11 @@ flash_decode_split_kernel(const DecodeArgs a) {
   const int group = threadIdx.x / G, g = threadIdx.x % G;
   const int dh = a.dh, dv = a.dv;
   const int kpieces = dh / PER, vpieces = dv / PER;
-  // key s of this (b, h) starts s * ks elements past kb: keys are H heads apart
-  const size_t ks = static_cast<size_t>(a.H) * dh, vs = static_cast<size_t>(a.H) * dv;
-  const T* kb = static_cast<const T*>(a.k) + (b * a.S * a.H + h) * dh;
-  const T* vb = static_cast<const T*>(a.v) + (b * a.S * a.H + h) * dv;
+  // key s of this (b, kvh) starts s * ks elements past kb: keys are Hkv
+  // heads apart
+  const size_t ks = static_cast<size_t>(a.Hkv) * dh, vs = static_cast<size_t>(a.Hkv) * dv;
+  const T* kb = static_cast<const T*>(a.k) + (b * a.S * a.Hkv + kvh) * dh;
+  const T* vb = static_cast<const T*>(a.v) + (b * a.S * a.Hkv + kvh) * dv;
   const T* q = static_cast<const T*>(a.q) + bh * dh;
 
   // piece n of lane g holds elements (g + G n) * PER + j of q, k, v and acc
@@ -630,25 +637,27 @@ int flash_attention_simt_launch(const void* q, const void* k, const void* v, voi
   }
 }
 
-// q (B, H, dh), k (B, S, H, dh), v (B, S, H, dv), out (B, H, dv), all of
-// dtype; dh, dv <= 256. lens (B,) i32, clamped to [0, S]. work:
+// q (B, H, dh), k (B, S, Hkv, dh), v (B, S, Hkv, dv), out (B, H, dv), all
+// of dtype; H a multiple of Hkv; dh, dv <= 256. lens (B,) i32, clamped to
+// [0, S]. work:
 // B*H*n_split*(dv + 2) f32 for the splits' partials, n_split =
 // ceil(S / chunk) <= 4096. Key rows load 16
 // bytes at a time when dh and dv rows are multiples of 16 bytes and k, v
 // are 16-byte aligned. Two launches (split pass, combine) on the stream;
 // returns the first error.
 int flash_decode_launch(const void* q, const void* k, const void* v, const int* lens,
-                        void* out, float* work, int dtype, int B, int H,
+                        void* out, float* work, int dtype, int B, int H, int Hkv,
                         int S, int dh, int dv, int chunk, int n_split, float scale,
                         void* stream) {
   if (B == 0 || H == 0 || dv == 0) return 0;
-  if (dh > kMaxHeadDim || dv > kMaxHeadDim || S < 0 || chunk <= 0 || n_split > kMaxSplits ||
+  if (Hkv <= 0 || H % Hkv != 0 || dh > kMaxHeadDim || dv > kMaxHeadDim || S < 0 ||
+      chunk <= 0 || n_split > kMaxSplits ||
       n_split != static_cast<int>((static_cast<long long>(S) + chunk - 1) / chunk))
     return static_cast<int>(cudaErrorInvalidValue);
   const int BH = B * H;
   const DecodeArgs a{q, k, v, lens, out, work,
                      work + static_cast<size_t>(BH) * n_split * dv,
-                     H, S, dh, dv, chunk, n_split, scale};
+                     H, Hkv, S, dh, dv, chunk, n_split, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool aligned =
       (reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) % 16 == 0;

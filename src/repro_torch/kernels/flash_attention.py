@@ -18,10 +18,12 @@ PyTorch version beside it:
     shape: register-blocked f32 SIMT arithmetic.
 * :func:`flash_decode` replaces the Pallas ``flash_decode``: one query token
   per (batch, head) against a KV cache with a valid length per batch row.
-  Bound by the bytes of the valid K/V prefix. Split-KV: each block takes a
-  chunk of one row's keys (:func:`decode_split`), 16-byte loads with four
-  keys in flight per lane group, and writes its partial softmax state; a
-  second kernel combines a row's partials.
+  The cache may be grouped (GQA/MQA: Hkv kv heads under H query heads), and
+  is read as it lies, never repeated. Bound by the bytes of the valid K/V
+  prefix. Split-KV: each block takes a chunk of one row's keys
+  (:func:`decode_split`), 16-byte loads with four keys in flight per lane
+  group, and writes its partial softmax state; a second kernel combines a
+  row's partials.
 * :func:`flash_attention_bwd` is the gradient of :func:`flash_attention`
   (f32 accumulation, no float atomics, so two calls are bit-equal). It
   replaces no Pallas kernel: JAX differentiates its jnp scan
@@ -97,7 +99,7 @@ def _lib():
                                                     i, i, f, i, p]
         lib.flash_attention_simt_launch.restype = i
         lib.flash_decode_launch.argtypes = [p, p, p, p, p, p, i, i, i, i, i,
-                                            i, i, i, f, p]
+                                            i, i, i, i, f, p]
         lib.flash_decode_launch.restype = i
         lib._typed = True
     return lib
@@ -484,33 +486,42 @@ def _kernel_lengths(length, b: int, s: int,
 
 def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        length, sm_scale: float | None = None) -> torch.Tensor:
-    """The plain PyTorch version of :func:`flash_decode`."""
-    b, _, dh = q.shape
-    s = k.shape[1]
+    """The plain PyTorch version of :func:`flash_decode`: JAX's grouped
+    einsum (``repro.models.layers.decode_attention``), the query heads
+    reshaped to (B, Hkv, H / Hkv, dh), the cache never repeated."""
+    b, h, dh = q.shape
+    s, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
     lens = _lengths(length, b, s, q.device)
-    logits = torch.einsum("bhd,bshd->bhs", q.float(), k.float())
+    qg = q.float().reshape(b, hkv, h // hkv, dh)
+    logits = torch.einsum("bkrd,bskd->bkrs", qg, k.float())
     logits *= _scale(sm_scale, dh)
-    valid = torch.arange(s, device=q.device)[None, None, :] < lens[:, None,
-                                                                    None]
+    valid = (torch.arange(s, device=q.device)[None, None, None, :]
+             < lens[:, None, None, None])
     p, l = _weights(logits, valid)
-    return (torch.einsum("bhs,bshd->bhd", p, v.float()) / l).to(q.dtype)
+    out = torch.einsum("bkrs,bskd->bkrd", p, v.float()) / l
+    return out.reshape(b, h, dv).to(q.dtype)
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  length, sm_scale: float | None = None) -> torch.Tensor:
-    """q (B, H, dh); k (B, S, H, dh); v (B, S, H, dv) -> (B, H, dv) in q's
-    dtype: one query token per (batch, head) against a KV cache.
+    """q (B, H, dh); k (B, S, Hkv, dh); v (B, S, Hkv, dv) -> (B, H, dv) in
+    q's dtype: one query token per (batch, head) against a KV cache.
 
-    ``length`` (int or (B,), broadcast over heads) is the valid prefix of
-    each batch row's cache, clamped to [0, S]. A CUDA ``length`` tensor
-    stays on the card (an int32 (B,) one is read as it is); an int is
-    copied there.
+    H is a multiple of Hkv (GQA; MQA at Hkv = 1): query head h reads kv head
+    ``h // (H // Hkv)``, ``repeat_kv``'s order, straight from the grouped
+    cache. ``length`` (int or (B,), broadcast over heads) is the valid
+    prefix of each batch row's cache, clamped to [0, S]. A CUDA ``length``
+    tensor stays on the card (an int32 (B,) one is read as it is); an int
+    is copied there.
     """
     b, h, dh = q.shape
-    s, dv = k.shape[1], v.shape[3]
-    if k.shape != (b, s, h, dh) or v.shape[:3] != (b, s, h):
+    s, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
+    if k.shape != (b, s, hkv, dh) or v.shape[:3] != (b, s, hkv):
         raise ValueError(f"flash_decode: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)} disagree")
+    if hkv == 0 or h % hkv:
+        raise ValueError(f"flash_decode: {h} query heads over {hkv} kv heads "
+                         "(H must be a multiple of Hkv)")
     _check("flash_decode", q, k, v, dh, dv)
     scale = _scale(sm_scale, dh)
     if q.device.type == "cpu":
@@ -525,8 +536,8 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with _on(q):
         err = _lib().flash_decode_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
-            out.data_ptr(), work.data_ptr(), _DTYPE[q.dtype], b, h, s, dh, dv,
-            chunk, n_split, scale, _stream(q))
+            out.data_ptr(), work.data_ptr(), _DTYPE[q.dtype], b, h, hkv, s, dh,
+            dv, chunk, n_split, scale, _stream(q))
     _raise_on("flash_decode", err)
     launches["flash_decode"] += 1
     return out

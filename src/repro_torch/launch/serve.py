@@ -16,16 +16,14 @@ import time
 
 import numpy as np
 
-from repro_torch.configs import bimetric_paper
+from repro_torch.configs import bimetric_paper, qwen3_0_6b
 from repro_torch.models import transformer as T
 from repro_torch.serve.engine import BiMetricEngine, EmbedTower, SearchRequest
 
 
 def cheap_smoke() -> T.TransformerConfig:
     """The cheap smoke tower (the JAX launcher's ``qwen3_0_6b.smoke()``)."""
-    return T.TransformerConfig(
-        name="qwen3-smoke", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
-        head_dim=32, d_ff=128, vocab=512, qk_norm=True, embed_dim=32)
+    return qwen3_0_6b.smoke()
 
 
 def expensive_smoke() -> T.TransformerConfig:

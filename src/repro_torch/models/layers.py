@@ -9,8 +9,10 @@ statistics, RoPE angles and the softmax run in float32, as in JAX.
 Attention goes through the port's hand-written ``flash_attention`` kernel on
 a CUDA tensor (the tensor-core route for bf16/f16, the SIMT route for f32;
 under grad its backward is the hand-written ``flash_attention_bwd``) and
-through its plain version on a CPU tensor. Not here yet: ``layer_norm``,
-``decode_attention`` and ``mlp``.
+through its plain version on a CPU tensor; single-token decode goes through
+the hand-written ``flash_decode`` the same way, reading the grouped cache as
+it lies. Not here yet: ``layer_norm`` and ``mlp`` (only the recommender
+models use them).
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import flash_attention, flash_decode
 
 
 # --------------------------------------------------------------------------
@@ -135,6 +137,25 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = flash_attention(heads_first(q), heads_first(k, rep),
                           heads_first(v, rep), causal=causal, sm_scale=scale)
     return out.transpose(1, 2)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, *, length,
+                     scale: float | None = None) -> torch.Tensor:
+    """Single-token grouped attention against a KV cache. q: (B, 1, H, dh);
+    caches (B, S, Hkv, dh|dv) with H = Hkv·rep -> (B, 1, H, dv) in q's dtype.
+
+    Runs ``kernels.flash_attention.flash_decode``: its kernel on a CUDA
+    tensor, its plain version (JAX's grouped einsum) on a CPU tensor. The
+    cache is read as it lies, never repeated to H heads. ``length`` (an int,
+    or a 0-d or (B,) integer tensor on q's device, which stays there) is the
+    valid prefix of each row's cache. A row of length 0 comes out 0, where
+    JAX's einsum gives NaN; ``decode_step`` always passes ``length + 1``.
+    """
+    b, _, h, _ = q.shape
+    out = flash_decode(q[:, 0], k_cache, v_cache, length=length,
+                       sm_scale=scale)
+    return out.view(b, 1, h, out.shape[-1])
 
 
 # --------------------------------------------------------------------------

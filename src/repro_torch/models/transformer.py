@@ -1,5 +1,6 @@
-"""The dense GQA transformer of the embedding towers, the counterpart of
-``repro.models.transformer`` as far as ``embed_pool`` needs it.
+"""The dense GQA transformer, the counterpart of ``repro.models.transformer``:
+the embedding towers (``embed_pool``), the LM loss (``loss_fn``) and the
+decode path (``prefill``, ``decode_step``).
 
 PyTorch idiom: a :class:`Transformer` ``nn.Module`` holds the weights, one
 :class:`Block` per layer (not JAX's stacked scan), each weight an
@@ -14,8 +15,15 @@ grad); the plain products (``x @ W``) are PyTorch's. ``remat="full"``
 recomputes each block in the backward pass
 (``torch.utils.checkpoint``), as JAX's ``jax.checkpoint`` per block. JAX's ``constrain_batch`` / ``constrain_seq`` are sharding hints
 that do nothing without a mesh, and are left out. Not here yet: MoE, MLA,
-the MTP head (their flags raise ``NotImplementedError``), the LM loss, and
-the decode path.
+the MTP head (their flags raise ``NotImplementedError``).
+
+The decode path keeps JAX's cache layout, (L, B, S, Hkv, dh), and reads it
+through the hand-written ``flash_decode`` without repeating it to H heads.
+Two deliberate differences make a step the card can run back to back:
+``decode_step`` writes the new keys and values into the cache *in place*
+(JAX returns a new cache; a functional copy of a 32k cache at every token is
+not an option), and the cache's ``length`` stays on the cache's device, so
+a step never waits for the host.
 """
 from __future__ import annotations
 
@@ -26,7 +34,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.kernels.backend import resolve_device
+from repro_torch.kernels.backend import as_tensor, resolve_device
 from repro_torch.models import layers
 
 
@@ -108,7 +116,9 @@ class Attention(nn.Module):
             self.q_norm = _weight((hd,), cfg, device, fill=1.0)
             self.k_norm = _weight((hd,), cfg, device, fill=1.0)
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    def qkv(self, x: torch.Tensor, positions: torch.Tensor):
+        """q (B, S, H, dh), k and v (B, S, Hkv, dh) of x (B, S, d): the
+        products, qk-norm, then RoPE at ``positions`` on q and k."""
         cfg = self.cfg
         b, s, _ = x.shape
         h, hk, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -120,9 +130,18 @@ class Attention(nn.Module):
             k = layers.rms_norm(k, self.k_norm)
         q = layers.apply_rope(q, positions, cfg.rope_theta)
         k = layers.apply_rope(k, positions, cfg.rope_theta)
+        return q, k, v
+
+    def attend(self, q: torch.Tensor, k: torch.Tensor,
+               v: torch.Tensor) -> torch.Tensor:
+        """Causal grouped attention over the whole sequence, then ``wo``."""
+        b, s, h, hd = q.shape
         out = layers.blockwise_attention(q, k, v, causal=True,
-                                         block_kv=cfg.block_kv)
+                                         block_kv=self.cfg.block_kv)
         return out.reshape(b, s, h * hd) @ self.wo
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        return self.attend(*self.qkv(x, positions))
 
 
 class Block(nn.Module):
@@ -137,8 +156,14 @@ class Block(nn.Module):
         self.ffn = layers.SwiGLU(cfg.d_model, cfg.d_ff, cfg.dtype, device)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(layers.rms_norm(x, self.ln1), positions)
-        return x + self.ffn(layers.rms_norm(x, self.ln2))
+        return self.forward_kv(x, positions)[0]
+
+    def forward_kv(self, x: torch.Tensor, positions: torch.Tensor):
+        """(the block's output, this layer's k and v): ``prefill`` keeps
+        the k and v that the attention used, as JAX re-derives them."""
+        q, k, v = self.attn.qkv(layers.rms_norm(x, self.ln1), positions)
+        x = x + self.attn.attend(q, k, v)
+        return x + self.ffn(layers.rms_norm(x, self.ln2)), k, v
 
 
 class ForwardOut(NamedTuple):
@@ -175,11 +200,15 @@ class Transformer(nn.Module):
         self.embed_head = (_weight((cfg.d_model, cfg.embed_dim), cfg, dev)
                            if cfg.embed_dim else None)
 
+    def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        """(B, S) ids -> (B, S, d) rows of the token table, in cfg.dtype."""
+        return self.embed[lookup_ids(tokens, self.cfg.vocab)].to(self.cfg.dtype)
+
     def forward(self, tokens: torch.Tensor, *,
                 with_logits: bool = True) -> ForwardOut:
         """tokens: (B, S) integer ids on the model's device."""
         s = tokens.shape[1]
-        x = self.embed[lookup_ids(tokens, self.cfg.vocab)].to(self.cfg.dtype)
+        x = self.embed_tokens(tokens)
         positions = torch.arange(s, device=x.device)
         remat = self.cfg.remat != "none" and torch.is_grad_enabled()
         for blk in self.blocks:
@@ -229,3 +258,146 @@ def embed_pool(model: Transformer, tokens: torch.Tensor) -> torch.Tensor:
         pooled = pooled @ model.embed_head
     pooled = pooled.float()
     return pooled * torch.rsqrt((pooled * pooled).sum(-1, keepdim=True) + 1e-9)
+
+
+# --------------------------------------------------------------------------
+# the LM loss
+# --------------------------------------------------------------------------
+def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each position's logsumexp(logits) - logits[label], in f32."""
+    lf = logits.float()
+    gold = lf.gather(-1, labels.long()[..., None])[..., 0]
+    return torch.logsumexp(lf, dim=-1) - gold
+
+
+def _chunk_ce(hidden: torch.Tensor, embed: torch.Tensor,
+              labels: torch.Tensor) -> torch.Tensor:
+    """The summed cross entropy of one chunk's tied-head logits."""
+    return _nll(hidden @ embed.T, labels).sum()
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean over positions of logsumexp(logits) - logits[label], in f32."""
+    return _nll(logits, labels).mean()
+
+
+def chunked_cross_entropy(hidden: torch.Tensor, embed: torch.Tensor,
+                          labels: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Cross entropy against the tied head without the (B, S, V) logits: the
+    sequence in chunks of ``chunk`` positions (and the remainder), each
+    chunk's logits recomputed in the backward pass (``torch.utils.
+    checkpoint``, as JAX's ``jax.checkpoint``); the chunks' sums added in
+    order, over B·S."""
+    b, s, _ = hidden.shape
+    chunk = min(chunk, s)
+    remat = torch.is_grad_enabled()
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for lo in range(0, s, chunk):
+        args = (hidden[:, lo:lo + chunk], embed, labels[:, lo:lo + chunk])
+        total = total + (checkpoint(_chunk_ce, *args, use_reentrant=False)
+                         if remat else _chunk_ce(*args))
+    return total / (b * s)
+
+
+def loss_fn(model: Transformer, batch: dict) -> tuple[torch.Tensor, dict]:
+    """JAX's ``loss_fn(params, batch, cfg)``: next-token cross entropy
+    (chunked when S > ``cfg.ce_chunk``) plus the aux and z losses at JAX's
+    coefficients (both 0 for a dense model). ``batch``: ``tokens`` and
+    ``labels``, (B, S) ids (numpy arrays or tensors; moved to the model's
+    device). Returns (total, {"ce", "aux", "z", "loss"})."""
+    cfg = model.cfg
+    dev = model.embed.device
+    tokens = as_tensor(batch["tokens"], dev)
+    labels = as_tensor(batch["labels"], dev)
+    use_chunked = bool(cfg.ce_chunk) and tokens.shape[1] > cfg.ce_chunk
+    out = forward(model, tokens, with_logits=not use_chunked)
+    if use_chunked:
+        ce = chunked_cross_entropy(out.hidden, model.embed, labels,
+                                   cfg.ce_chunk)
+    else:
+        ce = cross_entropy(out.logits, labels)
+    total = ce + cfg.aux_loss_coef * out.aux_loss + cfg.z_loss_coef * out.z_loss
+    return total, {"ce": ce, "aux": out.aux_loss, "z": out.z_loss,
+                   "loss": total}
+
+
+# --------------------------------------------------------------------------
+# the decode path
+# --------------------------------------------------------------------------
+class KVCache(NamedTuple):
+    """k, v: (L, B, S, Hkv, dh) in cfg.dtype; ``length``: a 0-d int32 tensor
+    on the cache's device, the tokens already in the cache."""
+    k: torch.Tensor
+    v: torch.Tensor
+    length: torch.Tensor
+
+
+def init_cache(cfg: TransformerConfig, batch: int, max_seq: int,
+               length: int = 0, device=None) -> KVCache:
+    """An empty cache of ``max_seq`` positions on ``device`` (the card
+    unless ``"cpu"``)."""
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    return KVCache(k=torch.zeros(shape, dtype=cfg.dtype, device=dev),
+                   v=torch.zeros(shape, dtype=cfg.dtype, device=dev),
+                   length=torch.tensor(length, dtype=torch.int32, device=dev))
+
+
+@torch.no_grad()
+def prefill(model: Transformer, tokens: torch.Tensor,
+            max_seq: int | None = None) -> tuple[torch.Tensor, KVCache]:
+    """Run the prompt (B, S) and return (the last position's logits (B, 1, V),
+    a cache of ``max_seq`` (default S) positions holding the prompt's).
+
+    The blocks' forward as in training (``blockwise_attention``); each
+    layer's k (k-norm under qk-norm, then RoPE) and v are the ones its
+    attention used, written into the cache's first S positions. The logits
+    are ``hidden[:, -1:] @ embed.T``: the (B, S, V) logits are never made.
+    """
+    cfg = model.cfg
+    b, s = tokens.shape
+    cache = init_cache(cfg, b, max_seq or s, length=s, device=tokens.device)
+    x = model.embed_tokens(tokens)
+    positions = torch.arange(s, device=x.device)
+    for i, blk in enumerate(model.blocks):
+        x, k, v = blk.forward_kv(x, positions)
+        cache.k[i, :, :s] = k
+        cache.v[i, :, :s] = v
+    x = layers.rms_norm(x, model.final_norm)
+    return x[:, -1:] @ model.embed.T, cache
+
+
+def _decode_attn_gqa(attn: Attention, x: torch.Tensor, cache_k: torch.Tensor,
+                     cache_v: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
+    """JAX's ``_decode_attn_gqa`` with the cache written in place: x (B, 1, d)
+    at position ``length``; its k and v go into slot ``length`` of the
+    layer's (B, S, Hkv, dh) cache (the last slot when the cache is full, as
+    JAX's ``dynamic_update_slice`` clamps), then attention over
+    ``length + 1`` keys."""
+    b = x.shape[0]
+    q, k, v = attn.qkv(x, length.view(1, 1).expand(b, 1))
+    slot = length.clamp(max=cache_k.shape[1] - 1).view(1).long()
+    cache_k.index_copy_(1, slot, k)
+    cache_v.index_copy_(1, slot, v)
+    out = layers.decode_attention(q, cache_k, cache_v, length=length + 1)
+    return out.reshape(b, 1, -1) @ attn.wo
+
+
+@torch.no_grad()
+def decode_step(model: Transformer, tokens: torch.Tensor,
+                cache: KVCache) -> tuple[torch.Tensor, KVCache]:
+    """One decode step. tokens: (B, 1). Returns (logits (B, 1, V), the cache
+    with ``length + 1``).
+
+    The cache's k and v are updated in place (the returned cache holds the
+    same tensors); no step reads a value back to the host, so steps queue
+    on the card back to back."""
+    length = cache.length
+    x = model.embed_tokens(tokens)
+    for i, blk in enumerate(model.blocks):
+        x = x + _decode_attn_gqa(blk.attn, layers.rms_norm(x, blk.ln1),
+                                 cache.k[i], cache.v[i], length)
+        x = x + blk.ffn(layers.rms_norm(x, blk.ln2))
+    x = layers.rms_norm(x, model.final_norm)
+    return x @ model.embed.T, KVCache(cache.k, cache.v, length + 1)

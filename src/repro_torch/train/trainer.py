@@ -1,19 +1,23 @@
-"""The training loop, the counterpart of ``repro.train.trainer`` without
-checkpoints.
+"""The fault-tolerant training loop, the counterpart of
+``repro.train.trainer``.
 
 * a train step with **microbatch gradient accumulation** (the micro-batches'
   gradients summed in order in f32, then divided);
 * optional top-k gradient sparsification with error feedback;
+* checkpoint/restart: params, the optimizer's state (step, f32 master,
+  moments, int8 ones included), the error feedback and the data iterator's
+  cursor are saved atomically (``repro_torch.checkpoint``) and restored by
+  :meth:`Trainer.maybe_restore` — a killed job resumes at the exact step
+  with the exact data stream, bit for bit;
 * **straggler watchdog**: per-step wall-time EMA; steps slower than
   ``watchdog_factor`` x EMA are recorded;
 * the deterministic data pipeline (``repro_torch.data.pipeline``) feeds it.
 
 PyTorch idiom: the step runs eagerly (JAX jits it); gradients come from
 ``torch.autograd.grad`` on the trainer's own copy of the params (a module or a
-flat dict of tensors), which the optimizer's new values are copied into.
-Runs on the card unless ``device="cpu"``, and raises without one.
-Checkpoint/restart is not ported yet (ROADMAP.md, queue 1, item 3b):
-``ckpt_dir`` raises ``NotImplementedError``.
+flat dict of tensors), which the optimizer's new values are copied into; a
+restore copies the checkpoint into those same tensors. Runs on the card
+unless ``device="cpu"``, and raises without one.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ from typing import Any, Callable, Iterator
 import torch
 from torch import nn
 
+from repro_torch.checkpoint.manager import CheckpointManager, flatten
 from repro_torch.kernels.backend import as_tensor, resolve_device
 from repro_torch.train import compression
 from repro_torch.train.optimizer import AdamWConfig, make_adamw, named
@@ -61,11 +66,6 @@ class Trainer:
         *,
         device=None,
     ):
-        if cfg.ckpt_dir:
-            raise NotImplementedError(
-                "Trainer: checkpoint/restart (ckpt_dir) is not ported yet; it "
-                "comes with checkpoint/manager.py (ROADMAP.md, queue 1, "
-                "item 3b)")
         self.cfg = cfg
         self.loss_fn = loss_fn
         self.device = resolve_device(device)
@@ -78,7 +78,11 @@ class Trainer:
         self.step = 0
         self.step_times: list[float] = []
         self.straggler_steps: list[int] = []
-        self.manager = None
+        self.manager = (
+            CheckpointManager(cfg.ckpt_dir, keep=cfg.keep_ckpts, config=opt_cfg)
+            if cfg.ckpt_dir
+            else None
+        )
 
     # ------------------------------------------------------------------
     def _value_and_grad(self, batch: dict):
@@ -121,19 +125,48 @@ class Trainer:
         return loss, stats
 
     # ------------------------------------------------------------------
+    def _tree(self) -> dict:
+        """What a checkpoint holds: {"params", "opt", "ef"?}, ``opt`` the
+        optimizer's state with its step as a 0-d int64 leaf."""
+        opt = self.opt_state._replace(step=torch.tensor(self.opt_state.step))
+        tree = {"params": named(self.params), "opt": opt}
+        if self.ef is not None:
+            tree["ef"] = self.ef
+        return tree
+
     def maybe_restore(self, data_state: dict | None = None) -> dict | None:
-        """Resume from the latest checkpoint if one exists: without a
-        checkpoint manager there is none, so ``data_state`` comes back."""
-        return data_state
+        """Resume from the latest checkpoint if one exists: its params,
+        optimizer state and error feedback are copied into the trainer's
+        own tensors, ``step`` is the checkpoint's, and the saved data cursor
+        is returned (``data_state`` when there is no checkpoint)."""
+        if self.manager is None or self.manager.latest_step() is None:
+            return data_state
+        tree = self._tree()
+        # read onto the host, then copied into place: no second copy of the
+        # state on the card
+        restored, manifest = self.manager.restore(
+            tree, device_for=lambda path, arr: "cpu")
+        got = flatten(restored)
+        with torch.no_grad():
+            for path, t in flatten(tree).items():
+                t.copy_(got[path])
+        self.opt_state = self.opt_state._replace(step=int(got["opt/step"]))
+        self.step = manifest["step"]
+        return manifest.get("data_state", data_state)
 
     def save(self, data_state: dict | None = None, *, sync: bool = False) -> None:
-        """No-op without a checkpoint manager, as JAX's."""
+        """Checkpoint the current step (no-op without ``ckpt_dir``, as
+        JAX's); every tensor is on the host when this returns."""
+        if self.manager is None:
+            return
+        self.manager.save(self.step, self._tree(),
+                          extra={"data_state": data_state or {}},
+                          async_=not sync)
 
     # ------------------------------------------------------------------
     def run(self, batches: Iterator[dict], *, steps: int | None = None,
             data_state_fn: Callable[[], dict] | None = None,
             log: Callable[[str], None] = print) -> dict:
-        del data_state_fn  # read only to save a checkpoint
         steps = steps if steps is not None else self.cfg.total_steps
         losses = []
         ema = None
@@ -156,6 +189,10 @@ class Trainer:
                     f"step {self.step}: loss={loss:.4f} "
                     f"gnorm={float(stats.get('grad_norm', 0)):.3f} {dt*1e3:.0f}ms"
                 )
+            if self.manager and self.step % self.cfg.ckpt_every == 0:
+                self.save(data_state_fn() if data_state_fn else None)
+        if self.manager:
+            self.save(data_state_fn() if data_state_fn else None, sync=True)
         return {
             "losses": losses,
             "final_loss": losses[-1] if losses else None,

@@ -5,6 +5,8 @@ no JAX, so it runs on a machine with the card:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
+import shutil
+
 import numpy as np
 import pytest
 import torch
@@ -1055,3 +1057,201 @@ def test_scatter_gather_search_on_card_equals_cpu(dev):
         torch.testing.assert_close(got[1].cpu(), want[1], rtol=1e-5,
                                    atol=1e-5)
         assert int(got[2].max()) <= 2 * max(10, quota // 2)
+
+
+# --------------------------------------------------------------------------
+# the decode path, checkpoint/restart and the training launchers
+# --------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("h,hkv,dh,dv", [(16, 8, 128, 128), (8, 1, 64, 64),
+                                         (6, 2, 24, 40), (4, 2, 18, 30),
+                                         (12, 3, 192, 128)])
+def test_grouped_flash_decode_kernel_vs_plain(dev, dtype, h, hkv, dh, dv):
+    """A grouped cache (GQA, and MQA at one kv head) read as it lies: the
+    vector path (rows of 16-byte multiples, 24/40 too) and the scalar one
+    (18/30); lengths 0, 1, a split's edges, S and past S; one launch."""
+    b, s = 6, 1000
+    c = flash_attention.decode_split(s, b * h)[0]
+    g = torch.Generator().manual_seed(h + hkv + dh)
+    q = _randn(g, b, h, dh, dtype=dtype)
+    k = _randn(g, b, s, hkv, dh, dtype=dtype)
+    v = _randn(g, b, s, hkv, dv, dtype=dtype)
+    lens = torch.tensor([0, 1, c - 1, c + 1, s, s + 5], dtype=torch.int32)
+    want = flash_attention.flash_decode_plain(q, k, v, length=lens)
+    before = flash_attention.launches["flash_decode"]
+    got = ops.flash_decode(q.to(dev), k.to(dev), v.to(dev), length=lens.to(dev))
+    assert flash_attention.launches["flash_decode"] == before + 1
+    assert got.dtype == dtype and got.shape == (b, h, dv)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol,
+                               atol=tol)
+    assert (got[0] == 0).all()
+    # the grouped read equals the kernel on the cache repeated to H heads
+    rep = h // hkv
+    full = ops.flash_decode(q.to(dev), *(t.to(dev).repeat_interleave(rep, 2)
+                                         for t in (k, v)),
+                            length=lens.to(dev))
+    assert torch.equal(full, got)
+    if hkv > 1:  # h - 1 query heads do not divide over hkv
+        with pytest.raises(ValueError, match="kv heads"):
+            ops.flash_decode(q.to(dev)[:, :h - 1].contiguous(), k.to(dev),
+                             v.to(dev), length=3)
+
+
+def _lm_on_both(which):
+    from repro_torch.configs import qwen3_0_6b
+    from repro_torch.models import transformer
+
+    cfg = (qwen3_0_6b.smoke() if which == "qwen3_smoke"
+           else transformer.TransformerConfig(**TOWER_CFGS[which]))
+    return _tower_on_both(cfg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["qwen3_smoke", "gqa_bf16"])
+def test_decode_step_on_card_equals_cpu(dev, which):
+    """``prefill`` then greedy ``decode_step``s on the card against the
+    same steps on the CPU (the card's tokens fed to both): the logits at
+    cosine >= 0.999 and max |d| <= 2e-2 max |logit| (the smoke's limits),
+    the cache within the dtype's tolerance; ``flash_decode`` launched once
+    a layer a step, the cache written in place, and a step that never syncs
+    with the host."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import transformer as T
+
+    card, host = _lm_on_both(which)
+    cfg = card.cfg
+    prompts = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (3, 21)))
+    steps, s = 5, 21 + 5
+
+    def agree(a, b):
+        a, b = a.float().cpu(), b.float()
+        assert torch.isfinite(a).all()
+        assert F.cosine_similarity(a, b, dim=-1).min() >= 0.999
+        assert (a - b).abs().max() <= 2e-2 * b.abs().max()
+
+    with torch.inference_mode():
+        lc, cc = T.prefill(card, prompts.to(dev), max_seq=s)
+        lh, ch = T.prefill(host, prompts, max_seq=s)
+        ptr = cc.k.data_ptr()
+        agree(lc, lh)
+        for i in range(steps):
+            tok = lc[:, -1].argmax(-1, keepdim=True)
+            before = flash_attention.launches["flash_decode"]
+            if i == 1:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                lc, cc = T.decode_step(card, tok, cc)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            assert flash_attention.launches["flash_decode"] == before + \
+                cfg.n_layers
+            lh, ch = T.decode_step(host, tok.cpu(), ch)
+            agree(lc, lh)
+        assert cc.k.data_ptr() == ptr and int(cc.length) == s
+        tol = ATTN_TOL[cfg.dtype] * 10
+        torch.testing.assert_close(cc.k.cpu().float(), ch.k.float(),
+                                   rtol=tol, atol=tol)
+        torch.testing.assert_close(cc.v.cpu().float(), ch.v.float(),
+                                   rtol=tol, atol=tol)
+
+
+def _resume_case(which):
+    """(loss, model, opt config, make(seed, step), top-k) on the card."""
+    import dataclasses
+    import functools
+
+    from repro_torch.configs.bimetric_paper import cheap_tower_smoke
+    from repro_torch.data.pipeline import contrastive_batch_fn, lm_batch_fn
+    from repro_torch.models import transformer
+    from repro_torch.train import contrastive, optimizer
+
+    if which == "info_nce":
+        cfg = cheap_tower_smoke()
+        return (functools.partial(contrastive.info_nce_loss, temperature=0.2),
+                transformer.init_params(0, cfg, device="cuda"),
+                optimizer.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=8),
+                contrastive_batch_fn(8, 32, cfg.vocab), 0.0)
+    # the LM loss in bf16 (the backward's wgmma route), two chunks of the
+    # cross entropy, int8 moments and top-k error feedback
+    cfg = dataclasses.replace(transformer.TransformerConfig(
+        **TOWER_CFGS["gqa_bf16"]), ce_chunk=32)
+    return (transformer.loss_fn,
+            transformer.init_params(0, cfg, device="cuda"),
+            optimizer.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=8,
+                                  quantized_state=True),
+            lm_batch_fn(4, 64, cfg.vocab), 0.2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["info_nce", "lm_bf16"])
+def test_trainer_checkpoint_resume_on_card_is_bit_equal(dev, tmp_path, which):
+    """A ``Trainer`` killed at step 6, after its async checkpoint of step 4
+    (written while steps 5 and 6 updated the tensors in place) and before
+    its final save, and resumed from it by a fresh one, against an
+    uninterrupted run of 8 steps on the card: the losses after the restart
+    and every state tensor bit-equal (the backward kernel has no float
+    atomics)."""
+    from repro_torch.checkpoint.manager import flatten
+    from repro_torch.data.pipeline import DeterministicIterator
+    from repro_torch.train import trainer
+
+    loss, model, opt, make, topk = _resume_case(which)
+
+    def make_trainer(ckpt_dir=None):
+        return trainer.Trainer(loss, model, opt, trainer.TrainerConfig(
+            total_steps=8, ckpt_dir=ckpt_dir, ckpt_every=4,
+            topk_compress=topk, log_every=100), device=dev)
+
+    flash_attention.reset_launches()
+    full = make_trainer()
+    want = full.run(DeterministicIterator(make, seed=1, device=dev), log=None)
+    if which == "lm_bf16":
+        assert flash_attention.launches["flash_attention_bwd_wgmma"] > 0
+    first = make_trainer(str(tmp_path))
+    it = DeterministicIterator(make, seed=1, device=dev)
+    first.run(it, steps=6, data_state_fn=it.state, log=None)
+    assert first.manager.all_steps() == [4, 6]
+    shutil.rmtree(tmp_path / "step_00000006")
+    del first
+    again = make_trainer(str(tmp_path))
+    state = again.maybe_restore({"seed": 1, "step": 0})
+    assert again.step == 4 and state == {"seed": 1, "step": 4}
+    got = again.run(DeterministicIterator.from_state(make, state, device=dev),
+                    log=None)
+    assert got["losses"] == want["losses"][4:]
+    a, b = flatten(again._tree()), flatten(full._tree())
+    assert a.keys() == b.keys()
+    for path in a:
+        assert torch.equal(a[path], b[path]), path
+
+
+@pytest.mark.cuda
+def test_launch_train_mains_resume_on_card(dev, tmp_path, capsys):
+    """Both launchers' ``main`` at smoke size on the card, each run to a
+    checkpoint and then resumed from it to a later step; the LM launcher's
+    from its async checkpoint (every ``max(steps // 3, 10)`` steps), the
+    run killed before its final save."""
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch import train_biencoder
+
+    args = ["--steps", "12", "--ckpt-dir", str(tmp_path / "lm")]
+    ref, want = launch_train.main(["--steps", "12"])
+    first, _ = launch_train.main(args)
+    assert first.manager.all_steps() == [10, 12]
+    shutil.rmtree(tmp_path / "lm" / "step_00000012")
+    again, got = launch_train.main(args)
+    assert "resumed from step 10" in capsys.readouterr().out
+    assert got["losses"] == want["losses"][10:]
+    bi = ["--ckpt-dir", str(tmp_path / "bi"), "--batch", "8"]
+    out = train_biencoder.main(bi + ["--steps", "10"])
+    assert out["resumed_from"] == 0
+    out = train_biencoder.main(bi + ["--steps", "12"])
+    assert out["resumed_from"] == 10 and len(out["losses"]) == 2
+    assert "resumed from step 10" in capsys.readouterr().out
+    assert 0.0 <= out["recall_at_10"] <= 1.0
+    assert max(out["D_calls"]) <= train_biencoder.QUOTA

@@ -10,8 +10,10 @@ the port on the CPU:
   ``topk_sparsify`` (its mask exactly);
 * ``Trainer`` steps of the smoke tower against JAX's ``Trainer`` on the same
   ``contrastive_batch_fn`` batches, and the cases of ``tests/test_train.py``
-  that need no checkpoint, on the port alone;
-* ``DeterministicIterator``: batches byte-equal to JAX's, and its cursor.
+  that need no checkpoint, on the port alone (the checkpoint cases are in
+  ``tests/test_torch_checkpoint.py``);
+* ``DeterministicIterator`` and ``data.synthetic``'s token batches:
+  batches byte-equal to JAX's, and the iterator's cursor.
 
 Tolerances (f32): a loss of unrelated rows 1e-5 relative; a gradient leaf
 1e-4 of its largest |element| (the InfoNCE temperature 0.05 multiplies the
@@ -34,6 +36,7 @@ import torch
 
 from repro.configs import bimetric_paper as jcfgs
 from repro.data import pipeline as JP
+from repro.data import synthetic as JS
 from repro.models import transformer as JT
 from repro.train import compression as JCP
 from repro.train import contrastive as JC
@@ -42,6 +45,7 @@ from repro.train import trainer as JTR
 from repro_torch import convert
 from repro_torch.configs import bimetric_paper as tcfgs
 from repro_torch.data import pipeline as TP
+from repro_torch.data import synthetic as TS
 from repro_torch.train import compression as TCP
 from repro_torch.train import contrastive as TC
 from repro_torch.train import optimizer as TO
@@ -406,9 +410,6 @@ def test_trainer_topk_error_feedback_matches_jax():
 
 def test_trainer_without_checkpoints():
     opt = TO.AdamWConfig()
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        TTR.Trainer(_quadratic_loss, {"w": torch.zeros(2)}, opt,
-                    TTR.TrainerConfig(ckpt_dir="anywhere"), device=CPU)
     tr = TTR.Trainer(_quadratic_loss, {"w": torch.zeros(2)}, opt,
                      TTR.TrainerConfig(), device=CPU)
     state = {"seed": 1, "step": 4}
@@ -423,9 +424,21 @@ def test_trainer_without_checkpoints():
 # --------------------------------------------------------------------------
 # the data iterator
 # --------------------------------------------------------------------------
-@pytest.mark.parametrize("fn", ["lm_batch_fn", "contrastive_batch_fn"])
+def _synthetic(module, name):
+    """``data.synthetic``'s batch of ``seed`` as a ``make(seed, step)``."""
+    fn = getattr(module, name)
+    return lambda b, s, v: lambda seed, step: fn(batch=b, seq_len=s, vocab=v,
+                                                 seed=seed + step)
+
+
+@pytest.mark.parametrize("fn", ["lm_batch_fn", "contrastive_batch_fn",
+                                "make_lm_tokens", "make_contrastive_pairs"])
 def test_batches_equal_jax(fn):
-    jmake, tmake = getattr(JP, fn)(3, 9, 1000), getattr(TP, fn)(3, 9, 1000)
+    if fn.startswith("make_"):
+        jmake = _synthetic(JS, fn)(3, 9, 1000)
+        tmake = _synthetic(TS, fn)(3, 9, 1000)
+    else:
+        jmake, tmake = getattr(JP, fn)(3, 9, 1000), getattr(TP, fn)(3, 9, 1000)
     for seed, step in ((0, 0), (0, 1), (5, 0), (5, 17)):
         want, got = jmake(seed, step), tmake(seed, step)
         assert got.keys() == want.keys()
