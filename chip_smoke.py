@@ -129,9 +129,26 @@ Phases (any failure exits nonzero and prints no result line):
    the launcher, bit-equal;
 13. ``launch/train_biencoder.main`` at ``--scale 100m``, 10 steps, then 20
    on the same checkpoint directory (it must resume from step 10), its
-   search launching the gather and the merge; recall@10 under the teacher.
+   search launching the gather and the merge; recall@10 under the teacher;
+14. the recommender models (``models/recsys.py``) at their full configs,
+   weights from each ``*_init`` with a seeded generator on the card: per
+   model (a) serving at 512 and 262,144 rows (BERT4Rec's ``_serve`` top-10;
+   xDeepFM in row chunks of 32,768), ms, rows/s, peak memory and a traced
+   bulk batch; (b) one user against 10^6 candidates (DIN over candidate
+   chunks of 131,072, xDeepFM's own scan at 40,000), a 4,096-candidate
+   slice against the forward on the tiled inputs; (c) 10 ``Trainer``
+   steps (AdamW, no weight decay) at the training batch (BERT4Rec 8,192 in
+   loss chunks of 512, xDeepFM 16,384) on synthetic batches whose labels
+   follow a rule of the ids, the losses finite and falling, every table's
+   gradient nonzero, the step's split, the backward's launches by route
+   (``simt`` for BST's heads of 4, ``tf32`` for BERT4Rec's of 32, both
+   required); then (d) each model on the card against a CPU copy with its
+   tables cut to 65,536 rows (logits, loss, every gradient on 64 rows) and
+   (e) the attention kernels at BST's (512, 8, 21, 4) and BERT4Rec's (64,
+   2, 200, 32) against their plain versions, bit-equal twice, timed beside
+   their bounds and SDPA.
 
-Phases 6, 8, 9 and 12's decoding run under ``torch.inference_mode()``
+Phases 6, 8, 9, 12's decoding and 14's serving run under ``torch.inference_mode()``
 (serving records no autograd graph); ``flash_decode`` and
 ``embedding_bag`` have no backward and refuse an input that requires
 grad.
@@ -3581,6 +3598,463 @@ def biencoder_slice(dev, sizes, rehearse):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 14: the recommender models
+# --------------------------------------------------------------------------
+RECSYS_MODELS = ("bst", "din", "bert4rec", "xdeepfm")
+# card against CPU (d): logits and loss within 1e-4 x their max |value|;
+# each gradient within 1e-4 x its leaf's max |gradient|, plus 1e-8 x the
+# largest |gradient| of any leaf (DIN's last attention bias, which its
+# softmax does not see: 0 in exact arithmetic, rounding noise on both
+# sides); fixed before the first run
+RECSYS_CROSS_REL = 1e-4
+RECSYS_GRAD_FLOOR = 1e-8
+# retrieval against the forward on the tiled inputs (JAX's check)
+RECSYS_SCORE_REL = 1e-5
+# the tables of each model, whose gradients must not be all zero
+RECSYS_TABLES = {"bst": ("item_emb",), "din": ("item_emb",),
+                 "bert4rec": ("item_emb",), "xdeepfm": ("table", "linear")}
+
+
+def _rs_batch(name, cfg, b, g, dev, pool):
+    """A seeded batch of ``name``'s loss on the card, ids from the first
+    ``pool`` rows (each row seen often enough that a step can learn it);
+    labels by a fixed rule of the ids: BST and DIN 1 where the target id is
+    a multiple of 4 (a quarter of the rows: the base rate alone lets a loss
+    fall in a few steps; 10 % of history ids padding, -1); xDeepFM the same
+    rule on the first candidate field's id; BERT4Rec's masked labels the
+    items at the masked positions (the input is not masked, as in JAX's
+    loss)."""
+    def ids(hi, *shape):
+        return torch.randint(0, hi, shape, generator=g, device=dev,
+                             dtype=torch.int32)
+
+    if name in ("bst", "din"):
+        hist = ids(pool, b, cfg.seq_len)
+        pad = torch.rand(hist.shape, generator=g, device=dev) < 0.1
+        target = ids(pool, b)
+        return {"hist": torch.where(pad, -1, hist), "target": target,
+                "label": (target % 4 == 0).float()}
+    if name == "bert4rec":
+        items = ids(pool, b, cfg.seq_len)
+        pos = ids(cfg.seq_len, b, cfg.n_masked)
+        return {"items": items, "mask_pos": pos,
+                "mask_labels": items.gather(1, pos.long())}
+    fields = ids(pool, b, cfg.n_fields)
+    first = cfg.n_fields - cfg.n_item_fields
+    return {"fields": fields, "label": (fields[:, first] % 4 == 0).float()}
+
+
+def _rs_vocab(cfg):
+    """The rows an id may take: the table's (each field's for xDeepFM)."""
+    return getattr(cfg, "field_vocab", None) or cfg.vocab
+
+
+def _rs_serve(name, model, batch, rz):
+    """The serving step: the forward (DIN, BST), ``_serve``'s top-10
+    (BERT4Rec: its encoder is the forward), the forward in row chunks of
+    ``xdfm_serve_chunk`` (xDeepFM: one CIN product of a 262,144-row batch
+    would be 82 GB)."""
+    from repro_torch.configs import bert4rec
+    from repro_torch.models import recsys as R
+
+    if name == "bert4rec":
+        return bert4rec._serve(model, batch)
+    if name == "xdeepfm":
+        return torch.cat([R.xdeepfm_forward(model, f) for f in
+                          batch["fields"].split(rz["xdfm_serve_chunk"])])
+    return getattr(R, f"{name}_forward")(model, batch["hist"],
+                                         batch["target"])
+
+
+def _rs_retrieve(name, model, user, cand, rz):
+    """``*_score_candidates`` for one user: DIN over the caller's candidate
+    chunks (its (N, 100, 72) attention input would be 28.8 GB at 10^6),
+    xDeepFM at ``chunk=xdfm_cand_chunk`` (its own scan)."""
+    from repro_torch.models import recsys as R
+
+    if name == "din":
+        return torch.cat([R.din_score_candidates(model, user, c)
+                          for c in cand.split(rz["din_cand_chunk"])])
+    if name == "xdeepfm":
+        return R.xdeepfm_score_candidates(model, user, cand,
+                                          chunk=rz["xdfm_cand_chunk"])
+    return getattr(R, f"{name}_score_candidates")(model, user, cand)
+
+
+def _rs_pointwise(name, model, user, cand):
+    """The forward on the tiled inputs of a retrieval: one row per
+    candidate (BERT4Rec: the last hidden against each candidate's row)."""
+    from repro_torch.models import recsys as R
+
+    n = cand.shape[0]
+    if name == "bert4rec":
+        h = R.bert4rec_encode(model, user)[:, -1]
+        return (h @ model.item_emb[cand.long()].T)[0]
+    if name == "xdeepfm":
+        return R.xdeepfm_forward(model, torch.cat(
+            [user.expand(n, user.shape[1]), cand], dim=1))
+    return getattr(R, f"{name}_forward")(model, user.expand(n,
+                                                            user.shape[1]),
+                                         cand)
+
+
+def _rs_user(name, cfg, g, dev, n):
+    """One user's side and n candidates, ids over the whole table."""
+    def ids(hi, *shape):
+        return torch.randint(0, hi, shape, generator=g, device=dev,
+                             dtype=torch.int32)
+
+    if name == "xdeepfm":
+        k = cfg.n_item_fields
+        return (ids(cfg.field_vocab, 1, cfg.n_fields - k),
+                ids(cfg.field_vocab, n, k))
+    return ids(cfg.vocab, 1, cfg.seq_len), ids(cfg.vocab, n)
+
+
+def _rs_loss_fn(name, rz):
+    from repro_torch.models import recsys as R
+
+    if name == "bert4rec":
+        return functools.partial(R.bert4rec_loss, chunk=rz["b4r_chunk"])
+    return getattr(R, f"{name}_loss")
+
+
+def _rs_serving(name, cfg, model, g, dev, rz):
+    """(a) the serving step at each batch, (b) retrieval for one user, its
+    slice against the forward on the tiled inputs."""
+    out = dict(serve=[])
+    for b in rz["serve"]:
+        batch = {k: v for k, v in _rs_batch(name, cfg, b, g, dev,
+                                            _rs_vocab(cfg)).items()
+                 if k not in ("label", "mask_pos", "mask_labels")}
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        res = _rs_serve(name, model, batch, rz)
+        first = res[0] if isinstance(res, tuple) else res
+        require(first.shape[0] == b and bool(torch.isfinite(first).all()),
+                f"{name} serve at {b}: shape {tuple(first.shape)} or "
+                "non-finite scores")
+        sec = _wall_s(lambda: _rs_serve(name, model, batch, rz),
+                      rz["serve_reps"])
+        row = dict(batch=b, ms=1e3 * sec, rows_per_s=b / sec)
+        if dev.type == "cuda":
+            row["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+            if b == max(rz["serve"]):
+                row["trace"] = profile_batch(
+                    lambda: _rs_serve(name, model, batch, rz))
+        out["serve"].append(row)
+        del batch, res, first
+    user, cand = _rs_user(name, cfg, g, dev, rz["n_cand"])
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    scores = _rs_retrieve(name, model, user, cand, rz)
+    require(scores.shape == (rz["n_cand"],)
+            and bool(torch.isfinite(scores).all()),
+            f"{name} retrieval: shape or non-finite scores")
+    sec = _wall_s(lambda: _rs_retrieve(name, model, user, cand, rz),
+                  rz["retrieve_reps"])
+    n = rz["check_cands"]
+    point = _rs_pointwise(name, model, user, cand[:n])
+    err = float((scores[:n] - point).abs().max())
+    scale = float(scores.abs().max())
+    require(err <= RECSYS_SCORE_REL * scale,
+            f"{name} retrieval vs forward on {n} tiled rows: {err:.3e} "
+            f"(max |score| {scale:.3e})")
+    out["retrieval"] = dict(n_candidates=rz["n_cand"], ms=1e3 * sec,
+                            candidates_per_s=rz["n_cand"] / sec,
+                            max_abs_err_vs_forward=err, max_abs_score=scale)
+    if dev.type == "cuda":
+        out["retrieval"]["max_memory_allocated"] = (
+            torch.cuda.max_memory_allocated())
+    return out
+
+
+def _rs_train(name, cfg, model, g, dev, rz, rehearse):
+    """(c) ``Trainer`` steps at the training batch on synthetic batches made
+    on the card before the run; the forward / backward / optimizer split on
+    one more batch; the tables' gradients nonzero."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    b, steps = rz["train"][name], rz["steps"]
+    pool = min(rz["pool"], _rs_vocab(cfg))
+    loss_fn = _rs_loss_fn(name, rz)
+    opt = AdamWConfig(lr=rz["lr"], warmup_steps=rz["warmup"],
+                      total_steps=steps, weight_decay=0.0)
+    batches = [_rs_batch(name, cfg, b, g, dev, pool) for _ in range(steps + 1)]
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(loss_fn, model, opt,
+                 TrainerConfig(total_steps=steps, log_every=steps), device=dev)
+    before = dict(fa.launches)
+    res = tr.run(iter(batches[:steps]), log=lambda m: log("      " + m))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    launches = {k: fa.launches[k] - before[k] for k in before}
+    losses = res["losses"]
+    tail = tr.step_times[2:]
+    out = dict(batch=b, steps=steps, lr=opt.lr, warmup=opt.warmup_steps,
+               pool=pool, losses=losses, launches=launches,
+               step_ms=[1e3 * t for t in tr.step_times],
+               step_ms_median=1e3 * statistics.median(tail),
+               rows_per_s=b / statistics.median(tail))
+    if dev.type == "cuda":
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    require(all(math.isfinite(x) for x in losses),
+            f"{name}: a training loss is not finite: {losses}")
+    fell = statistics.mean(losses[-3:]) < statistics.mean(losses[:3])
+    out["fell"] = fell
+    require(fell or rehearse, f"{name}: the loss did not fall: {losses}")
+    extra = batches[steps]
+    params = list(tr.params.parameters())
+    out["forward_ms"] = 1e3 * _wall_s(lambda: loss_fn(tr.params, extra)[0],
+                                      3)
+    out["forward_backward_ms"] = 1e3 * _wall_s(
+        lambda: torch.autograd.grad(loss_fn(tr.params, extra)[0], params), 3)
+    out["backward_ms"] = out["forward_backward_ms"] - out["forward_ms"]
+    out["optimizer_and_rest_ms"] = (out["step_ms_median"]
+                                    - out["forward_backward_ms"])
+    named = dict(tr.params.named_parameters())
+    tables = [named[t] for t in RECSYS_TABLES[name]]
+    grads = torch.autograd.grad(loss_fn(tr.params, extra)[0], tables)
+    out["table_grad_abs_sum"] = {t: float(gr.abs().sum()) for t, gr in
+                                 zip(RECSYS_TABLES[name], grads)}
+    require(all(v > 0 for v in out["table_grad_abs_sum"].values()),
+            f"{name}: a table's gradient is all zero: "
+            f"{out['table_grad_abs_sum']}")
+    del tr, batches, extra, params, named, tables, grads
+    return out
+
+
+def _rs_cut_copy(name, cfg, model, cut):
+    """The model on the CPU with each table cut to its first ``cut`` rows
+    (xDeepFM: each field's first ``cut`` rows; BERT4Rec's whole, as its
+    loss runs over the catalogue); returns (the copy, its config, the rows
+    of each table kept, on the card)."""
+    import dataclasses
+
+    from repro_torch.models import recsys as R
+
+    dev = next(model.parameters()).device
+    if name == "bert4rec":  # its loss is over the whole catalogue: kept
+        cut = cfg.vocab
+    if name == "xdeepfm":
+        ccfg = dataclasses.replace(cfg, field_vocab=min(cut, cfg.field_vocab))
+        rows = (torch.arange(cfg.n_fields, device=dev)[:, None]
+                * cfg.field_vocab + torch.arange(ccfg.field_vocab,
+                                                 device=dev)[None]).reshape(-1)
+    else:
+        ccfg = dataclasses.replace(cfg, vocab=min(cut, cfg.vocab))
+        rows = torch.arange(ccfg.vocab, device=dev)
+    cpu = getattr(R, f"{name}_init")(0, ccfg, device="cpu")
+    src = dict(model.named_parameters())
+    with torch.no_grad():
+        for n, p in cpu.named_parameters():
+            w = src[n][rows] if n in RECSYS_TABLES[name] else src[n]
+            p.copy_(w.cpu())
+    return cpu, ccfg, rows
+
+
+def _rs_cross(name, cfg, model, g, dev, rz):
+    """(d) the full config's weights on the card against a copy on the CPU
+    with the tables cut; ids below the cut: logits (BERT4Rec: the last
+    hidden against the catalogue), loss and every gradient."""
+    from repro_torch.models import recsys as R
+
+    cpu, ccfg, rows = _rs_cut_copy(name, cfg, model, rz["cross_rows"])
+    batch = _rs_batch(name, ccfg, rz["cross_batch"], g, dev,
+                      _rs_vocab(ccfg))
+    loss_fn = _rs_loss_fn(name, rz)
+
+    def run(m, b):
+        with torch.no_grad():
+            if name == "bert4rec":
+                h = R.bert4rec_encode(m, b["items"])[:, -1]
+                logits = h @ m.item_emb.T
+            elif name == "xdeepfm":
+                logits = R.xdeepfm_forward(m, b["fields"])
+            else:
+                logits = getattr(R, f"{name}_forward")(m, b["hist"],
+                                                       b["target"])
+        loss, _ = loss_fn(m, b)
+        names = [n for n, _ in m.named_parameters()]
+        grads = torch.autograd.grad(loss, list(m.parameters()))
+        return logits, loss, dict(zip(names, grads))
+
+    lg, ls, gg = run(model, batch)
+    lw, lsw, gw = run(cpu, {k: v.cpu() for k, v in batch.items()})
+    out = dict(cpu_table_rows=_rs_vocab(ccfg), batch=rz["cross_batch"])
+    out["logit_rel"] = float((lg.cpu() - lw).abs().max() / lw.abs().max())
+    out["loss_rel"] = float((ls.detach().cpu() - lsw.detach()).abs()
+                            / lsw.detach().abs())
+    floor = RECSYS_GRAD_FLOOR * max(float(w.abs().max()) for w in gw.values())
+    share = {}  # each leaf's error over its limit
+    for n, w in gw.items():
+        got = gg[n][rows] if n in RECSYS_TABLES[name] else gg[n]
+        err = float((got.cpu() - w).abs().max())
+        lim = RECSYS_CROSS_REL * float(w.abs().max()) + floor
+        require(err <= lim and bool(torch.isfinite(got).all()),
+                f"{name} card vs CPU: gradient of {n} {err:.3e} > {lim:.3e}")
+        share[n] = err / lim if lim else 0.0
+    out["grad_err_over_limit"] = max(share.values())
+    out["grad_worst_leaf"] = max(share, key=share.get)
+    require(out["logit_rel"] <= RECSYS_CROSS_REL
+            and out["loss_rel"] <= RECSYS_CROSS_REL,
+            f"{name} card vs CPU: {out}")
+    return out
+
+
+def _rs_attention(dev, shapes, rehearse):
+    """(e) the recommenders' attention against the plain versions: the SIMT
+    forward (f32, non-causal) within phase 6's f32 limit, the backward on
+    the route ``_backward_route`` picks within ``BWD_TOL`` (counted under
+    it), each bit-equal on a second call; with times (CUDA events, graph
+    replay) beside the bound (bytes over 3.35 TB/s, operations over 67
+    TFLOP/s in f32; the tf32 route's three products at its tensor-core
+    rate), the plain versions and SDPA's forward and backward."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(29)
+    rows = []
+    for role, b, h, s, dh, want_route in shapes:
+        q, k, v = _attn_inputs(g, dev, b, h, s, s, dh, dh, F32)
+        dout = torch.randn(b, h, s, dh, generator=g, device=dev)
+        route = fa._backward_route(F32, dh, dh)
+        require(route == want_route, f"{role}: backward route {route}")
+        what = f"{role} attention {(b, h, s, dh)}"
+        with torch.inference_mode():
+            out = fa.flash_attention(q, k, v, causal=False)
+            again = fa.flash_attention(q, k, v, causal=False)
+            want = fa.flash_attention_plain(q, k, v, causal=False)
+            out_l, lse = fa.flash_attention_lse(q, k, v, causal=False)
+        fwd_err = _agree(out, want, ATTN_TOL[F32], what)
+        require(torch.equal(out, again) and torch.equal(out, out_l),
+                f"{what}: two forward calls differ")
+        key = f"flash_attention_bwd_{route}"
+        before = fa.launches[key]
+        got = fa.flash_attention_bwd(q, k, v, out, dout, causal=False, lse=lse)
+        again_b = fa.flash_attention_bwd(q, k, v, out, dout, causal=False,
+                                         lse=lse)
+        if dev.type == "cuda":
+            require(fa.launches[key] == before + 2,
+                    f"{what}: the backward not counted under {key}")
+        gw = fa.flash_attention_bwd_plain(q, k, v, out, dout, causal=False)
+        bwd_err = 0.0
+        for x, w, name in zip(got, gw, ("dq", "dk", "dv")):
+            e = float((x - w).abs().max())
+            require(bool(torch.isfinite(x).all())
+                    and e <= BWD_TOL[F32] * float(w.abs().max()),
+                    f"{what}: {name} max err {e:.3e}")
+            bwd_err = max(bwd_err, e)
+        require(all(torch.equal(x, y) for x, y in zip(got, again_b)),
+                f"{what}: two backward calls differ")
+        pairs = b * h * s * s
+        nbytes = 4 * 4 * q.numel()  # q, k, v read, out written
+        row = dict(role=role, B=b, H=h, S=s, dh=dh, route=route,
+                   fwd_max_abs_err=fwd_err, bwd_max_abs_err=bwd_err)
+        row["bound_ms"], row["bound_by"] = bound(nbytes, 2 * 2 * dh * pairs)
+        row["bwd_bound_ms"], row["bwd_bound_by"] = _bwd_bound(
+            route, F32, 4 * (2 * 3 * q.numel() + 2 * out.numel()), pairs, dh,
+            dh)
+        if not rehearse:
+            with torch.inference_mode():
+                row["ms"] = time_ms(lambda: fa.flash_attention(
+                    q, k, v, causal=False))
+                row["device_ms"] = time_graph_ms(lambda: fa.flash_attention(
+                    q, k, v, causal=False))
+                row["plain_ms"] = time_ms(lambda: fa.flash_attention_plain(
+                    q, k, v, causal=False), reps=5, inner=2)
+                row["library_ms"] = time_ms(
+                    lambda: F.scaled_dot_product_attention(q, k, v))
+            run = lambda: fa._backward_card(q, k, v, out, dout, False,
+                                            dh ** -0.5, lse)
+            row["bwd_ms"] = time_ms(run)
+            row["bwd_device_ms"] = time_graph_ms(run)
+            row["bwd_plain_ms"] = time_ms(lambda: fa.flash_attention_bwd_plain(
+                q, k, v, out, dout, causal=False), reps=5, inner=2)
+            sdpa = _sdpa_backward(q, k, v, dout, False)
+            row.update({f"bwd_{k}": v for k, v in sdpa.items()})
+        rows.append(row)
+        log("  (e) " + json.dumps({k: v for k, v in row.items()
+                                   if "split" not in k}))
+        del q, k, v, dout, out, again, want, out_l, lse, got, again_b, gw
+    return rows
+
+
+def recsys_slice(dev, sizes, rehearse):
+    """Phase 14: the recommender models at ``sizes["recsys"]``'s configs,
+    weights from each ``*_init`` with a seeded generator on the card. The
+    path, its counts set to 0 first: per model (a) serving, (b) retrieval,
+    (c) training; then (d) card against CPU and (e) the attention kernels
+    against their plain versions."""
+    import importlib
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import recsys as R
+
+    rz = sizes["recsys"]
+    out = dict(models={})
+    if dev.type == "cuda":
+        out["memory_allocated_at_start"] = torch.cuda.memory_allocated()
+    fa.reset_launches()  # the path starts here
+    t0 = time.perf_counter()
+    for i, name in enumerate(RECSYS_MODELS):
+        cfg = getattr(importlib.import_module(f"repro_torch.configs.{name}"),
+                      rz["cfg"])()
+        g = torch.Generator(device=dev).manual_seed(rz["seed"] + i)
+        tm = time.perf_counter()
+        model = getattr(R, f"{name}_init")(
+            torch.Generator(device=dev).manual_seed(rz["seed"]), cfg)
+        res = dict(config=cfg.name, params=sum(p.numel() for p in
+                                               model.parameters()))
+        with torch.inference_mode():  # serving records no autograd graph
+            res.update(_rs_serving(name, cfg, model, g, dev, rz))
+        log(f"  {name}: " + json.dumps(
+            {"serve": [{k: v for k, v in r.items() if k != "trace"}
+                       for r in res["serve"]], "retrieval": res["retrieval"]}))
+        res["train"] = _rs_train(name, cfg, model, g, dev, rz, rehearse)
+        del model
+        tr = res["train"]
+        log(f"  {name} (c): losses {json.dumps([round(x, 5) for x in tr['losses']])}; "
+            f"step {tr['step_ms_median']:.3f} ms, {tr['rows_per_s']:.0f} "
+            f"rows/s; forward {tr['forward_ms']:.3f}, backward "
+            f"{tr['backward_ms']:.3f}, optimizer and the rest "
+            f"{tr['optimizer_and_rest_ms']:.3f} ms; launches "
+            f"{ {k: v for k, v in tr['launches'].items() if v} }; peak "
+            f"{tr.get('max_memory_allocated')} bytes")
+        res["s"] = time.perf_counter() - tm
+        out["models"][name] = res
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    out["launches"] = dict(fa.launches)  # read just after the path
+    out["path_s"] = time.perf_counter() - t0
+    if not rehearse:
+        bst_l = out["models"]["bst"]["train"]["launches"]
+        b4r_l = out["models"]["bert4rec"]["train"]["launches"]
+        require(bst_l["flash_attention_bwd_simt"] > 0
+                and b4r_l["flash_attention_bwd_tf32"] > 0,
+                f"the backward's simt (BST) and tf32 (BERT4Rec) routes must "
+                f"both launch: {bst_l}, {b4r_l}")
+        require(out["launches"]["flash_attention_simt"] > 0,
+                "flash_attention was never launched on phase 14's path")
+    for i, name in enumerate(RECSYS_MODELS):
+        cfg = getattr(importlib.import_module(f"repro_torch.configs.{name}"),
+                      rz["cfg"])()
+        model = getattr(R, f"{name}_init")(
+            torch.Generator(device=dev).manual_seed(rz["seed"]), cfg)
+        g = torch.Generator(device=dev).manual_seed(rz["seed"] + 10 + i)
+        out["models"][name]["cross"] = _rs_cross(name, cfg, model, g, dev, rz)
+        log(f"  {name} (d) card vs CPU: "
+            + json.dumps(out["models"][name]["cross"]))
+        del model
+    out["attention"] = _rs_attention(dev, rz["attn"], rehearse)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=171_332,
@@ -3658,7 +4132,19 @@ def main() -> int:
                              cross=dict(batch=2, prompt=8, steps=3),
                              train=dict(arch="qwen3-0.6b", preset="smoke",
                                         batch=2, seq=16, steps=12)),
-                     biencoder=dict(scale="smoke", stop=2, steps=4))
+                     biencoder=dict(scale="smoke", stop=2, steps=4),
+                     recsys=dict(cfg="smoke", seed=0, serve=(16, 64),
+                                 serve_reps=1, n_cand=256, retrieve_reps=1,
+                                 check_cands=64, din_cand_chunk=100,
+                                 xdfm_cand_chunk=64, xdfm_serve_chunk=32,
+                                 train=dict(bst=32, din=32, bert4rec=32,
+                                            xdeepfm=32),
+                                 b4r_chunk=8, steps=10, lr=1e-3, warmup=2,
+                                 pool=64, cross_rows=128, cross_batch=16,
+                                 attn=(("bst serve_p99, toy", 4, 8, 21, 4,
+                                        "simt"),
+                                       ("bert4rec, toy", 2, 2, 40, 32,
+                                        "tf32"))))
     else:
         # timing shapes: build wave (B=1024), stage-1 wave, stage-2 wave,
         # stage-2 entry wave (K = Q/2 seeds), re-rank scoring wave (K = Q)
@@ -3731,7 +4217,28 @@ def main() -> int:
                                         batch=2, seq=4096, steps=12)),
                      # phase 13: examples/train_biencoder.py's pipeline at
                      # --scale 100m, 10 steps, then resumed to 20
-                     biencoder=dict(scale="100m", stop=10, steps=20))
+                     biencoder=dict(scale="100m", stop=10, steps=20),
+                     # phase 14: the recommenders' full configs from a seed;
+                     # serve_p99 and serve_bulk, retrieval_cand (DIN over
+                     # candidate chunks of 131,072, xDeepFM's scan at
+                     # 40,000), train_batch (BERT4Rec cut to 8,192 in loss
+                     # chunks of 512, xDeepFM to 16,384), 10 steps on ids
+                     # from the first 4,096 rows; card vs CPU on 64 rows
+                     # with the tables cut to 65,536 rows
+                     recsys=dict(cfg="full", seed=0, serve=(512, 262144),
+                                 serve_reps=3, n_cand=1_000_000,
+                                 retrieve_reps=2, check_cands=4096,
+                                 din_cand_chunk=131072,
+                                 xdfm_cand_chunk=40000,
+                                 xdfm_serve_chunk=32768,
+                                 train=dict(bst=65536, din=65536,
+                                            bert4rec=8192, xdeepfm=16384),
+                                 b4r_chunk=512, steps=10, lr=1e-3, warmup=2,
+                                 pool=4096, cross_rows=65536, cross_batch=64,
+                                 attn=(("bst serve_p99", 512, 8, 21, 4,
+                                        "simt"),
+                                       ("bert4rec", 64, 2, 200, 32,
+                                        "tf32"))))
 
     t0 = time.perf_counter()
     log("phase 2: kernels vs plain versions")
@@ -3837,6 +4344,15 @@ def main() -> int:
     report["biencoder"] = be
     report["phase13_s"] = time.perf_counter() - t0
 
+    t0 = time.perf_counter()
+    log("phase 14: the recommender models (BST, DIN, BERT4Rec, xDeepFM: "
+        "serving, retrieval, Trainer steps through the attention kernels; "
+        "card vs CPU; the attention kernels at their shapes)")
+    rs = recsys_slice(dev, sizes, rehearse)
+    report["recsys"] = rs
+    report["phase14_s"] = time.perf_counter() - t0
+    log(f"  phase 14 took {report['phase14_s']:.1f} s")
+
     kernels = [
         dict(name="gather_score", route="cuda",
              source="src/repro_torch/kernels/csrc/l2_topk.cu",
@@ -3897,8 +4413,9 @@ def main() -> int:
         errs = [off_errs[name]] + [r["max_abs_err"] for r in off_rows
                                    if r["kernel"] == name]
         extra = {}
-        if name == "flash_attention":  # phase 8: the towers' layers
+        if name == "flash_attention":  # phases 8 and 14
             errs += [r["max_abs_err"] for r in tw["attention"]]
+            errs += [r["fwd_max_abs_err"] for r in rs["attention"]]
             extra["launches_towers"] = sum(
                 n for k, n in tw["launches"].items()
                 if k.startswith(name + "_")
@@ -3917,6 +4434,16 @@ def main() -> int:
             extra["launches_lm_train"] = sum(
                 lm["train"]["launches"][k]
                 for k in ("flash_attention_simt", "flash_attention_wgmma"))
+            # phase 14: the recommenders' serving, retrieval and training
+            extra["launches_recsys"] = sum(
+                rs["launches"][k]
+                for k in ("flash_attention_simt", "flash_attention_wgmma"))
+            extra["recsys_shapes"] = [
+                {k: r.get(k) for k in ("role", "B", "H", "S", "dh", "ms",
+                                       "device_ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms",
+                                       "fwd_max_abs_err")}
+                for r in rs["attention"]]
         if name == "flash_decode":  # phase 12(a): decode_step, on its path
             extra["launches_lm_decode"] = lm["decode"]["launches"][name]
         kernels.append(dict(
@@ -3941,7 +4468,9 @@ def main() -> int:
         replaces="src/repro/models/layers.py:86",
         replaces_note="no TPU counterpart: JAX differentiates the jnp scan "
                       "of blockwise_attention with jax.grad",
-        launches=tn["launches"]["flash_attention_bwd"], max_abs_err=bwd_err,
+        launches=tn["launches"]["flash_attention_bwd"],
+        max_abs_err=max(bwd_err, *(r["bwd_max_abs_err"]
+                                   for r in rs["attention"])),
         launches_by_route={r: tn["launches"][f"flash_attention_bwd_{r}"]
                            for r in ("wgmma", "tf32", "simt")},
         route_d_layer=d_row["route"], ms=d_row.get("ms"),
@@ -3956,6 +4485,16 @@ def main() -> int:
         launches_lm_train_by_route={
             r: lm["train"]["launches"][f"flash_attention_bwd_{r}"]
             for r in ("wgmma", "tf32", "simt")},
+        launches_recsys_by_route={
+            r: rs["launches"][f"flash_attention_bwd_{r}"]
+            for r in ("wgmma", "tf32", "simt")},
+        recsys_shapes=[
+            {k: r.get(k) for k in ("role", "B", "H", "S", "dh", "route",
+                                   "bwd_ms", "bwd_device_ms", "bwd_plain_ms",
+                                   "bwd_bound_ms", "bwd_bound_by",
+                                   "bwd_library_ms", "bwd_library_device_ms",
+                                   "bwd_max_abs_err")}
+            for r in rs["attention"]],
         route_D_layer=big_row["route"],
         ms_D_layer=big_row.get("ms"), plain_ms_D_layer=big_row.get("plain_ms"),
         bound_ms_D_layer=big_row["bound_ms"],

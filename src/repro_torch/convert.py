@@ -19,6 +19,7 @@ from repro_torch.core.distributed import ShardedIndex
 from repro_torch.distributed.sharding import search_mesh
 from repro_torch.core.vamana import VamanaConfig, VamanaIndex
 from repro_torch.kernels.backend import CorpusView, resolve_device
+from repro_torch.models import recsys as R
 from repro_torch.models.transformer import (KVCache, Transformer,
                                             TransformerConfig)
 
@@ -110,14 +111,50 @@ def sharded_index_from_numpy(adjacency, medoid, emb_cheap, emb_expensive,
         config=config)
 
 
-def _flatten(tree: dict, prefix: str = "") -> dict:
+def _flatten(tree: dict | list, prefix: str = "") -> dict:
+    """``{dotted path: leaf}`` of a pytree of dicts and lists (a list's
+    items under their index)."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
     out = {}
-    for key, val in tree.items():
-        if isinstance(val, dict):
+    for key, val in items:
+        if isinstance(val, (dict, list)):
             out.update(_flatten(val, f"{prefix}{key}."))
         else:
-            out[prefix + key] = val
+            out[f"{prefix}{key}"] = val
     return out
+
+
+def _named(tensors: nn.Module | Mapping[str, torch.Tensor]) -> dict:
+    return (dict(tensors.named_parameters()) if isinstance(tensors, nn.Module)
+            else dict(tensors))
+
+
+def _put(tree: dict, path: str, leaf) -> None:
+    """Set ``leaf`` at dotted ``path`` in the nested dict ``tree``."""
+    *heads, last = path.split(".")
+    for key in heads:
+        tree = tree.setdefault(key, {})
+    tree[last] = leaf
+
+
+def _copy_into(model: nn.Module, flat: dict, what: str) -> nn.Module:
+    """Copy ``flat`` ({parameter name: numpy array}) into ``model``'s
+    parameters bit for bit; names, shapes and dtypes must match exactly."""
+    want = dict(model.named_parameters())
+    if flat.keys() != want.keys():
+        raise ValueError(
+            f"{what}: parameters {sorted(flat.keys() ^ want.keys())} are in "
+            "only one of the pytree and the model")
+    dev = next(iter(want.values())).device
+    with torch.no_grad():
+        for name, arr in flat.items():
+            t = tensor_from_numpy(arr, dev)
+            if t.shape != want[name].shape or t.dtype != want[name].dtype:
+                raise ValueError(
+                    f"{what}: {name} is {tuple(t.shape)} {t.dtype}, the "
+                    f"model's {tuple(want[name].shape)} {want[name].dtype}")
+            want[name].copy_(t)
+    return model
 
 
 def transformer_from_numpy(params: dict, cfg: TransformerConfig,
@@ -133,22 +170,7 @@ def transformer_from_numpy(params: dict, cfg: TransformerConfig,
     for name, arr in _flatten(params.get("dense_blocks", {})).items():
         for i in range(np.shape(arr)[0]):
             flat[f"blocks.{i}.{name}"] = np.asarray(arr)[i]
-    want = dict(model.named_parameters())
-    if flat.keys() != want.keys():
-        raise ValueError(
-            f"transformer_from_numpy: {cfg.name}: parameters "
-            f"{sorted(flat.keys() ^ want.keys())} are in only one of the "
-            "pytree and the model")
-    with torch.no_grad():
-        for name, arr in flat.items():
-            t = tensor_from_numpy(arr, dev)
-            if t.shape != want[name].shape or t.dtype != want[name].dtype:
-                raise ValueError(
-                    f"transformer_from_numpy: {name} is {tuple(t.shape)} "
-                    f"{t.dtype}, the model's {tuple(want[name].shape)} "
-                    f"{want[name].dtype}")
-            want[name].copy_(t)
-    return model
+    return _copy_into(model, flat, f"transformer_from_numpy: {cfg.name}")
 
 
 def transformer_to_numpy(tensors: nn.Module | Mapping[str, torch.Tensor]
@@ -158,28 +180,52 @@ def transformer_to_numpy(tensors: nn.Module | Mapping[str, torch.Tensor]
     mapping of its parameter names to tensors (their gradients, say): the
     inverse of :func:`transformer_from_numpy`. ``blocks.<i>.<name>`` rows are
     stacked in layer order on a leading L axis under ``dense_blocks``."""
-    named = (dict(tensors.named_parameters()) if isinstance(tensors, nn.Module)
-             else dict(tensors))
     out: dict = {}
     layers: dict[str, dict[int, np.ndarray]] = {}
-
-    def put(path: str, arr) -> None:
-        *heads, leaf = path.split(".")
-        node = out
-        for key in heads:
-            node = node.setdefault(key, {})
-        node[leaf] = arr
-
-    for name, t in named.items():
+    for name, t in _named(tensors).items():
         if name.startswith("blocks."):
             _, i, rest = name.split(".", 2)
             layers.setdefault(rest, {})[int(i)] = tensor_to_numpy(t)
         else:
-            put(name, tensor_to_numpy(t))
+            _put(out, name, tensor_to_numpy(t))
     for rest, per_layer in layers.items():
-        put(f"dense_blocks.{rest}",
-            np.stack([per_layer[i] for i in sorted(per_layer)]))
+        _put(out, f"dense_blocks.{rest}",
+             np.stack([per_layer[i] for i in sorted(per_layer)]))
     return out
+
+
+_RECSYS = {R.BSTConfig: R.BST, R.DINConfig: R.DIN,
+           R.Bert4RecConfig: R.Bert4Rec, R.XDeepFMConfig: R.XDeepFM}
+
+
+def recsys_from_numpy(params: dict, cfg, device=None) -> nn.Module:
+    """The recommender model of ``cfg`` (a ``BSTConfig``, ``DINConfig``,
+    ``Bert4RecConfig`` or ``XDeepFMConfig``) on ``device``, holding a JAX
+    parameter pytree (``recsys.*_init``'s nested dicts and lists, leaves as
+    numpy arrays) bit for bit. Names, shapes and dtypes must match the
+    model's exactly."""
+    model = _RECSYS[type(cfg)](cfg, resolve_device(device))
+    return _copy_into(model, _flatten(params),
+                      f"recsys_from_numpy: {cfg.name}")
+
+
+def recsys_to_numpy(tensors: nn.Module | Mapping[str, torch.Tensor]) -> dict:
+    """JAX's parameter pytree (leaves as numpy arrays) from a recommender
+    model, or from a mapping of its parameter names to tensors (their
+    gradients, say): the inverse of :func:`recsys_from_numpy`. A path part
+    that is an index (``blocks.0``, ``ws.2``, ``cin.1``) is a list item."""
+    out: dict = {}
+    for name, t in _named(tensors).items():
+        _put(out, name, tensor_to_numpy(t))
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [lists(node[k]) for k in sorted(node, key=int)]
+        return {k: lists(v) for k, v in node.items()}
+
+    return lists(out)
 
 
 def kv_cache_from_numpy(k, v, length, device=None) -> KVCache:

@@ -28,19 +28,24 @@ ARCHS = {
     "sfr-mistral-7b": (bimetric_paper.expensive_tower,
                        bimetric_paper.cheap_tower_smoke),
 }
-#: the JAX registry's other archs, by the ROADMAP item (queue 1) that
-#: ports them
+#: the JAX registry's other LM and GNN archs, by the ROADMAP item (queue
+#: 1) that ports them
 LATER = {
-    "bst": 5, "din": 5, "bert4rec": 5, "xdeepfm": 5,
     "granite-moe-3b-a800m": 6, "deepseek-v3-671b": 6,
     "gat-cora": 7,
     "granite-20b": 8, "deepseek-coder-33b": 8,
 }
+#: the recommender archs (``models/recsys.py``): not of the LM family, which
+#: this launcher drives, as JAX's refuses them
+RECSYS = ("bst", "din", "bert4rec", "xdeepfm")
 
 
 def get_config(arch: str, smoke: bool) -> T.TransformerConfig:
     if arch in ARCHS:
         return ARCHS[arch][1 if smoke else 0]()
+    if arch in RECSYS:
+        raise SystemExit("train launcher currently drives the LM family; "
+                         "see examples/ for GNN/recsys training loops")
     if arch in LATER:
         raise ValueError(f"arch {arch!r} is not ported yet (ROADMAP.md, "
                          f"queue 1, item {LATER[arch]})")

@@ -11,8 +11,8 @@ a CUDA tensor (the tensor-core route for bf16/f16, the SIMT route for f32;
 under grad its backward is the hand-written ``flash_attention_bwd``) and
 through its plain version on a CPU tensor; single-token decode goes through
 the hand-written ``flash_decode`` the same way, reading the grouped cache as
-it lies. Not here yet: ``layer_norm`` and ``mlp`` (only the recommender
-models use them).
+it lies. ``layer_norm`` and ``mlp`` serve the recommender models
+(``models/recsys.py``).
 """
 from __future__ import annotations
 
@@ -53,6 +53,18 @@ def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
     var = (xf * xf).mean(-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
     return (out * gamma.float()).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """JAX's ``layer_norm``: f32 statistics with the population variance
+    and eps 1e-6 (not torch's 1e-5), ``out * gamma + beta`` in f32, then
+    cast back to x's dtype."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, correction=0)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * gamma.float() + beta.float()).to(x.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -190,3 +202,15 @@ def init_swiglu(generator: torch.Generator, d_model: int, d_ff: int,
         for w in (ffn.w_gate, ffn.w_up, ffn.w_down):
             w.copy_(dense_init(generator, *w.shape, dtype))
     return ffn
+
+
+def mlp(x: torch.Tensor, ws, bs, act=F.relu) -> torch.Tensor:
+    """JAX's plain MLP tower (the recommender heads): ``h @ w + b`` per
+    layer (one product with the bias added in it), ``act`` between layers
+    only; the last layer stays linear."""
+    h = x
+    for i, (w, b) in enumerate(zip(ws, bs)):
+        h = F.linear(h, w.t(), b)
+        if i < len(ws) - 1:
+            h = act(h)
+    return h

@@ -1255,3 +1255,126 @@ def test_launch_train_mains_resume_on_card(dev, tmp_path, capsys):
     assert "resumed from step 10" in capsys.readouterr().out
     assert 0.0 <= out["recall_at_10"] <= 1.0
     assert max(out["D_calls"]) <= train_biencoder.QUOTA
+
+
+# --------------------------------------------------------------------------
+# the recommender models (models/recsys.py)
+# --------------------------------------------------------------------------
+RECSYS = ("bst", "din", "bert4rec", "xdeepfm")
+
+
+def _recsys_batch(name, cfg, b, seed):
+    """A seeded batch of ``name``'s loss: ids with some -1 pads (DIN's row
+    0 all padding), labels 0 or 1."""
+    rng = np.random.default_rng(seed)
+
+    def ids(hi, shape, pad=0.0):
+        x = rng.integers(0, hi, shape, dtype=np.int32)
+        return np.where(rng.random(shape) < pad, -1, x).astype(np.int32)
+
+    label = (rng.random(b) < 0.5).astype(np.float32)
+    if name in ("bst", "din"):
+        hist = ids(cfg.vocab, (b, cfg.seq_len), pad=0.2)
+        hist[0] = -1 if name == "din" else hist[0]
+        return {"hist": hist, "target": ids(cfg.vocab, (b,)), "label": label}
+    if name == "bert4rec":
+        return {"items": ids(cfg.vocab, (b, cfg.seq_len), pad=0.1),
+                "mask_pos": ids(cfg.seq_len, (b, cfg.n_masked)),
+                "mask_labels": ids(cfg.vocab, (b, cfg.n_masked))}
+    return {"fields": ids(cfg.field_vocab, (b, cfg.n_fields)), "label": label}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", RECSYS)
+def test_recsys_on_card_equals_cpu(dev, name):
+    """Each model at its smoke config, the same weights and batch on the
+    card and on the CPU: the forward (BERT4Rec's encoder) and the loss
+    within 1e-4 x their max |value|, every gradient per leaf within 1e-4 x
+    its max |gradient| (+ 1e-8 x the largest, for DIN's last attention
+    bias, whose gradient is 0 in exact arithmetic); BST and BERT4Rec launch
+    the forward kernel, and the backward on its route (``simt`` for BST's
+    heads of 4, ``tf32`` for BERT4Rec's of 8)."""
+    import importlib
+
+    from repro_torch.models import recsys as R
+
+    cfg = importlib.import_module(f"repro_torch.configs.{name}").smoke()
+    cpu_model = getattr(R, f"{name}_init")(1, cfg, device="cpu")
+    batch = {k: torch.from_numpy(v)
+             for k, v in _recsys_batch(name, cfg, 16, seed=5).items()}
+    loss_fn = getattr(R, f"{name}_loss")
+
+    def run(model, where):
+        b = {k: v.to(where) for k, v in batch.items()}
+        with torch.no_grad():
+            if name == "bert4rec":
+                out = R.bert4rec_encode(model, b["items"])
+            elif name == "xdeepfm":
+                out = R.xdeepfm_forward(model, b["fields"])
+            else:
+                out = getattr(R, f"{name}_forward")(model, b["hist"],
+                                                    b["target"])
+        loss, _ = loss_fn(model, b)
+        names = [n for n, _ in model.named_parameters()]
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        return out.cpu(), loss.cpu(), {n: g.cpu() for n, g in zip(names,
+                                                                  grads)}
+
+    want = run(cpu_model, "cpu")
+    flash_attention.reset_launches()
+    got = run(cpu_model.to(dev), dev)
+    torch.cuda.synchronize()
+    launches = dict(flash_attention.launches)
+    for x, w in zip(got[:2], want[:2]):
+        assert torch.isfinite(x).all()
+        assert (x - w).abs().max() <= 1e-4 * w.abs().max()
+    floor = 1e-8 * max(float(g.abs().max()) for g in want[2].values())
+    for n, w in want[2].items():
+        err = float((got[2][n] - w).abs().max())
+        assert err <= 1e-4 * float(w.abs().max()) + floor, (n, err)
+    route = {"bst": "simt", "bert4rec": "tf32"}.get(name)
+    if route:
+        dh = cfg.embed_dim // cfg.n_heads
+        assert flash_attention._backward_route(torch.float32, dh, dh) == route
+        assert launches["flash_attention_simt"] > 0
+        assert launches[f"flash_attention_bwd_{route}"] == cfg.n_blocks
+        assert launches["flash_attention_bwd"] == cfg.n_blocks
+    else:
+        assert not any(launches.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,s,dh,route", [
+    (512, 8, 21, 4, "simt"),   # BST at serve_p99: heads of 4 over 21 positions
+    (64, 2, 200, 32, "tf32"),  # BERT4Rec: heads of 32 over 200
+])
+def test_recsys_attention_shapes_vs_plain(dev, b, h, s, dh, route):
+    """The recommenders' attention (f32, non-causal) through autograd on the
+    card: the SIMT forward within 2e-5 of the plain version, the backward
+    on its route within 1e-5 x max |gradient|, counted once; both bit-equal
+    on a second call."""
+    g = torch.Generator(device=dev).manual_seed(b + s)
+    q, k, v, dout = (torch.randn(b, h, s, dh, generator=g, device=dev)
+                     for _ in range(4))
+    want = flash_attention.flash_attention_plain(q, k, v, causal=False)
+    grads_want = flash_attention.flash_attention_bwd_plain(
+        q, k, v, want, dout, causal=False)
+    outs = []
+    for _ in range(2):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        before = dict(flash_attention.launches)
+        out = flash_attention.flash_attention(*leaves, causal=False)
+        grads = torch.autograd.grad(out, leaves, dout)
+        torch.cuda.synchronize()
+        after = flash_attention.launches
+        assert after["flash_attention_simt"] == before["flash_attention_simt"] + 1
+        assert after[f"flash_attention_bwd_{route}"] == (
+            before[f"flash_attention_bwd_{route}"] + 1)
+        assert after["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+        assert (out - want).abs().max() <= 2e-5 * max(1.0, float(
+            want.abs().max()))
+        for x, w in zip(grads, grads_want):
+            assert torch.isfinite(x).all()
+            assert (x - w).abs().max() <= 1e-5 * w.abs().max()
+        outs.append((out.detach(), *grads))
+    assert all(torch.equal(x, y) for x, y in zip(*outs))

@@ -52,6 +52,46 @@ def test_rms_norm(dtype):
     _close(got, jl.rms_norm(jx, jg), TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,offset", [((3, 5, 48), 0.0), ((4, 21, 32), 5.0),
+                                          ((2, 64), -3.0)])
+def test_layer_norm(shape, offset, dtype):
+    """f32 statistics, the population variance and eps 1e-6 (rows with an
+    offset mean, and a near-constant row where torch's eps 1e-5 or an
+    unbiased variance would miss), then out * gamma + beta cast back."""
+    rng = np.random.default_rng(len(shape) + abs(int(offset)))
+    x = _normal(rng, *shape, scale=2.0) + offset
+    x[(0,) * (len(shape) - 1)] = 3e-3 * _normal(rng, shape[-1])
+    gamma, beta = _normal(rng, shape[-1]), _normal(rng, shape[-1])
+    (jx, tx), (jg, tg), (jb, tb) = (_pair(a, dtype) for a in (x, gamma, beta))
+    got = tl.layer_norm(tx, tg, tb)
+    assert got.dtype == tx.dtype
+    _close(got, jl.layer_norm(jx, jg, jb), TOL[dtype])
+
+
+@pytest.mark.parametrize("act", ["relu", "sigmoid", "leaky_relu", "gelu"])
+@pytest.mark.parametrize("dims", [(16, 8), (72, 80, 40, 1), (32, 128, 32)])
+def test_mlp(dims, act):
+    """The activation between layers only: the last layer stays linear
+    (its negative outputs survive relu); a 3-D input, as DIN's."""
+    rng = np.random.default_rng(len(dims))
+    x = _normal(rng, 3, 7, dims[0])
+    ws = [_normal(rng, a, b, scale=a ** -0.5) for a, b in zip(dims, dims[1:])]
+    bs = [_normal(rng, b, scale=0.1) for b in dims[1:]]
+    jact = getattr(jax.nn, act)
+    tact = {"relu": torch.relu, "sigmoid": torch.sigmoid,
+            "leaky_relu": torch.nn.functional.leaky_relu,
+            "gelu": lambda t: torch.nn.functional.gelu(t, approximate="tanh")}
+    got = tl.mlp(torch.from_numpy(x), [torch.from_numpy(w) for w in ws],
+                 [torch.from_numpy(b) for b in bs], act=tact[act])
+    want = jl.mlp(jnp.asarray(x), [jnp.asarray(w) for w in ws],
+                  [jnp.asarray(b) for b in bs], act=jact)
+    assert got.shape == (3, 7, dims[-1])
+    _close(got, want, TOL["float32"])
+    if act == "relu":
+        assert float(got.min()) < 0
+
+
 @pytest.mark.parametrize("theta", [1e4, 1e6])
 @pytest.mark.parametrize("s,hd", [(7, 16), (64, 64), (33, 128)])
 def test_rope(s, hd, theta):
