@@ -146,9 +146,32 @@ Phases (any failure exits nonzero and prints no result line):
    tables cut to 65,536 rows (logits, loss, every gradient on 64 rows) and
    (e) the attention kernels at BST's (512, 8, 21, 4) and BERT4Rec's (64,
    2, 200, 32) against their plain versions, bit-equal twice, timed beside
-   their bounds and SDPA.
+   their bounds and SDPA;
+15. MoE, MLA and the MTP head: (a) ``granite_moe_3b_a800m.full()`` (32
+   layers, 40 experts top-8) and (b) ``deepseek_v3_671b.full()`` at its
+   full widths cut to 4 layers (3 dense, one MoE of 256 experts and a
+   shared one, the MTP head), bf16 from a seed on the card: ``prefill`` of
+   8 prompts (2,048 / 1,024 tokens) into a 4,096 cache, then 64 / 32 greedy
+   ``decode_step``s, every step under ``set_sync_debug_mode("error")``;
+   launches counted from 0 over the prefill (``flash_attention_wgmma``, one
+   a layer; MLA at qk 192 / v 128) and over the steps (granite:
+   ``flash_decode`` on its 24-over-8 cache, one a layer a step; DS-V3's
+   absorbed MLA decode is plain products); prefill tokens/s, ms a step
+   beside its byte bound (all experts' weights: every expert product runs),
+   decode tokens/s, peak memory, the share of assignments dropped at
+   prefill, a second prefill bit-equal; (c) against CPU copies at full
+   widths: granite cut to 2 layers in f32 (logits, aux, z; then decode =
+   forward at ``capacity_factor=16`` on the card), DS-V3's first layer in
+   bf16 (attention, cache entries, the layer, the absorbed decode against
+   the forward) and its MoE cut to 16 experts at T=31 and 64 (routing
+   equal exactly); (d) ``loss_fn`` and its gradients of both smoke configs
+   card = CPU, and ``launch/train.py --preset smoke`` for both on the card;
+   (e) ``flash_attention`` at DS-V3's MLA prefill layer and granite's, and
+   ``flash_decode`` at granite's cache, against their plain versions, timed
+   beside their bounds and SDPA (with the backend SDPA picks).
 
-Phases 6, 8, 9, 12's decoding and 14's serving run under ``torch.inference_mode()``
+Phases 6, 8, 9, 12's decoding, 14's serving and 15's run under
+``torch.inference_mode()``
 (serving records no autograd graph); ``flash_decode`` and
 ``embedding_bag`` have no backward and refuse an input that requires
 grad.
@@ -160,6 +183,7 @@ Ends with a JSON line of every ported kernel and the result line
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import itertools
 import json
@@ -1777,14 +1801,15 @@ def tower_attention(dev, shapes, rehearse):
     return rows
 
 
-def _cut_copy(model, n_layers, device):
+def _cut_copy(model, n_layers, device, **changes):
     """A copy on ``device`` of ``model``'s first ``n_layers`` layers, its
-    token table, final norm and head."""
+    token table, final norm and heads, with its config's other ``changes``
+    (``dtype``: the weights converted)."""
     import dataclasses
 
     from repro_torch.models import transformer as T
 
-    cfg = dataclasses.replace(model.cfg, n_layers=n_layers)
+    cfg = dataclasses.replace(model.cfg, n_layers=n_layers, **changes)
     keep = {k: v for k, v in model.state_dict().items()
             if not k.startswith("blocks.") or int(k.split(".")[1]) < n_layers}
     out = T.Transformer(cfg, device=device)
@@ -4055,6 +4080,512 @@ def recsys_slice(dev, sizes, rehearse):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 15: MoE, MLA and the MTP head (granite-moe-3b-a800m at full size,
+# deepseek-v3-671b at full widths with its depth cut)
+# --------------------------------------------------------------------------
+# card against CPU: f32 copies (the cut granite model: a router's top-k at
+# bf16's rounding would flip near-ties between the two, f32 agrees to
+# ~1e-7) within 1e-4 of max |logit| and 1e-5 (aux, z); bf16 on both sides
+# where no router sees a rounding difference (the DS-V3 layer, moe_ffn on
+# one input) within the towers' bf16 limits; the routing equal exactly.
+MOE_F32_REL = 1e-4
+MOE_LOSS_RTOL = 1e-5
+MOE_GRAD_REL = 1e-4  # the card tests' gradient limit, x max |gradient|
+
+
+@contextlib.contextmanager
+def _counting_drops():
+    """Within: ``transformer``'s ``moe_ffn`` also appends, for each call,
+    (its (token, slot) assignments dropped at rank >= C, a device scalar;
+    its assignments) to the yielded list. Kept out of timed runs."""
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+
+    counts = []
+    orig = T.moe_ffn
+
+    def counting(module, x, cfg):
+        d = x.shape[-1]
+        t = x.numel() // d
+        g = M.n_groups(cfg, t)
+        c = M.capacity(cfg, t // g)
+        _, _, _, e = M.route(module.router, x.reshape(g, t // g, d),
+                             cfg.top_k)
+        rows = cfg.n_experts * g * c  # dropped assignments go past them
+        counts.append(((M.slots(e, cfg.n_experts, c) >= rows).sum(),
+                       t * cfg.top_k))
+        return orig(module, x, cfg)
+
+    T.moe_ffn = counting
+    try:
+        yield counts
+    finally:
+        T.moe_ffn = orig
+
+
+def moe_serve(dev, cfg, sz, rehearse, what):
+    """(a)/(b): ``cfg`` drawn on the card from a seed, ``prefill`` of B
+    prompts into a cache of ``max_seq``, then greedy ``decode_step``s, every
+    step under ``set_sync_debug_mode("error")``; launches counted over the
+    prefill and over the steps; prefill tokens/s, ms a step beside its byte
+    bound (every weight the step reads, all experts included, the cache's
+    valid part, the new entries), decode tokens/s, peak memory. The prefill
+    runs twice, cold and warm (timed; the logits bit-equal); then one more
+    step and prefill traced, and a prefill that counts the dropped
+    assignments."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer as T
+
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = T.init_params(sz["seed"], cfg, device=dev)
+    sync()
+    b, p, s, n = sz["batch"], sz["prompt"], sz["max_seq"], sz["steps"]
+    out = dict(config=cfg.name, n_layers=cfg.n_layers, batch=b, prompt=p,
+               max_seq=s, steps=n, init_s=time.perf_counter() - t0,
+               params=sum(q.numel() for q in model.parameters()),
+               weight_bytes=sum(q.numel() * q.element_size()
+                                for q in model.parameters()))
+    rng = np.random.default_rng(sz["seed"])
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (b, p))).to(dev)
+    with torch.inference_mode():
+        fa.reset_launches()  # the path starts here
+        sync()
+        t0 = time.perf_counter()
+        logits, cache = T.prefill(model, prompts, max_seq=s)
+        sync()
+        out["prefill_first_s"] = time.perf_counter() - t0
+        out["prefill_launches"] = {k: v for k, v in fa.launches.items() if v}
+        require(tuple(logits.shape) == (b, 1, cfg.vocab)
+                and bool(torch.isfinite(logits).all()),
+                f"{what}: prefill logits {tuple(logits.shape)} or not finite")
+        # the first call pays for loading kernels and growing the caching
+        # allocator; the same prompts again, warm, must give the same bits
+        del cache
+        t0 = time.perf_counter()
+        again, cache = T.prefill(model, prompts, max_seq=s)
+        sync()
+        out["prefill_s"] = time.perf_counter() - t0
+        out["prefill_repeat_bit_equal"] = bool(torch.equal(again, logits))
+        require(out["prefill_repeat_bit_equal"],
+                f"{what}: two prefills of the same prompts differ")
+        out["prefill_tokens_per_s"] = b * p / out["prefill_s"]
+        if cuda:
+            out["prefill_max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        fa.reset_launches()  # the decode path starts here
+        sync()
+        t0 = time.perf_counter()
+        if cuda:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(n):
+                lg, cache = T.decode_step(model, tok, cache)
+                tok = lg[:, -1].argmax(-1, keepdim=True)
+        finally:
+            if cuda:
+                torch.cuda.set_sync_debug_mode(0)
+        sync()
+        out["decode_s"] = time.perf_counter() - t0
+        out["decode_launches"] = {k: v for k, v in fa.launches.items() if v}
+        require(int(cache.length) == p + n and bool(torch.isfinite(lg).all()),
+                f"{what}: cache length {int(cache.length)} or logits")
+        if cuda:
+            out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        out["ms_per_step"] = 1e3 * out["decode_s"] / n
+        out["decode_tokens_per_s"] = b * n / out["decode_s"]
+        item = torch.finfo(cfg.dtype).bits // 8
+        row = (cfg.kv_lora_rank + cfg.qk_rope_dim if cfg.mla
+               else 2 * cfg.n_kv_heads * cfg.head_dim)
+        kv_row = cfg.n_layers * b * row * item
+        # every weight but the retrieval and MTP heads' (every expert's too:
+        # the expert products run over all of them, full slots or empty)
+        weights = sum(q.numel() * q.element_size()
+                      for k, q in model.named_parameters()
+                      if not k.startswith(("embed_head", "mtp.")))
+        step_bytes = weights + kv_row * (p + (n + 1) / 2 + 1)
+        out["step_bytes"] = step_bytes
+        out["step_bound_ms"] = 1e3 * step_bytes / HBM_BYTES_PER_S
+        moe_layers = cfg.n_layers - cfg.n_dense
+        out["expert_bytes_per_step"] = moe_layers * 3 * cfg.n_experts * \
+            cfg.d_model * cfg.moe_d_ff * item
+        if cfg.mla:  # the absorbed decode's f32 copy of one layer's cache
+            out["mla_upcast_bytes_per_layer"] = b * s * row * 4
+        if not rehearse:  # one more step and prefill, traced
+            out["profile_step"] = profile_batch(
+                lambda: T.decode_step(model, tok, cache))
+            del cache
+            out["profile_prefill"] = profile_batch(
+                lambda: T.prefill(model, prompts, max_seq=s))
+        # the prompts again, counting the dropped assignments of each MoE
+        # layer on the device
+        with _counting_drops() as counts:
+            T.prefill(model, prompts, max_seq=s)
+        dropped = sum(int(c) for c, _ in counts)
+        total = sum(t for _, t in counts)
+        out.update(prefill_assignments=total, prefill_dropped=dropped,
+                   prefill_dropped_share=dropped / max(total, 1))
+    if not rehearse:
+        want_prefill = {"flash_attention_wgmma": cfg.n_layers}
+        require(out["prefill_launches"] == want_prefill,
+                f"{what}: prefill launched {out['prefill_launches']}, not "
+                f"{want_prefill}")
+        want_decode = {} if cfg.mla else {"flash_decode": cfg.n_layers * n}
+        require(out["decode_launches"] == want_decode,
+                f"{what}: decode launched {out['decode_launches']}, not "
+                f"{want_decode}")
+    del logits, again, lg
+    log(f"  {what}: {out['params']:,} parameters ({out['weight_bytes']:,} "
+        f"bytes) drawn in {out['init_s']:.3f} s; prefill {b} x {p} tokens "
+        f"in {out['prefill_s']:.3f} s warm ({out['prefill_tokens_per_s']:.0f} "
+        f"tokens/s; the first call {out['prefill_first_s']:.3f} s); {n} "
+        f"decode steps {out['ms_per_step']:.3f} ms a step "
+        f"(byte bound {out['step_bound_ms']:.3f} ms), "
+        f"{out['decode_tokens_per_s']:.1f} tokens/s; dropped at prefill "
+        f"{out['prefill_dropped']} of {out['prefill_assignments']} "
+        f"({out['prefill_dropped_share']:.4%}); launches prefill "
+        f"{out['prefill_launches']}, decode {out['decode_launches']}; peak "
+        f"{out.get('max_memory_allocated')} bytes")
+    log(f"      traced step {json.dumps(out.get('profile_step'))}; traced "
+        f"prefill {json.dumps(out.get('profile_prefill'))}")
+    return out, model
+
+
+def _f32_agree(got, want, what):
+    """``_logits_gap`` of rows (..., V) against ``want``'s, required within
+    ``MOE_F32_REL`` of max |want|."""
+    v = want.shape[-1]
+    res = _logits_gap(got.reshape(-1, v), want.reshape(-1, v))
+    require(bool(torch.isfinite(got).all()) and res["rel"] <= MOE_F32_REL,
+            f"{what}: {res}")
+    return res["rel"]
+
+
+def moe_cross_granite(dev, model, cz):
+    """(c) granite cut to its first layers, as f32 copies (its bf16 weights
+    upcast exactly) on the card and the CPU: the forward's logits within
+    ``MOE_F32_REL`` of max |logit|, aux and z within ``MOE_LOSS_RTOL``; then
+    on the card at ``capacity_factor=16`` (no assignment dropped), decode =
+    forward, JAX's ``test_decode_matches_forward`` on the full widths."""
+    from repro_torch.models import transformer as T
+
+    n = cz["cut_layers"]
+    card = _cut_copy(model, n, dev, dtype=torch.float32)
+    host = _cut_copy(model, n, "cpu", dtype=torch.float32)
+    rng = np.random.default_rng(21)
+    toks = torch.from_numpy(rng.integers(0, model.cfg.vocab,
+                                         (cz["batch"], cz["seq"])))
+    out = dict(layers=n, batch=cz["batch"], seq=cz["seq"], dtype="float32")
+    with torch.inference_mode():
+        oc = T.forward(card, toks.to(dev))
+        oh = T.forward(host, toks)
+        out["logits_rel"] = _f32_agree(oc.logits, oh.logits,
+                                       "(c) granite cut, logits")
+        for key in ("aux_loss", "z_loss"):
+            a, b = float(getattr(oc, key)), float(getattr(oh, key))
+            require(abs(a - b) <= MOE_LOSS_RTOL * abs(b),
+                    f"(c) granite cut, {key} {a} vs {b}")
+            out[key] = (a, b)
+        del oc, oh, host
+        card16 = _cut_copy(model, n, dev, dtype=torch.float32,
+                           capacity_factor=16.0)
+        p, steps = cz["decode_prompt"], cz["decode_steps"]
+        seq = toks[:, :p + steps].to(dev)
+        lg, cache = T.prefill(card16, seq[:, :p], max_seq=p + steps)
+        worst = 0.0
+        for i in range(steps):
+            lg, cache = T.decode_step(card16, seq[:, p + i:p + i + 1], cache)
+            ref = T.forward(card16, seq[:, :p + i + 1]).logits[:, -1]
+            worst = max(worst, _f32_agree(lg[:, 0], ref,
+                                          f"(c) decode step {i} vs forward"))
+        out["decode_vs_forward_rel"] = worst
+    del card, card16, cache
+    log(f"  (c) granite cut to {n} layers, f32, card vs CPU: {out}")
+    return out
+
+
+def moe_cross_dsv3(dev, model, cz):
+    """(c) DS-V3's first layer (MLA attention and a dense FFN) and its MoE
+    cut to ``experts`` experts, each copied to the CPU in its own dtype: the
+    attention's output and cache entries, the layer's output, and the
+    absorbed decode of the last position (against the forward's last row,
+    on both devices) within the towers' bf16 limits at B=1, S=``layer_seq``;
+    then ``moe_ffn`` at T=31 (one group) and 64 (32 groups), the routing
+    equal exactly, y within the bf16 limits, aux and z within
+    ``MOE_LOSS_RTOL``."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+
+    cfg = model.cfg
+    blk = model.blocks[0]
+    host = T.Block(cfg, "cpu")
+    host.load_state_dict(blk.state_dict())
+    s = cz["layer_seq"]
+    g = torch.Generator().manual_seed(22)
+    x = torch.randn(1, s, cfg.d_model, generator=g).to(cfg.dtype)
+    out = dict(layer_seq=s, dtype=str(cfg.dtype))
+    with torch.inference_mode():
+        res = {}
+        for name, b, xx in (("card", blk, x.to(dev)), ("cpu", host, x)):
+            pos = torch.arange(s, device=xx.device)
+            xn = L.rms_norm(xx, b.ln1)
+            a, ck, cr = b.attn.forward_kv(xn, pos)
+            y = b.ffn_residual(xx + a)[0]
+            cache_c = torch.zeros(1, s, cfg.kv_lora_rank, dtype=cfg.dtype,
+                                  device=xx.device)
+            cache_r = torch.zeros(1, s, cfg.qk_rope_dim, dtype=cfg.dtype,
+                                  device=xx.device)
+            cache_c[:, :s - 1], cache_r[:, :s - 1] = ck[:, :-1], cr[:, :-1]
+            length = torch.tensor(s - 1, dtype=torch.int32, device=xx.device)
+            dec = T._decode_attn_mla(b.attn, xn[:, -1:], cache_c, cache_r,
+                                     length)
+            res[name] = dict(attn=a[0], c_kv=ck[0], k_rope=cr[0], layer=y[0],
+                             decode=dec[0])
+            out[f"{name}_decode_vs_forward"] = _logits_agree(
+                dec[0], a[0, -1:], f"(c) {name} MLA decode vs forward")
+        for key in ("attn", "c_kv", "k_rope", "layer"):
+            out[key] = _logits_agree(res["card"][key], res["cpu"][key],
+                                     f"(c) DS-V3 layer 0 {key}, card vs CPU")
+        del res, host
+        # the MoE layer's first experts, on both devices
+        src = model.blocks[cfg.n_dense].moe
+        e = cz["experts"]
+        mcfg = src.cfg._replace(n_experts=e)
+        state = {k: (v[:, :e] if k == "router" else
+                     v[:e] if k.startswith("w_") else v)
+                 for k, v in src.state_dict().items()}
+        mods = {}
+        for name, d in (("card", dev), ("cpu", "cpu")):
+            mods[name] = M.MoE(mcfg, d)
+            mods[name].load_state_dict(state)
+        out["moe"] = dict(experts=e, top_k=mcfg.top_k, d_model=mcfg.d_model,
+                          d_ff=mcfg.d_ff, n_shared=mcfg.n_shared, rows=[])
+        for t in cz["tokens"]:
+            xt = torch.randn(t, cfg.d_model, generator=g).to(cfg.dtype)
+            grp = M.n_groups(mcfg, t)
+            c = M.capacity(mcfg, t // grp)
+            got = {}
+            for name, d in (("card", dev), ("cpu", "cpu")):
+                xd = xt.to(d)
+                got[name] = (M.moe_ffn(mods[name], xd, mcfg), M.route(
+                    mods[name].router, xd.view(grp, t // grp, -1),
+                    mcfg.top_k)[3])
+            (oc, ec), (oh, eh) = got["card"], got["cpu"]
+            require(torch.equal(ec.cpu(), eh),
+                    f"(c) moe_ffn T={t}: the routing differs")
+            row = dict(T=t, groups=grp, capacity=c, dropped=int(
+                (M.slots(eh, e, c) >= e * grp * c).sum()),
+                       y=_logits_agree(oc.y, oh.y, f"(c) moe_ffn T={t} y"))
+            for key in ("aux_loss", "z_loss"):
+                a, b = float(getattr(oc, key)), float(getattr(oh, key))
+                require(abs(a - b) <= MOE_LOSS_RTOL * abs(b),
+                        f"(c) moe_ffn T={t} {key} {a} vs {b}")
+                row[key] = (a, b)
+            out["moe"]["rows"].append(row)
+        del mods, got
+    log(f"  (c) DS-V3 layer 0 and moe_ffn ({e} experts), card vs CPU: "
+        + json.dumps(out))
+    return out
+
+
+def moe_train(dev, tz, rehearse):
+    """(d) ``loss_fn`` (ce, aux, z; DS-V3's mtp_ce) and every gradient of
+    both smoke configs (f32, the cross entropy in chunks) on the card
+    against a CPU copy; then ``launch/train.py --preset smoke`` for both
+    archs on the card, finite losses."""
+    import dataclasses
+
+    from repro_torch.configs import deepseek_v3_671b, granite_moe_3b_a800m
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import transformer as T
+
+    out = {}
+    for arch, mod in (("granite-moe-3b-a800m", granite_moe_3b_a800m),
+                      ("deepseek-v3-671b", deepseek_v3_671b)):
+        cfg = dataclasses.replace(mod.smoke(), ce_chunk=tz["ce_chunk"])
+        card = T.init_params(tz["seed"], cfg, device=dev)
+        host = T.Transformer(cfg, device="cpu")
+        host.load_state_dict(card.state_dict())
+        toks = np.random.default_rng(23).integers(
+            0, cfg.vocab, (tz["batch"], tz["seq"] + 1))
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        lc, mc = T.loss_fn(card, batch)
+        lh, mh = T.loss_fn(host, batch)
+        require(set(mc) == set(mh) and ("mtp_ce" in mc) == cfg.mtp,
+                f"(d) {arch}: metrics {sorted(mc)}")
+        res = dict(metrics={k: (float(mc[k].detach()), float(mh[k].detach()))
+                            for k in mh})
+        for k, (a, b) in res["metrics"].items():
+            require(abs(a - b) <= MOE_LOSS_RTOL * abs(b),
+                    f"(d) {arch}: {k} {a} vs {b}")
+        lc.backward()
+        lh.backward()
+        worst = 0.0
+        for (name, pc), ph in zip(card.named_parameters(),
+                                  host.parameters()):
+            if ph.grad is None:
+                require(pc.grad is None, f"(d) {arch}: {name} has a grad")
+                continue
+            err = float((pc.grad.cpu() - ph.grad).abs().max())
+            lim = MOE_GRAD_REL * float(ph.grad.abs().max()) + 1e-12
+            require(err <= lim, f"(d) {arch}: {name} grad err {err:.3e}")
+            worst = max(worst, err / lim)
+        res["worst_grad_share_of_limit"] = worst
+        del card, host, lc, lh
+        trainer, r = launch_train.main([
+            "--arch", arch, "--preset", "smoke", "--steps", str(tz["steps"]),
+            "--batch", str(tz["launch_batch"]), "--seq",
+            str(tz["launch_seq"]), "--device", dev.type])
+        require(len(r["losses"]) == tz["steps"]
+                and all(math.isfinite(x) for x in r["losses"]),
+                f"(d) {arch} launcher losses {r['losses']}")
+        res["launcher_losses"] = r["losses"]
+        del trainer
+        out[arch] = res
+        log(f"  (d) {arch}: " + json.dumps(res))
+    return out
+
+
+def _sdpa_backend(*args, **kwargs):
+    """The backend ``F.scaled_dot_product_attention(*args, **kwargs)``
+    dispatches to (``torch._fused_sdp_choice``, the selector SDPA itself
+    calls), by its ``SDPBackend`` name."""
+    from torch.nn.attention import SDPBackend
+
+    return SDPBackend(torch._fused_sdp_choice(*args, **kwargs)).name
+
+
+def moe_kernel_rows(dev, mz, rehearse):
+    """(e) ``flash_attention`` at DS-V3's MLA prefill layer and granite's
+    (24 query heads over 8: the kernel reads k and v repeated to 24, as
+    ``blockwise_attention`` copies them), bf16 causal, and ``flash_decode``
+    on granite's grouped cache (seeded lengths), each against its plain
+    version within phase 6's full-width limit, timed (eager, graph replay)
+    beside its bound, the plain version and SDPA (``enable_gqa`` for the
+    grouped rows), with the backend SDPA picks."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(31)
+    rows = []
+    for role, b, h, hkv, s, dh, dv in mz["attn"]:
+        rep = h // hkv
+        q = torch.randn(b, h, s, dh, generator=g, device=dev).to(BF16)
+        k_g = torch.randn(b, hkv, s, dh, generator=g, device=dev).to(BF16)
+        v_g = torch.randn(b, hkv, s, dv, generator=g, device=dev).to(BF16)
+        k = k_g.repeat_interleave(rep, 1)
+        v = v_g.repeat_interleave(rep, 1)
+        gqa = {"enable_gqa": True} if rep > 1 else {}
+        run = lambda: fa.flash_attention(q, k, v, causal=True)
+        lib = lambda: F.scaled_dot_product_attention(q, k_g, v_g,
+                                                     is_causal=True, **gqa)
+        before = dict(fa.launches)
+        with torch.inference_mode():
+            got = run()
+            want = fa.flash_attention_plain(q, k, v, causal=True)
+        launched = [n for n in fa.launches if fa.launches[n] > before[n]]
+        require(rehearse or launched == ["flash_attention_wgmma"],
+                f"{role}: launched {launched}")
+        atol, rtol = MAIN_TOL[BF16]
+        row = dict(kernel="flash_attention", role=role, B=b, H=h, Hkv=hkv,
+                   S=s, dh=dh, dv=dv, dtype="bfloat16", causal=True,
+                   route=launched,
+                   max_abs_err=_agree(got, want, atol, what=role, rtol=rtol),
+                   library_backend=_sdpa_backend(q, k_g, v_g, is_causal=True,
+                                                 **gqa))
+        nbytes = 2 * (q.numel() + k.numel() + v.numel() + got.numel())
+        row["bound_ms"], row["bound_by"] = bound(
+            nbytes, 2 * (dh + dv) * b * h * s * (s + 1) // 2,
+            BF16_OPS_PER_S)
+        del got, want
+        if not rehearse:
+            with torch.inference_mode():
+                row["ms"] = time_ms(run)
+                row["device_ms"] = time_graph_ms(run)
+                row["plain_ms"] = time_ms(lambda: fa.flash_attention_plain(
+                    q, k, v, causal=True), reps=3, inner=1)
+                row["library_ms"] = time_ms(lib)
+        rows.append(row)
+        log("  (e) " + json.dumps(row))
+        del q, k, v, k_g, v_g
+    for role, b, h, hkv, s, d in mz["decode"]:
+        q, k, v = _decode_inputs(g, dev, b, h, s, d, d, BF16, hkv)
+        length = torch.randint(1, s + 1, (b,), generator=g, device=dev,
+                               dtype=torch.int32)
+        valid = int(length.sum())
+        mask = (torch.arange(s, device=dev)[None, :] < length[:, None])[
+            :, None, None]
+        kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+        run = lambda: fa.flash_decode(q, k, v, length=length)
+        lib = lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kt, vt, attn_mask=mask, enable_gqa=True)[:, :, 0]
+        before = fa.launches["flash_decode"]
+        with torch.inference_mode():
+            got = run()
+            want = fa.flash_decode_plain(q, k, v, length=length)
+        require(rehearse or fa.launches["flash_decode"] == before + 1,
+                f"{role}: flash_decode not launched once")
+        atol, rtol = MAIN_TOL[BF16]
+        row = dict(kernel="flash_decode", role=role, B=b, H=h, Hkv=hkv, S=s,
+                   dh=d, dv=d, dtype="bfloat16", valid_keys=valid,
+                   chunk=fa.decode_split(s, b * h)[0],
+                   max_abs_err=_agree(got, want, atol, what=role, rtol=rtol),
+                   library_backend=_sdpa_backend(
+                       q[:, :, None], kt, vt, attn_mask=mask,
+                       enable_gqa=True))
+        row["bound_ms"], row["bound_by"] = bound(
+            2 * (valid * hkv * 2 * d + 2 * b * h * d) + 4 * b,
+            2 * 2 * d * h * valid, BF16_OPS_PER_S)
+        if not rehearse:
+            with torch.inference_mode():
+                row["ms"] = time_ms(run)
+                row["device_ms"] = time_graph_ms(run)
+                row["plain_ms"] = time_ms(lambda: fa.flash_decode_plain(
+                    q, k, v, length=length), reps=5, inner=2)
+                row["library_ms"] = time_ms(lib)
+        rows.append(row)
+        log("  (e) " + json.dumps(row))
+    return rows
+
+
+def moe_slice(dev, sizes, rehearse):
+    """Phase 15: MoE, MLA and MTP at ``sizes["moe"]``: (a) granite-moe-3b-
+    a800m at full size and (b) deepseek-v3-671b at full widths with its
+    depth cut, each served (prefill, then decode steps) with launches
+    counted from 0 over each, and (c) held against CPU copies at full
+    widths; (d) the smoke configs' loss and gradients card = CPU, and the
+    launcher; (e) the attention kernels at the new shapes."""
+    import gc
+
+    mz = sizes["moe"]
+    out = {}
+    for key, what in (("granite", "(a) granite-moe-3b-a800m"),
+                      ("dsv3", "(b) deepseek-v3-671b, depth cut")):
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            out[f"{key}_memory_allocated_at_start"] = \
+                torch.cuda.memory_allocated()
+        cfg = mz[key]["cfg"]()
+        res, model = moe_serve(dev, cfg, mz[key], rehearse, what)
+        cross = moe_cross_dsv3 if cfg.mla else moe_cross_granite
+        res["cross"] = cross(dev, model, mz["cross"])
+        out[key] = res
+        del model
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["train"] = moe_train(dev, mz["train"], rehearse)
+    out["attention"] = moe_kernel_rows(dev, mz, rehearse)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=171_332,
@@ -4070,7 +4601,10 @@ def main() -> int:
     if not rehearse and not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
-    from repro_torch.configs import qwen3_0_6b
+    import dataclasses
+
+    from repro_torch.configs import (deepseek_v3_671b, granite_moe_3b_a800m,
+                                     qwen3_0_6b)
     from repro_torch.configs.bimetric_paper import (cheap_tower,
                                                     cheap_tower_smoke,
                                                     expensive_tower)
@@ -4144,7 +4678,24 @@ def main() -> int:
                                  attn=(("bst serve_p99, toy", 4, 8, 21, 4,
                                         "simt"),
                                        ("bert4rec, toy", 2, 2, 40, 32,
-                                        "tf32"))))
+                                        "tf32"))),
+                     moe=dict(granite=dict(cfg=granite_moe_3b_a800m.smoke,
+                                           seed=0, batch=2, prompt=24,
+                                           max_seq=32, steps=4),
+                              dsv3=dict(cfg=deepseek_v3_671b.smoke, seed=0,
+                                        batch=2, prompt=24, max_seq=32,
+                                        steps=4),
+                              cross=dict(cut_layers=1, batch=2, seq=16,
+                                         decode_prompt=12, decode_steps=2,
+                                         layer_seq=16, experts=4,
+                                         tokens=(31, 64)),
+                              train=dict(seed=0, batch=2, seq=32, ce_chunk=16,
+                                         steps=3, launch_batch=2,
+                                         launch_seq=16),
+                              attn=(("MLA, toy", 1, 4, 4, 64, 24, 16),
+                                    ("GQA, toy", 1, 6, 2, 64, 16, 16)),
+                              decode=(("GQA decode, toy", 2, 6, 2, 128,
+                                       16),)))
     else:
         # timing shapes: build wave (B=1024), stage-1 wave, stage-2 wave,
         # stage-2 entry wave (K = Q/2 seeds), re-rank scoring wave (K = Q)
@@ -4238,7 +4789,39 @@ def main() -> int:
                                  attn=(("bst serve_p99", 512, 8, 21, 4,
                                         "simt"),
                                        ("bert4rec", 64, 2, 200, 32,
-                                        "tf32"))))
+                                        "tf32"))),
+                     # phase 15: granite-moe-3b-a800m at full size, 8
+                     # prompts of 2,048 into a 4,096 cache, 64 steps;
+                     # deepseek-v3-671b at its full widths cut to 4 layers
+                     # (its 3 dense, one MoE of 256 experts; the MTP head),
+                     # 8 prompts of 1,024, 32 steps; card vs CPU: granite
+                     # cut to 2 layers at (2, 128), DS-V3's first layer at
+                     # (1, 256) and its MoE cut to 16 experts (1.4 GB on
+                     # the CPU) at T=31 and 64; the smoke configs' loss
+                     # and gradients, 6 launcher steps; the kernels at
+                     # DS-V3's MLA and granite's prefill layer, granite's
+                     # decode
+                     moe=dict(granite=dict(cfg=granite_moe_3b_a800m.full,
+                                           seed=0, batch=8, prompt=2048,
+                                           max_seq=4096, steps=64),
+                              dsv3=dict(cfg=lambda: dataclasses.replace(
+                                  deepseek_v3_671b.full(), n_layers=4),
+                                        seed=0, batch=8, prompt=1024,
+                                        max_seq=4096, steps=32),
+                              cross=dict(cut_layers=2, batch=2, seq=128,
+                                         decode_prompt=96, decode_steps=4,
+                                         layer_seq=256, experts=16,
+                                         tokens=(31, 64)),
+                              train=dict(seed=0, batch=2, seq=32, ce_chunk=16,
+                                         steps=6, launch_batch=8,
+                                         launch_seq=32),
+                              attn=(("deepseek-v3-671b MLA prefill layer",
+                                     8, 128, 128, 1024, 192, 128),
+                                    ("granite-moe-3b-a800m prefill layer, "
+                                     "24 over 8", 8, 24, 8, 2048, 64, 64)),
+                              decode=(("granite-moe-3b-a800m decode, 24 over "
+                                       "8, cache 4,096", 8, 24, 8, 4096,
+                                       64),)))
 
     t0 = time.perf_counter()
     log("phase 2: kernels vs plain versions")
@@ -4353,6 +4936,15 @@ def main() -> int:
     report["phase14_s"] = time.perf_counter() - t0
     log(f"  phase 14 took {report['phase14_s']:.1f} s")
 
+    t0 = time.perf_counter()
+    log("phase 15: MoE, MLA and MTP (granite-moe-3b-a800m full; "
+        "deepseek-v3-671b at full widths, 4 layers: prefill -> decode_step; "
+        "card vs CPU; loss and gradients; the kernels at their shapes)")
+    mo = moe_slice(dev, sizes, rehearse)
+    report["moe"] = mo
+    report["phase15_s"] = time.perf_counter() - t0
+    log(f"  phase 15 took {report['phase15_s']:.1f} s")
+
     kernels = [
         dict(name="gather_score", route="cuda",
              source="src/repro_torch/kernels/csrc/l2_topk.cu",
@@ -4444,8 +5036,25 @@ def main() -> int:
                                        "bound_by", "library_ms",
                                        "fwd_max_abs_err")}
                 for r in rs["attention"]]
+            # phase 15: granite's and DS-V3's prefill
+            extra["launches_moe_prefill"] = {
+                k: mo[k]["prefill_launches"].get("flash_attention_wgmma", 0)
+                for k in ("granite", "dsv3")}
         if name == "flash_decode":  # phase 12(a): decode_step, on its path
             extra["launches_lm_decode"] = lm["decode"]["launches"][name]
+            # phase 15(a): granite's decode (DS-V3's MLA decode runs none)
+            extra["launches_moe_decode"] = {
+                k: mo[k]["decode_launches"].get(name, 0)
+                for k in ("granite", "dsv3")}
+        if name in ("flash_attention", "flash_decode"):  # phase 15(e)
+            moe_rows = [r for r in mo["attention"] if r["kernel"] == name]
+            errs += [r["max_abs_err"] for r in moe_rows]
+            extra["moe_shapes"] = [
+                {k: r.get(k) for k in ("role", "B", "H", "Hkv", "S", "dh",
+                                       "dv", "ms", "device_ms", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms",
+                                       "library_backend", "max_abs_err")}
+                for r in moe_rows]
         kernels.append(dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{src}.cu",

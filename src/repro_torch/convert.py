@@ -161,15 +161,19 @@ def transformer_from_numpy(params: dict, cfg: TransformerConfig,
                            device=None) -> Transformer:
     """A :class:`Transformer` on ``device`` holding a JAX parameter pytree
     (``transformer.init_params``' layout, leaves as numpy arrays): the
-    leading L axis of ``dense_blocks`` is unstacked into the per-layer
-    blocks, and every array is copied bit for bit (bf16 included). Names,
-    shapes and dtypes must match the model's exactly."""
+    leading L axis of ``dense_blocks`` is unstacked into blocks 0, 1, ...
+    and that of ``moe_blocks`` into the blocks after them (``blocks.
+    <first_dense + i>``); ``mtp`` is a subtree as it is. Every array is
+    copied bit for bit (bf16 included). Names, shapes and dtypes must match
+    the model's exactly."""
     dev = resolve_device(device)
     model = Transformer(cfg, dev)
-    flat = _flatten({k: v for k, v in params.items() if k != "dense_blocks"})
-    for name, arr in _flatten(params.get("dense_blocks", {})).items():
-        for i in range(np.shape(arr)[0]):
-            flat[f"blocks.{i}.{name}"] = np.asarray(arr)[i]
+    stacks = {"dense_blocks": 0, "moe_blocks": cfg.n_dense}
+    flat = _flatten({k: v for k, v in params.items() if k not in stacks})
+    for stack, first in stacks.items():
+        for name, arr in _flatten(params.get(stack, {})).items():
+            for i in range(np.shape(arr)[0]):
+                flat[f"blocks.{first + i}.{name}"] = np.asarray(arr)[i]
     return _copy_into(model, flat, f"transformer_from_numpy: {cfg.name}")
 
 
@@ -179,18 +183,22 @@ def transformer_to_numpy(tensors: nn.Module | Mapping[str, torch.Tensor]
     as numpy arrays) from a :class:`Transformer`'s parameters, or from a
     mapping of its parameter names to tensors (their gradients, say): the
     inverse of :func:`transformer_from_numpy`. ``blocks.<i>.<name>`` rows are
-    stacked in layer order on a leading L axis under ``dense_blocks``."""
+    stacked in layer order on a leading L axis: under ``moe_blocks`` for the
+    blocks that hold a ``moe`` (the last ones), under ``dense_blocks`` for
+    the rest."""
     out: dict = {}
-    layers: dict[str, dict[int, np.ndarray]] = {}
+    layers: dict[int, dict[str, np.ndarray]] = {}
     for name, t in _named(tensors).items():
         if name.startswith("blocks."):
             _, i, rest = name.split(".", 2)
-            layers.setdefault(rest, {})[int(i)] = tensor_to_numpy(t)
+            layers.setdefault(int(i), {})[rest] = tensor_to_numpy(t)
         else:
             _put(out, name, tensor_to_numpy(t))
-    for rest, per_layer in layers.items():
-        _put(out, f"dense_blocks.{rest}",
-             np.stack([per_layer[i] for i in sorted(per_layer)]))
+    for stack, moe in (("dense_blocks", False), ("moe_blocks", True)):
+        rows = [layers[i] for i in sorted(layers)
+                if any(n.startswith("moe.") for n in layers[i]) == moe]
+        for rest in (rows[0] if rows else ()):
+            _put(out, f"{stack}.{rest}", np.stack([r[rest] for r in rows]))
     return out
 
 
@@ -229,8 +237,9 @@ def recsys_to_numpy(tensors: nn.Module | Mapping[str, torch.Tensor]) -> dict:
 
 
 def kv_cache_from_numpy(k, v, length, device=None) -> KVCache:
-    """A :class:`KVCache` from JAX's (its k and v (L, B, S, Hkv, dh) and its
-    0-d length, as numpy arrays), bit for bit on ``device``."""
+    """A :class:`KVCache` from JAX's (its k and v, as numpy arrays: (L, B, S,
+    Hkv, dh) each for GQA, the latents (L, B, S, rank) and RoPE keys (L, B,
+    S, rope) for MLA; and its 0-d length), bit for bit on ``device``."""
     dev = resolve_device(device)
     return KVCache(k=tensor_from_numpy(k, dev), v=tensor_from_numpy(v, dev),
                    length=torch.tensor(int(np.asarray(length)),

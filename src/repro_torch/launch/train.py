@@ -11,27 +11,37 @@ Runs the LM loss (``transformer.loss_fn``) under the ``Trainer`` on
 ``--ckpt-dir``, and a killed run resumes (params, optimizer, data cursor)
 through ``Trainer.maybe_restore`` and ``DeterministicIterator.from_state``.
 Runs on the card; ``--device cpu`` runs the plain versions on the CPU.
+A config whose training state (weights, their f32 master copy, gradients
+and AdamW's moments) exceeds the device's memory is refused before a
+weight is drawn: ``--arch deepseek-v3-671b --preset full`` needs terabytes.
 """
 from __future__ import annotations
 
 import argparse
+import os
 
-from repro_torch.configs import bimetric_paper, qwen3_0_6b
+import torch
+
+from repro_torch.configs import (bimetric_paper, deepseek_v3_671b,
+                                 granite_moe_3b_a800m, qwen3_0_6b)
+from repro_torch.kernels.backend import resolve_device
 from repro_torch.data.pipeline import DeterministicIterator, lm_batch_fn
 from repro_torch.models import transformer as T
 from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.train.trainer import Trainer, TrainerConfig
 
-#: the dense LM configs the port has: (full, smoke)
+#: the LM configs the port has: (full, smoke)
 ARCHS = {
     "qwen3-0.6b": (qwen3_0_6b.full, qwen3_0_6b.smoke),
     "sfr-mistral-7b": (bimetric_paper.expensive_tower,
                        bimetric_paper.cheap_tower_smoke),
+    "granite-moe-3b-a800m": (granite_moe_3b_a800m.full,
+                             granite_moe_3b_a800m.smoke),
+    "deepseek-v3-671b": (deepseek_v3_671b.full, deepseek_v3_671b.smoke),
 }
 #: the JAX registry's other LM and GNN archs, by the ROADMAP item (queue
 #: 1) that ports them
 LATER = {
-    "granite-moe-3b-a800m": 6, "deepseek-v3-671b": 6,
     "gat-cora": 7,
     "granite-20b": 8, "deepseek-coder-33b": 8,
 }
@@ -52,6 +62,24 @@ def get_config(arch: str, smoke: bool) -> T.TransformerConfig:
     raise ValueError(f"unknown arch {arch!r}; choose from {sorted(ARCHS)}")
 
 
+def train_state_bytes(cfg: T.TransformerConfig, opt: AdamWConfig) -> int:
+    """Bytes of ``cfg``'s training state: the weights, their f32 master
+    copy, gradients of the weights' type and AdamW's two moments (int8 or
+    f32), counted on the meta device (nothing is allocated)."""
+    model = T.Transformer(cfg, device="meta")
+    moment = 1 if opt.quantized_state else 4
+    return sum(p.numel() * (2 * p.element_size() + 4 + 2 * moment)
+               for p in model.parameters())
+
+
+def device_bytes(device) -> int:
+    """Memory of ``device``: the card's, or the host's physical memory."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        return torch.cuda.get_device_properties(dev).total_memory
+    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+
+
 def main(argv=None):
     """Returns (the trainer, ``Trainer.run``'s result)."""
     ap = argparse.ArgumentParser()
@@ -67,11 +95,17 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch, args.preset == "smoke")
+    opt = AdamWConfig(lr=3e-4, warmup_steps=10, total_steps=max(args.steps, 100))
+    need, have = train_state_bytes(cfg, opt), device_bytes(args.device)
+    if need > have:
+        raise ValueError(
+            f"arch {args.arch!r} preset {args.preset!r}: its training state "
+            f"needs {need:,} bytes (weights, f32 master copy, gradients, "
+            f"moments), more than the device's {have:,}")
     model = T.init_params(0, cfg, device=args.device)
     n_params = sum(p.numel() for p in model.parameters())
     print(f"arch={args.arch} preset={args.preset} params={n_params/1e6:.1f}M")
 
-    opt = AdamWConfig(lr=3e-4, warmup_steps=10, total_steps=max(args.steps, 100))
     tcfg = TrainerConfig(total_steps=args.steps, grad_accum=args.grad_accum,
                          ckpt_dir=args.ckpt_dir,
                          ckpt_every=max(args.steps // 3, 10),

@@ -1067,7 +1067,7 @@ def test_scatter_gather_search_on_card_equals_cpu(dev):
                                    torch.float16])
 @pytest.mark.parametrize("h,hkv,dh,dv", [(16, 8, 128, 128), (8, 1, 64, 64),
                                          (6, 2, 24, 40), (4, 2, 18, 30),
-                                         (12, 3, 192, 128)])
+                                         (12, 3, 192, 128), (24, 8, 64, 64)])
 def test_grouped_flash_decode_kernel_vs_plain(dev, dtype, h, hkv, dh, dv):
     """A grouped cache (GQA, and MQA at one kv head) read as it lies: the
     vector path (rows of 16-byte multiples, 24/40 too) and the scalar one
@@ -1378,3 +1378,158 @@ def test_recsys_attention_shapes_vs_plain(dev, b, h, s, dh, route):
             assert (x - w).abs().max() <= 1e-5 * w.abs().max()
         outs.append((out.detach(), *grads))
     assert all(torch.equal(x, y) for x, y in zip(*outs))
+
+
+# --------------------------------------------------------------------------
+# MoE, MLA and MTP
+# --------------------------------------------------------------------------
+def _moe_module(dtype, capacity_factor, n_shared, dev):
+    """An MoE drawn on the CPU (8 experts, top-2, d 64, f 96) and its copy
+    on ``dev``."""
+    from repro_torch.models import moe
+
+    cfg = moe.MoEConfig(n_experts=8, top_k=2, d_model=64, d_ff=96,
+                        n_shared=n_shared, capacity_factor=capacity_factor,
+                        dtype=dtype)
+    host = moe.init_moe(torch.Generator().manual_seed(5), cfg)
+    card = moe.MoE(cfg, dev)
+    card.load_state_dict(host.state_dict())
+    return host, card
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ties_and_drops_f32", "groups32_bf16",
+                                  "decode_bf16"])
+def test_moe_ffn_on_card_equals_cpu(dev, case):
+    """``moe_ffn`` on the card against the CPU: the routing equal exactly
+    (zero rows: a full tie, to the lower ids), y, aux and z within the
+    dtype's tolerance; a call and its gradients bit-equal on a second run,
+    with no host sync (``set_sync_debug_mode("error")``)."""
+    from repro_torch.models import moe
+
+    dtype, t, cf, n_shared, zero_rows = {
+        "ties_and_drops_f32": (torch.float32, 100, 0.25, 1, 3),
+        "groups32_bf16": (torch.bfloat16, 256, 1.25, 1, 1),
+        "decode_bf16": (torch.bfloat16, 8, 1.25, 0, 0)}[case]
+    host, card = _moe_module(dtype, cf, n_shared, dev)
+    x = torch.randn(t, 64, generator=torch.Generator().manual_seed(t))
+    x[:zero_rows] = 0.0
+    x = x.to(dtype)
+    g = moe.n_groups(host.cfg, t)
+    c = moe.capacity(host.cfg, t // g)
+    with torch.no_grad():
+        want = moe.moe_ffn(host, x, host.cfg)
+        _, _, _, e_host = moe.route(host.router, x.view(g, t // g, 64), 2)
+        dropped = int((moe.slots(e_host, 8, c) >= 8 * g * c).sum())
+    assert (dropped > 0) == (case == "ties_and_drops_f32")
+
+    x_dev = x.to(dev)
+
+    def run():
+        xc = x_dev.clone().requires_grad_(True)
+        card.zero_grad()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = moe.moe_ffn(card, xc, card.cfg)
+            _, _, _, e = moe.route(card.router, xc.view(g, t // g, 64), 2)
+            (out.y.float().square().sum() + out.aux_loss
+             + out.z_loss).backward()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        grads = [xc.grad] + [p.grad for p in card.parameters()]
+        return out, e, [gr.clone() for gr in grads]
+
+    out, e, grads = run()
+    again, e2, grads2 = run()
+    assert torch.equal(e.cpu(), e_host) and torch.equal(e2, e)
+    if zero_rows:
+        assert (e.view(t, 2)[:zero_rows].cpu() == torch.tensor([0, 1])).all()
+    tol = ATTN_TOL[dtype]
+    w = want.y.float()
+    assert (out.y.cpu().float() - w).abs().max() <= tol * w.abs().max()
+    torch.testing.assert_close(out.aux_loss.cpu(), want.aux_loss, rtol=1e-5,
+                               atol=1e-6)
+    torch.testing.assert_close(out.z_loss.cpu(), want.z_loss, rtol=1e-5,
+                               atol=1e-6)
+    assert torch.equal(again.y, out.y)
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads2))
+
+
+def _moe_lm_on_both(which):
+    from repro_torch.configs import deepseek_v3_671b, granite_moe_3b_a800m
+
+    mod = {"granite_smoke": granite_moe_3b_a800m,
+           "dsv3_smoke": deepseek_v3_671b}[which]
+    return _tower_on_both(mod.smoke())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["granite_smoke", "dsv3_smoke"])
+def test_moe_mla_prefill_and_decode_on_card_equal_cpu(dev, which):
+    """GQA over MoE blocks (granite) and MLA with MoE and a shared expert
+    (DS-V3) at the smoke widths: ``prefill``, then greedy ``decode_step``s
+    on the card against the CPU (the card's tokens fed to both), the logits
+    and the cache within f32 rounding; ``flash_attention`` launched once a
+    layer in the prefill, ``flash_decode`` once a layer a step on the GQA
+    cache and never on the MLA one (its absorbed decode is plain products);
+    every step with no host sync."""
+    from repro_torch.models import transformer as T
+
+    card, host = _moe_lm_on_both(which)
+    cfg = card.cfg
+    prompts = torch.from_numpy(np.random.default_rng(7).integers(
+        0, cfg.vocab, (3, 40)))
+    steps, s = 5, 40 + 5
+    with torch.inference_mode():
+        flash_attention.reset_launches()
+        lc, cc = T.prefill(card, prompts.to(dev), max_seq=s)
+        assert flash_attention.launches["flash_attention_simt"] == \
+            cfg.n_layers
+        lh, ch = T.prefill(host, prompts, max_seq=s)
+        torch.testing.assert_close(lc.cpu(), lh, rtol=1e-4, atol=1e-4)
+        for _ in range(steps):
+            tok = lc[:, -1].argmax(-1, keepdim=True)
+            before = flash_attention.launches["flash_decode"]
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                lc, cc = T.decode_step(card, tok, cc)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            assert flash_attention.launches["flash_decode"] == before + (
+                0 if cfg.mla else cfg.n_layers)
+            lh, ch = T.decode_step(host, tok.cpu(), ch)
+            torch.testing.assert_close(lc.cpu(), lh, rtol=1e-4, atol=1e-4)
+        assert int(cc.length) == s
+        torch.testing.assert_close(cc.k.cpu(), ch.k, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(cc.v.cpu(), ch.v, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["granite_smoke", "dsv3_smoke"])
+def test_moe_mtp_loss_and_grads_on_card_equal_cpu(dev, which):
+    """``loss_fn`` (ce, aux, z and DS-V3's mtp_ce) and every gradient on the
+    card against the CPU, f32, the cross entropy in two chunks."""
+    import dataclasses
+
+    from repro_torch.models import transformer as T
+
+    card, host = _moe_lm_on_both(which)
+    for m in (card, host):
+        m.cfg = dataclasses.replace(m.cfg, ce_chunk=16)
+    toks = np.random.default_rng(8).integers(0, card.cfg.vocab, (2, 33))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    lc, mc = T.loss_fn(card, batch)
+    lh, mh = T.loss_fn(host, batch)
+    assert set(mc) == set(mh) and ("mtp_ce" in mc) == card.cfg.mtp
+    for k in mh:
+        torch.testing.assert_close(mc[k].detach().cpu(), mh[k].detach(),
+                                   rtol=1e-5, atol=1e-6)
+    lc.backward()
+    lh.backward()
+    for (name, pc), ph in zip(card.named_parameters(), host.parameters()):
+        if ph.grad is None:
+            assert pc.grad is None, name
+            continue
+        w = ph.grad
+        assert (pc.grad.cpu() - w).abs().max() <= 1e-4 * w.abs().max() \
+            + 1e-12, name

@@ -156,15 +156,6 @@ def test_tower_configs_equal_jax(name):
         if f.name != "dtype"}
 
 
-@pytest.mark.parametrize("flag", ["moe", "mla", "mtp"])
-def test_unported_variants_raise(flag):
-    cfg = dataclasses.replace(tcfgs.cheap_tower_smoke(), **{flag: True})
-    with pytest.raises(NotImplementedError, match=flag):
-        TT.init_params(0, cfg, device=CPU)
-    with pytest.raises(NotImplementedError, match=flag):
-        convert.transformer_from_numpy({}, cfg, device=CPU)
-
-
 def test_from_numpy_refuses_a_pytree_of_another_shape():
     jcfg, params, _ = _pair_models(jcfgs.cheap_tower_smoke)
     np_params = jax.tree.map(np.asarray, params)
