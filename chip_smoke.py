@@ -168,7 +168,27 @@ Phases (any failure exits nonzero and prints no result line):
    card = CPU, and ``launch/train.py --preset smoke`` for both on the card;
    (e) ``flash_attention`` at DS-V3's MLA prefill layer and granite's, and
    ``flash_decode`` at granite's cache, against their plain versions, timed
-   beside their bounds and SDPA (with the backend SDPA picks).
+   beside their bounds and SDPA (with the backend SDPA picks);
+16. the GAT graph model (``models/gnn.py``, ``configs/gat_cora.py``) at
+   gat-cora's widths (2 layers, 8 heads, d_hidden 8), f32, weights from
+   ``init_params`` on the card: (a) the forward at each of the four
+   ``GNN_SHAPES`` at full size (Cora's graph padded; a ``sample_block`` of
+   1,024 seeds at fanouts (15, 10) from a Reddit-size CSR graph; ogb_products'
+   2.45 M nodes and 61.9 M edges, its messages summed in chunks; 128
+   molecules), with the warm time, nodes/s and edges/s, peak memory beside
+   the bytes reckoned from the shapes, a second call bit-equal and a third
+   under ``set_sync_debug_mode("error")``; (b) card against CPU (logits,
+   loss, every gradient) at full_graph_sm, molecule and minibatch_lg, and
+   ogb_products' model on a 131,072-node graph at its mean degree, summed
+   in chunks smaller than E on both devices; (c) 10 ``Trainer`` steps
+   (AdamW, no weight decay) at full_graph_sm and molecule on a fixed batch
+   (losses falling) and at minibatch_lg on a fresh block each step, labels
+   a rule of each node's in-neighbours' features, with the step's split,
+   the sampler's host time and peak memory; (d)
+   ``launch/gnn_corpus_search.main`` at ogbn-arxiv's size (169,343 nodes,
+   mean degree 7, 128 features, 64 queries, Q in {64, 256}), the search
+   kernels' launches counted from 0, each query within Q D calls, then one
+   wave of each metric held against the plain versions.
 
 Phases 6, 8, 9, 12's decoding, 14's serving and 15's run under
 ``torch.inference_mode()``
@@ -4586,6 +4606,447 @@ def moe_slice(dev, sizes, rehearse):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 16: the GAT graph model
+# --------------------------------------------------------------------------
+GNN_LOGIT_REL = 1e-5  # card vs CPU: max |logit diff| over max |logit|
+GNN_LOSS_RTOL = 1e-5
+GNN_GRAD_REL = 1e-4  # x the leaf's max |gradient| on the CPU
+# or, for a leaf whose f32 gradient cannot hold GNN_GRAD_REL (a sum over
+# every edge whose terms nearly cancel, as layer 2's attention vectors'
+# do: the softmax does not see a shift that every edge of a node shares),
+# this many times f32's own noise in it: the card's gradient against itself
+# with the edges permuted (every sum in another order)
+GNN_NOISE = 4.0
+
+
+def gnn_sizes(rehearse):
+    """Phase 16's sizes, a function of its own so that the phase can run
+    alone (``gnn_slice(dev, gnn_sizes(False), False)``): the four shapes of
+    ``configs/gat_cora.GNN_SHAPES``; the Reddit-size CSR graph (232,965
+    nodes, 114.6 M edges) minibatch_lg's blocks are sampled from, 1,024
+    seeds at fanouts (15, 10); the card-against-CPU graph of 131,072 nodes
+    at ogb_products' mean degree, summed in chunks of 2^20 edges; 10
+    training steps; the corpus-search twin at ogbn-arxiv's size (169,343
+    nodes, mean degree 7, 128 features), 64 queries. Toy sizes under
+    ``rehearse``."""
+    from repro_torch.configs import gat_cora
+
+    train = dict(steps=10, lr=1e-3, warmup=2)
+    if not rehearse:
+        return dict(shapes=gat_cora.GNN_SHAPES, seed=0, fwd_reps=(11, 5),
+                    big_reps=(3, 1), reddit=(232965, 492, 602, 41),
+                    seeds=1024, fanouts=(15, 10),
+                    cross=dict(n=131072, chunk=1 << 20), train=train,
+                    search=dict(n=169343, degree=7, d_feat=128, queries=64,
+                                quotas=(64, 256)))
+    toy = {"full_graph_sm": dict(true_nodes=240, true_edges=480),
+           "minibatch_lg": dict(n_nodes=160, n_edges=160),
+           "ogb_products": dict(true_nodes=250, true_edges=500),
+           "molecule": dict(true_nodes=240, true_edges=512)}
+    return dict(shapes={k: dict(gat_cora.SMOKE_SHAPES[k], **v)
+                        for k, v in toy.items()},
+                seed=0, fwd_reps=(1, 1), big_reps=(1, 1),
+                reddit=(2000, 20, 32, 41), seeds=16, fanouts=(3, 2),
+                cross=dict(n=512, chunk=1000), train=train,
+                search=dict(n=512, degree=7, d_feat=16, queries=8,
+                            quotas=(32, 64)))
+
+
+def _gnn_rule(d_feat, n_classes, g):
+    """A fixed random projection (d_feat, n_classes), drawn on ``g``'s
+    device."""
+    return torch.randn(d_feat, n_classes, generator=g, device=g.device)
+
+
+def _gnn_scores(feats, src, dst, rule, chunk=1 << 24):
+    """(N, C): each node's in-neighbours' features summed and projected by
+    ``rule`` (invalid edges skipped). Labels follow its argmax: a GAT has
+    no self-loops, so a node's own features never reach its logits, its
+    in-neighbours' do."""
+    proj = feats @ rule.to(feats.device)
+    out = torch.zeros_like(proj)
+    for c0 in range(0, src.shape[0], chunk):
+        s, t = src[c0:c0 + chunk].long(), dst[c0:c0 + chunk].long()
+        keep = (s >= 0)[:, None].to(proj.dtype)
+        out.index_add_(0, t.clamp(min=0), proj[s.clamp(min=0)] * keep)
+    return out
+
+
+def _gnn_uniform(info, g, dev):
+    """A node-task batch at ``info``'s sizes: ``true_nodes`` nodes with
+    normal features and ``true_edges`` uniformly random edges among them,
+    padded to ``n_nodes`` (zero features, mask 0) and ``n_edges`` (-1
+    edges); labels by :func:`_gnn_scores`."""
+    n, e = info["n_nodes"], info["n_edges"]
+    tn, te = info["true_nodes"], info["true_edges"]
+    feats = torch.randn(n, info["d_feat"], generator=g, device=dev)
+    feats[tn:] = 0.0
+    src, dst = torch.randint(0, tn, (2, e), generator=g, device=dev,
+                             dtype=torch.int32)
+    src[te:] = -1
+    dst[te:] = -1
+    rule = _gnn_rule(info["d_feat"], info["n_classes"], g)
+    labels = _gnn_scores(feats, src, dst, rule).argmax(-1).to(torch.int32)
+    mask = (torch.arange(n, device=dev) < tn).float()
+    return dict(feats=feats, src=src, dst=dst, labels=labels, mask=mask)
+
+
+def _gnn_molecules(info, g, dev):
+    """``n_graphs`` disjoint graphs of ``true_nodes / n_graphs`` nodes and
+    ``true_edges / n_graphs`` random edges each; the pad nodes past them
+    (zero features) get graph id ``n_graphs``, which the readout drops;
+    each graph's label is the argmax of its nodes' :func:`_gnn_scores`
+    summed."""
+    ng, n = info["n_graphs"], info["n_nodes"]
+    per_n, per_e = info["true_nodes"] // ng, info["true_edges"] // ng
+    base = (torch.arange(ng * per_e, device=dev) // per_e) * per_n
+    ends = torch.randint(0, per_n, (2, ng * per_e), generator=g, device=dev)
+    src, dst = (ends + base).to(torch.int32)
+    pad = torch.full((info["n_edges"] - ng * per_e,), -1, dtype=torch.int32,
+                     device=dev)
+    src, dst = torch.cat([src, pad]), torch.cat([dst, pad])
+    feats = torch.randn(n, info["d_feat"], generator=g, device=dev)
+    feats[ng * per_n:] = 0.0
+    gid = (torch.arange(n, device=dev) // per_n).clamp(max=ng).to(torch.int32)
+    scores = _gnn_scores(feats, src, dst,
+                         _gnn_rule(info["d_feat"], info["n_classes"], g))
+    per_graph = torch.zeros(ng + 1, scores.shape[1], device=dev).index_add_(
+        0, gid.long(), scores)[:ng]
+    return dict(feats=feats, src=src, dst=dst, graph_ids=gid,
+                graph_labels=per_graph.argmax(-1).to(torch.int32))
+
+
+def _gnn_blocks(graph, gz, rule, rng, dev, sampler_s):
+    """minibatch_lg's batches: each a fresh ``sample_block`` of
+    ``gz["seeds"]`` seeds drawn from ``rng`` at ``gz["fanouts"]`` (its host
+    seconds appended to ``sampler_s``), labelled by :func:`_gnn_scores` on
+    the block's own edges, on ``dev``."""
+    from repro_torch.models import gnn
+
+    while True:
+        seeds = rng.choice(graph.indptr.shape[0] - 1, gz["seeds"],
+                           replace=False)
+        t0 = time.perf_counter()
+        blk = gnn.sample_block(graph, seeds, gz["fanouts"], rng)
+        sampler_s.append(time.perf_counter() - t0)
+        b = {k: torch.from_numpy(getattr(blk, k))
+             for k in ("feats", "src", "dst", "mask")}
+        b["labels"] = _gnn_scores(b["feats"], b["src"], b["dst"],
+                                  rule).argmax(-1).to(torch.int32)
+        yield {k: v.to(dev) for k, v in b.items()}
+
+
+def _gnn_reckon(n, e, cfg):
+    """Bytes a forward adds above its inputs and weights, reckoned from the
+    shapes alone (f32): the edge plan (~6 int64 an edge: keys, order,
+    sorted ends) and the costliest layer's h (N, H·dh), five (E, H)
+    per-edge tensors, two chunks of messages (C, H·dh) and three (N, H·dh)
+    sums."""
+    from repro_torch.models import gnn
+
+    worst = 0
+    for i in range(cfg.n_layers):
+        dh = cfg.n_classes if i == cfg.n_layers - 1 else cfg.d_hidden
+        hd = cfg.n_heads * dh
+        c = gnn.edge_chunk(e, n, cfg.n_heads, dh)
+        worst = max(worst, 4 * (4 * n * hd + 5 * e * cfg.n_heads + 2 * c * hd))
+    return 6 * 8 * e + 8 * (n + 1) + worst
+
+
+def _gnn_forward(dev, shape, model, batch, reps, rehearse):
+    """(a) A forward at the shape's full size: the first call, the warm
+    time, nodes/s and edges/s, a traced call's device split
+    (:func:`profile_batch`); a second call bit-equal to the first and a
+    third under ``set_sync_debug_mode("error")``; peak memory above the
+    inputs beside :func:`_gnn_reckon`; the edge chunks of each layer and
+    the bytes the literal (E, H, dh) messages and gathered rows would
+    take."""
+    from repro_torch.models import gnn
+
+    cfg = model.cfg
+    n, e = batch["feats"].shape[0], batch["src"].shape[0]
+    run = lambda: gnn.forward(model, batch["feats"], batch["src"],
+                              batch["dst"])
+    dims = [cfg.d_hidden] * (cfg.n_layers - 1) + [cfg.n_classes]
+    out = dict(shape=shape, n_nodes=n, n_edges=e, d_feat=cfg.d_in,
+               n_classes=cfg.n_classes, reckoned_bytes=_gnn_reckon(n, e, cfg),
+               chunks=[gnn.edge_chunk(e, n, cfg.n_heads, d) for d in dims],
+               literal_bytes=[2 * 4 * e * cfg.n_heads * d for d in dims])
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        first = run()
+        if cuda:
+            torch.cuda.synchronize()
+        out["first_s"] = time.perf_counter() - t0
+        require(first.shape == (n, cfg.n_classes)
+                and bool(torch.isfinite(first).all()),
+                f"(a) {shape}: logits {tuple(first.shape)} or not finite")
+        require(torch.equal(run(), first), f"(a) {shape}: a second forward "
+                "is not bit-equal to the first")
+        if cuda:  # a forward that reads nothing back to the host
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            third = run()
+        finally:
+            if cuda:
+                torch.cuda.set_sync_debug_mode(0)
+        require(torch.equal(third, first), f"(a) {shape}: the forward under "
+                "the sync guard differs")
+        if cuda:
+            out["peak_bytes_above_inputs"] = (torch.cuda.max_memory_allocated()
+                                              - start)
+        if not rehearse:
+            out["ms"] = time_ms(run, reps=reps[0], inner=reps[1], warmup=1)
+            out["nodes_per_s"] = n / out["ms"] * 1e3
+            out["edges_per_s"] = e / out["ms"] * 1e3
+            out["trace"] = profile_batch(run)
+    out.update(bit_equal=True, no_host_sync=cuda)
+    del first, third
+    log(f"  (a) {shape}: " + json.dumps(out))
+    if shape == "ogb_products":
+        log(f"  (a) ogb_products: largest edge chunk {max(out['chunks']):,} "
+            f"edges; the literal form's (E, H, dh) messages and gathered "
+            f"rows at the last layer: 2 x {out['literal_bytes'][-1] / 2e9:.1f}"
+            f" GB")
+    return out
+
+
+def _gnn_loss(info, chunk=None):
+    """``graph_loss`` bound to the shape's task and graph count, as JAX's
+    ``build_gnn_cell`` binds it."""
+    from repro_torch.configs import gat_cora
+
+    return functools.partial(gat_cora.graph_loss, task=info["task"],
+                             n_graphs=info.get("n_graphs") or 0, chunk=chunk)
+
+
+def _gnn_cross(shape, info, model, batch, chunk=None):
+    """(b) The model and batch on the card against a CPU copy, both with
+    ``chunk``: logits within ``GNN_LOGIT_REL`` of max |logit|, the loss
+    within ``GNN_LOSS_RTOL``, every gradient per leaf within
+    ``GNN_GRAD_REL`` x its max |gradient| or ``GNN_NOISE`` x its f32
+    noise, whichever is larger (the bias unused on both); the leaves that
+    needed the noise term are reported."""
+    from repro_torch.models import gnn
+
+    host = gnn.GAT(model.cfg, "cpu")
+    host.load_state_dict(model.state_dict())
+    hb = {k: v.cpu() for k, v in batch.items()}
+    loss = _gnn_loss(info, chunk)
+    res = dict(shape=shape, n_nodes=batch["feats"].shape[0],
+               n_edges=batch["src"].shape[0], chunk=chunk)
+    with torch.no_grad():
+        a = gnn.forward(model, batch["feats"], batch["src"], batch["dst"],
+                        chunk=chunk).cpu()
+        b = gnn.forward(host, hb["feats"], hb["src"], hb["dst"], chunk=chunk)
+    res["logits_rel"] = float((a - b).abs().max() / b.abs().max())
+    require(res["logits_rel"] <= GNN_LOGIT_REL,
+            f"(b) {shape}: logits {res['logits_rel']:.3e} of max")
+    perm = torch.randperm(batch["src"].shape[0], device=batch["src"].device,
+                          generator=torch.Generator(
+                              device=batch["src"].device).manual_seed(5))
+    permuted = dict(batch, src=batch["src"][perm], dst=batch["dst"][perm])
+    grads = []
+    for m, bb in ((model, batch), (host, hb), (model, permuted)):
+        lo, _ = loss(m, bb)
+        gs = torch.autograd.grad(lo, list(m.parameters()), allow_unused=True)
+        grads.append((float(lo.detach()), gs))
+    (lc, gc), (lh, gh), (_, gp) = grads
+    res["loss"] = (lc, lh)
+    require(abs(lc - lh) <= GNN_LOSS_RTOL * abs(lh),
+            f"(b) {shape}: loss {lc} vs {lh}")
+    worst, res["noise_limited"] = 0.0, {}
+    for (name, _), x, y, z in zip(host.named_parameters(), gc, gh, gp):
+        if y is None:
+            require(x is None and z is None and name.endswith("bias"),
+                    f"(b) {shape}: {name} unused on one device only")
+            continue
+        err = float((x.cpu() - y).abs().max())
+        plain = GNN_GRAD_REL * float(y.abs().max())
+        noise = float((z - x).abs().max())
+        lim = max(plain, GNN_NOISE * noise)
+        require(err <= lim, f"(b) {shape}: {name} grad err {err:.3e}, "
+                f"limit {plain:.3e}, f32 noise {noise:.3e}")
+        if err > plain:
+            res["noise_limited"][name] = dict(err=err, plain_limit=plain,
+                                              noise=noise)
+        worst = max(worst, err / lim)
+    res["worst_grad_share_of_limit"] = worst
+    log(f"  (b) {shape}: " + json.dumps(res))
+    return res
+
+
+def _gnn_train(dev, shape, info, model, batches, tz, rehearse, fixed):
+    """(c) ``tz["steps"]`` ``Trainer`` steps (AdamW lr ``tz["lr"]``, warmup
+    ``tz["warmup"]``, no weight decay) on ``batches``: the losses finite,
+    and falling on a ``fixed`` batch; step ms with its forward / backward /
+    optimizer split (on the last batch), peak memory."""
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    steps = tz["steps"]
+    loss = _gnn_loss(info)
+    opt = AdamWConfig(lr=tz["lr"], warmup_steps=tz["warmup"],
+                      total_steps=steps, weight_decay=0.0)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(loss, model, opt,
+                 TrainerConfig(total_steps=steps, log_every=steps), device=dev)
+    seen = {}
+
+    def feed():  # keeps the last batch for the split below
+        for b in batches:
+            seen["last"] = b
+            yield b
+
+    res = tr.run(feed(), log=lambda m: log("      " + m))
+    losses = res["losses"]
+    tail = tr.step_times[2:]
+    out = dict(shape=shape, steps=steps, fixed_batch=fixed, losses=losses,
+               step_ms=[1e3 * t for t in tr.step_times],
+               step_ms_median=1e3 * statistics.median(tail))
+    if dev.type == "cuda":
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    require(all(math.isfinite(x) for x in losses),
+            f"(c) {shape}: a loss is not finite: {losses}")
+    out["fell"] = statistics.mean(losses[-3:]) < statistics.mean(losses[:3])
+    require(out["fell"] or rehearse or not fixed,
+            f"(c) {shape}: the loss did not fall: {losses}")
+    last = seen["last"]
+    params = list(tr.params.parameters())
+    out["forward_ms"] = 1e3 * _wall_s(lambda: loss(tr.params, last)[0], 3)
+    out["forward_backward_ms"] = 1e3 * _wall_s(lambda: torch.autograd.grad(
+        loss(tr.params, last)[0], params, allow_unused=True), 3)
+    out["backward_ms"] = out["forward_backward_ms"] - out["forward_ms"]
+    out["optimizer_and_rest_ms"] = (out["step_ms_median"]
+                                    - out["forward_backward_ms"])
+    log(f"  (c) {shape}: " + json.dumps(out))
+    del tr, seen, last
+    return out
+
+
+def _gnn_search(sz, dev, rehearse):
+    """(d) ``launch/gnn_corpus_search.main`` on the card at ``sz``'s size,
+    the search kernels' launches counted from 0 over it: each query within
+    Q D calls, both kernels launched; then one wave of each metric held
+    against the plain versions (:func:`check_tower_waves`)."""
+    from repro_torch.kernels import l2_topk
+    from repro_torch.launch import gnn_corpus_search
+
+    argv = ["--n-nodes", str(sz["n"]), "--avg-degree", str(sz["degree"]),
+            "--d-feat", str(sz["d_feat"]), "--n-queries", str(sz["queries"]),
+            "--quotas", ",".join(map(str, sz["quotas"])),
+            "--device", dev.type]
+    l2_topk.reset_launches()  # the path starts here
+    t0 = time.perf_counter()
+    res = gnn_corpus_search.main(argv)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    launches = dict(l2_topk.launches)  # read just after the path
+    out = dict(argv=argv, run_s=time.perf_counter() - t0, launches=launches,
+               **{k: res[k] for k in ("n_nodes", "n_edges", "embed_s",
+                                      "build_s", "recall_at_10", "query_s")},
+               max_D_calls={q: max(c) for q, c in res["D_calls"].items()})
+    for q, calls in res["D_calls"].items():
+        require(len(calls) == sz["queries"] and max(calls) <= q,
+                f"(d) D calls {max(calls)} past the quota {q}")
+    if not rehearse:
+        for name in ("gather_score", "beam_merge_topk"):
+            require(launches[name] > 0,
+                    f"(d) {name} was never launched on the GNN search")
+    st = res["state"]
+    emb = {("cheap", "docs"): st["emb_d"], ("cheap", "queries"): st["q_d"],
+           ("expensive", "docs"): st["emb_D"],
+           ("expensive", "queries"): st["q_D"]}
+    out["wave_checks"] = check_tower_waves(st["index"], emb, sz["quotas"])
+    log(f"  (d) corpus search: " + json.dumps(
+        {k: v for k, v in out.items() if k != "wave_checks"}))
+    return out
+
+
+def gnn_slice(dev, gz, rehearse):
+    """Phase 16: the GAT at gat-cora's widths (2 layers, 8 heads, d_hidden
+    8), f32, weights from ``init_params`` on the card: per shape (a) the
+    forward at full size, (b) card against CPU (ogb_products' model on the
+    131,072-node graph, in chunks smaller than E), (c) training (not at
+    ogb_products); then (d) the corpus-search twin."""
+    import gc
+
+    from repro_torch.configs import gat_cora
+    from repro_torch.models import gnn
+
+    t_start = time.perf_counter()
+    g = torch.Generator(device=dev).manual_seed(gz["seed"])
+    shapes, tz = gz["shapes"], gz["train"]
+    out = {}
+    for shape in ("full_graph_sm", "molecule", "minibatch_lg",
+                  "ogb_products"):
+        info = shapes[shape]
+        model = gnn.init_params(g, (gat_cora.smoke if rehearse
+                                    else gat_cora.full)(shape))
+        res = out[shape] = {}
+        if shape == "minibatch_lg":
+            t0 = time.perf_counter()
+            graph = gnn.random_csr_graph(*gz["reddit"], seed=gz["seed"])
+            res["host_graph_s"] = time.perf_counter() - t0
+            res["host_graph_edges"] = int(graph.indptr[-1])
+            rule = _gnn_rule(info["d_feat"], info["n_classes"],
+                             torch.Generator().manual_seed(gz["seed"]))
+            sampler_s = []
+            blocks = _gnn_blocks(graph, gz, rule,
+                                 np.random.default_rng(gz["seed"]), dev,
+                                 sampler_s)
+            batch = next(blocks)
+            require(batch["feats"].shape[0] == info["n_nodes"]
+                    and batch["src"].shape[0] == info["n_edges"],
+                    f"(a) minibatch_lg: block {batch['feats'].shape[0]} "
+                    f"nodes, {batch['src'].shape[0]} edges")
+        elif shape == "molecule":
+            batch = _gnn_molecules(info, g, dev)
+        else:
+            batch = _gnn_uniform(info, g, dev)
+        reps = gz["big_reps"] if shape == "ogb_products" else gz["fwd_reps"]
+        res["forward"] = _gnn_forward(dev, shape, model, batch, reps,
+                                      rehearse)
+        if shape == "ogb_products":
+            del batch
+            gc.collect()
+            cz = gz["cross"]
+            e = round(cz["n"] * info["true_edges"] / info["true_nodes"])
+            small = dict(info, n_nodes=cz["n"], n_edges=e, true_nodes=cz["n"],
+                         true_edges=e)
+            batch = _gnn_uniform(small, g, dev)
+            require(cz["chunk"] < e, "(b) the chunk is not smaller than E")
+            res["cross"] = _gnn_cross(shape, small, model, batch,
+                                      cz["chunk"])
+        else:
+            res["cross"] = _gnn_cross(shape, info, model, batch)
+            fresh = blocks if shape == "minibatch_lg" else itertools.repeat(
+                batch)
+            res["train"] = _gnn_train(dev, shape, info, model, fresh, tz,
+                                      rehearse, fixed=shape != "minibatch_lg")
+        if shape == "minibatch_lg":
+            res["sampler_ms"] = [1e3 * s for s in sampler_s]
+            log(f"  (c) minibatch_lg: the sampler's host ms a block "
+                f"{statistics.median(res['sampler_ms']):.1f} (median of "
+                f"{len(sampler_s)}); the host graph took "
+                f"{res['host_graph_s']:.1f} s")
+            del graph, blocks
+        del model, batch
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    out["search"] = _gnn_search(gz["search"], dev, rehearse)
+    out["phase_s"] = time.perf_counter() - t_start
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=171_332,
@@ -4945,6 +5406,15 @@ def main() -> int:
     report["phase15_s"] = time.perf_counter() - t0
     log(f"  phase 15 took {report['phase15_s']:.1f} s")
 
+    t0 = time.perf_counter()
+    log("phase 16: the GAT graph model (gat-cora at its four shapes: the "
+        "forward at full size, card vs CPU, Trainer steps; the GNN "
+        "corpus-search twin at ogbn-arxiv's size)")
+    gn = gnn_slice(dev, gnn_sizes(rehearse), rehearse)
+    report["gnn"] = gn
+    report["phase16_s"] = time.perf_counter() - t0
+    log(f"  phase 16 took {report['phase16_s']:.1f} s")
+
     kernels = [
         dict(name="gather_score", route="cuda",
              source="src/repro_torch/kernels/csrc/l2_topk.cu",
@@ -4956,9 +5426,11 @@ def main() -> int:
              launches_serve_sharded=sv["sharded"]["launches"]["gather_score"],
              launches_scatter_gather=sg["launches"]["gather_score"],
              launches_biencoder=be["launches"]["gather_score"],
+             launches_gnn_search=gn["search"]["launches"]["gather_score"],
              max_abs_err=max(g_err, ct["wave_check"]["gather_max_abs_err"],
                              *(w["gather_max_abs_err"]
-                               for w in tw["wave_checks"] + sv["wave_check"])),
+                               for w in tw["wave_checks"] + sv["wave_check"]
+                               + gn["search"]["wave_checks"])),
              ms=g_timed.get("ms"), plain_ms=g_timed.get("plain_ms"),
              bound_ms=g_timed["bound_ms"], bound_by=g_timed["bound_by"],
              library_ms=None, device_ms=g_timed.get("device_ms")),
@@ -4985,6 +5457,7 @@ def main() -> int:
                  "beam_merge_topk"],
              launches_scatter_gather=sg["launches"]["beam_merge_topk"],
              launches_biencoder=be["launches"]["beam_merge_topk"],
+             launches_gnn_search=gn["search"]["launches"]["beam_merge_topk"],
              max_abs_err=m_err,
              ms=m_timed.get("ms"), plain_ms=m_timed.get("plain_ms"),
              bound_ms=m_timed["bound_ms"], bound_by=m_timed["bound_by"],

@@ -1,0 +1,85 @@
+"""gat-cora [arXiv:1710.10903]: 2 layers, d_hidden 8, 8 heads, attention
+aggregator; JAX's ``repro.configs.gat_cora`` tables.
+
+Four graph regimes (padded to 512-divisible sizes; padding edges are -1 and
+padded nodes are masked):
+
+  full_graph_sm — Cora: 2,708 nodes / 10,556 edges / 1,433 feats (pad 3072/10752)
+  minibatch_lg  — Reddit-scale sampled block: 1,024 seeds × fanout 15·10
+                  -> 169,984-node block (exactly 512-divisible), 602 feats
+  ogb_products  — 2,449,029 nodes / 61,859,140 edges / 100 feats
+                  (pad 2,449,408 / 61,859,840)
+  molecule      — 128 disjoint graphs × 30 nodes / 64 edges, graph-level
+                  classification via segment-mean readout (pad N to 4096)
+
+JAX's ``build_gnn_cell`` and ``SPEC`` (the dry-run cells on a mesh) are not
+here: they wait for the port's training plumbing of several devices.
+:func:`full` / :func:`smoke` give the ``GATConfig`` that ``build_gnn_cell``
+makes for a shape, and ``OPT`` its optimizer; its loss is
+:func:`graph_loss` with the shape's ``task`` and ``n_graphs``."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import gnn
+from repro_torch.train.optimizer import AdamWConfig
+
+GNN_SHAPES = {
+    "full_graph_sm": dict(n_nodes=3072, n_edges=10752, d_feat=1433,
+                          n_classes=7, task="node",
+                          true_nodes=2708, true_edges=10556),
+    "minibatch_lg": dict(n_nodes=169984, n_edges=169984, d_feat=602,
+                         n_classes=41, task="node",
+                         true_nodes=232965, true_edges=114615892),
+    "ogb_products": dict(n_nodes=2449408, n_edges=61859840, d_feat=100,
+                         n_classes=47, task="node",
+                         true_nodes=2449029, true_edges=61859140),
+    "molecule": dict(n_nodes=4096, n_edges=8192, d_feat=16, n_classes=2,
+                     task="graph", n_graphs=128,
+                     true_nodes=3840, true_edges=8192),
+}
+
+SMOKE_SHAPES = {
+    k: dict(v, n_nodes=min(v["n_nodes"], 256), n_edges=min(v["n_edges"], 512),
+            d_feat=min(v["d_feat"], 32),
+            n_graphs=min(v.get("n_graphs", 0), 8) or v.get("n_graphs"))
+    for k, v in GNN_SHAPES.items()
+}
+
+#: the cells' optimizer: AdamW without weight decay
+OPT = AdamWConfig(weight_decay=0.0)
+
+
+def graph_loss(model: gnn.GAT, batch: dict, *, task: str, n_graphs: int = 0,
+               chunk: int | None = None):
+    """``task="node"``: ``gnn.loss_fn``. ``task="graph"``: per-node logits,
+    a mean over each graph's nodes (graph ids outside [0, n_graphs) are
+    dropped, as JAX's ``segment_sum`` drops them), cross entropy against
+    ``graph_labels``. The readout is a one-hot (n_graphs, N) product: no
+    atomic adds, so the card gives one answer."""
+    if task == "node":
+        return gnn.loss_fn(model, batch, chunk=chunk)
+    logits = gnn.forward(model, batch["feats"], batch["src"], batch["dst"],
+                         chunk=chunk)
+    gid = batch["graph_ids"]
+    onehot = (gid[None, :] == torch.arange(n_graphs, device=gid.device,
+                                           dtype=gid.dtype)[:, None]).float()
+    g = (onehot @ logits.float()) / onehot.sum(1).clamp(min=1.0)[:, None]
+    labels = batch["graph_labels"].long()
+    loss = (torch.logsumexp(g, dim=-1)
+            - g.gather(-1, labels[:, None])[:, 0]).mean()
+    return loss, {"loss": loss}
+
+
+def _config(info: dict) -> gnn.GATConfig:
+    return gnn.GATConfig(name="gat", n_layers=2, d_hidden=8, n_heads=8,
+                         d_in=info["d_feat"], n_classes=info["n_classes"])
+
+
+def full(shape: str) -> gnn.GATConfig:
+    return _config(GNN_SHAPES[shape])
+
+
+def smoke(shape: str) -> gnn.GATConfig:
+    return _config(SMOKE_SHAPES[shape])
+

@@ -19,6 +19,7 @@ from repro_torch.core.distributed import ShardedIndex
 from repro_torch.distributed.sharding import search_mesh
 from repro_torch.core.vamana import VamanaConfig, VamanaIndex
 from repro_torch.kernels.backend import CorpusView, resolve_device
+from repro_torch.models import gnn
 from repro_torch.models import recsys as R
 from repro_torch.models.transformer import (KVCache, Transformer,
                                             TransformerConfig)
@@ -222,6 +223,12 @@ def recsys_to_numpy(tensors: nn.Module | Mapping[str, torch.Tensor]) -> dict:
     model, or from a mapping of its parameter names to tensors (their
     gradients, say): the inverse of :func:`recsys_from_numpy`. A path part
     that is an index (``blocks.0``, ``ws.2``, ``cin.1``) is a list item."""
+    return _pytree(tensors)
+
+
+def _pytree(tensors: nn.Module | Mapping[str, torch.Tensor]) -> dict:
+    """Nested dicts of numpy leaves by the dotted names of ``tensors``; a
+    node whose keys are all indices becomes a list."""
     out: dict = {}
     for name, t in _named(tensors).items():
         _put(out, name, tensor_to_numpy(t))
@@ -234,6 +241,22 @@ def recsys_to_numpy(tensors: nn.Module | Mapping[str, torch.Tensor]) -> dict:
         return {k: lists(v) for k, v in node.items()}
 
     return lists(out)
+
+
+def gat_from_numpy(params: dict, cfg: gnn.GATConfig,
+                   device=None) -> gnn.GAT:
+    """A :class:`~repro_torch.models.gnn.GAT` of ``cfg`` on ``device``
+    holding JAX's ``{"layers": [{"w", "a_src", "a_dst", "bias"}, ...]}``
+    (numpy leaves) bit for bit."""
+    model = gnn.GAT(cfg, resolve_device(device))
+    return _copy_into(model, _flatten(params), f"gat_from_numpy: {cfg.name}")
+
+
+def gat_to_numpy(tensors: nn.Module | Mapping[str, torch.Tensor]) -> dict:
+    """JAX's GAT pytree from a model, or from a mapping of its parameter
+    names to tensors (their gradients): the inverse of
+    :func:`gat_from_numpy`."""
+    return _pytree(tensors)
 
 
 def kv_cache_from_numpy(k, v, length, device=None) -> KVCache:

@@ -39,21 +39,20 @@ ARCHS = {
                              granite_moe_3b_a800m.smoke),
     "deepseek-v3-671b": (deepseek_v3_671b.full, deepseek_v3_671b.smoke),
 }
-#: the JAX registry's other LM and GNN archs, by the ROADMAP item (queue
-#: 1) that ports them
-LATER = {
-    "gat-cora": 7,
-    "granite-20b": 8, "deepseek-coder-33b": 8,
-}
-#: the recommender archs (``models/recsys.py``): not of the LM family, which
-#: this launcher drives, as JAX's refuses them
+#: the JAX registry's other LM archs, by the ROADMAP item (queue 1) that
+#: ports them
+LATER = {"granite-20b": 8, "deepseek-coder-33b": 8}
+#: the recommender archs (``models/recsys.py``) and the GNN
+#: (``models/gnn.py``): not of the LM family, which this launcher drives,
+#: as JAX's refuses them
 RECSYS = ("bst", "din", "bert4rec", "xdeepfm")
+GNN = ("gat-cora",)
 
 
 def get_config(arch: str, smoke: bool) -> T.TransformerConfig:
     if arch in ARCHS:
         return ARCHS[arch][1 if smoke else 0]()
-    if arch in RECSYS:
+    if arch in RECSYS or arch in GNN:
         raise SystemExit("train launcher currently drives the LM family; "
                          "see examples/ for GNN/recsys training loops")
     if arch in LATER:

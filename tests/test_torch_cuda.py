@@ -1533,3 +1533,91 @@ def test_moe_mtp_loss_and_grads_on_card_equal_cpu(dev, which):
         w = ph.grad
         assert (pc.grad.cpu() - w).abs().max() <= 1e-4 * w.abs().max() \
             + 1e-12, name
+
+
+def _gnn_case(which, n=600, e=5000, seed=11):
+    """A smoke-width GAT (``configs/gat_cora.smoke``) and a batch of ``n``
+    nodes and ``e`` random edges (an eighth padding, one ``dst = -1``) of
+    ``which`` task, on the CPU."""
+    from repro_torch.configs import gat_cora
+    from repro_torch.models import gnn
+
+    shape = "molecule" if which == "graph" else "ogb_products"
+    cfg = gat_cora.smoke(shape)
+    model = gnn.init_params(seed, cfg, device="cpu")
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n, e).astype(np.int32)
+    dst = rng.integers(0, n, e).astype(np.int32)
+    src[-(e // 8):] = dst[-(e // 8):] = -1
+    dst[0] = -1
+    batch = {"feats": rng.standard_normal((n, cfg.d_in)).astype(np.float32),
+             "src": src, "dst": dst}
+    if which == "graph":
+        batch["graph_ids"] = (np.arange(n) * 9 // n).astype(np.int32) - 1
+        batch["graph_labels"] = rng.integers(0, 2, 8).astype(np.int32)
+    else:
+        batch["labels"] = rng.integers(0, cfg.n_classes, n).astype(np.int32)
+        batch["mask"] = (rng.random(n) < 0.7).astype(np.float32)
+    return model, {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["node", "graph"])
+@pytest.mark.parametrize("chunk", [None, 777])
+def test_gnn_on_card_equals_cpu(dev, which, chunk):
+    """The GAT's logits (1e-5 x max |logit|), ``graph_loss`` (1e-5
+    relative) and every gradient (1e-4 x max |gradient|, the bias unused)
+    on the card against the CPU, whole and in chunks smaller than E."""
+    import copy
+
+    from repro_torch.configs import gat_cora
+    from repro_torch.models import gnn
+
+    host, batch = _gnn_case(which)
+    card = copy.deepcopy(host).to(dev)
+    kw = (dict(task="graph", n_graphs=8) if which == "graph"
+          else dict(task="node"))
+    got = []
+    for model, where in ((card, dev), (host, "cpu")):
+        b = {k: v.to(where) for k, v in batch.items()}
+        with torch.no_grad():
+            logits = gnn.forward(model, b["feats"], b["src"], b["dst"],
+                                 chunk=chunk)
+        loss, _ = gat_cora.graph_loss(model, b, chunk=chunk, **kw)
+        grads = torch.autograd.grad(loss, list(model.parameters()),
+                                    allow_unused=True)
+        got.append((logits.cpu(), loss.detach().cpu(), grads))
+    (lc, sc, gc), (lh, sh, gh) = got
+    assert (lc - lh).abs().max() <= 1e-5 * lh.abs().max()
+    assert abs(float(sc) - float(sh)) <= 1e-5 * abs(float(sh))
+    for (name, _), x, w in zip(host.named_parameters(), gc, gh):
+        if w is None:
+            assert x is None and name.endswith("bias"), name
+            continue
+        assert (x.cpu() - w).abs().max() <= 1e-4 * w.abs().max(), name
+
+
+@pytest.mark.cuda
+def test_gnn_forward_bit_equal_no_sync_and_chunked(dev):
+    """Two forwards on the card are bit-equal, and one runs under
+    ``set_sync_debug_mode("error")``; in chunks smaller than E it equals
+    the whole forward within 1e-6 x max |logit| (the partial sums of a
+    node split across chunks are added in another order)."""
+    from repro_torch.models import gnn
+
+    host, batch = _gnn_case("node", n=3000, e=40000)
+    model = host.to(dev)
+    b = {k: v.to(dev) for k, v in batch.items()}
+    run = lambda chunk=None: gnn.forward(model, b["feats"], b["src"],
+                                         b["dst"], chunk=chunk)
+    with torch.no_grad():
+        first = run()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            again = run()
+            chunked = run(4096)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert torch.equal(first, again)
+        assert torch.equal(chunked, run(4096))
+        assert (chunked - first).abs().max() <= 1e-6 * first.abs().max()

@@ -130,3 +130,28 @@ def test_entry_points_without_device_raise_on_cpu_host():
         EmbedTower(again)
     toks = np.zeros((3, 5), np.int64)
     assert EmbedTower(again, device="cpu").embed(toks).shape == (3, 32)
+
+
+def test_gnn_entry_points_without_device_raise_on_cpu_host():
+    """The GAT's weights, their conversion and the corpus-search twin run
+    on the card unless told otherwise; with no card they raise."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible: device=None means the card")
+    from repro_torch import convert
+    from repro_torch.configs import gat_cora
+    from repro_torch.launch import gnn_corpus_search
+    from repro_torch.models import gnn
+
+    cfg = gat_cora.smoke("molecule")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        gnn.init_params(0, cfg)
+    model = gnn.init_params(0, cfg, device="cpu")
+    pytree = convert.gat_to_numpy(model)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert.gat_from_numpy(pytree, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        gnn_corpus_search.main(["--n-nodes", "64"])
+    x = torch.zeros(4, cfg.d_in)
+    edges = torch.tensor([0, 1, -1], dtype=torch.int32)
+    assert gnn.forward(convert.gat_from_numpy(pytree, cfg, device="cpu"), x,
+                       edges, edges).shape == (4, cfg.n_classes)
