@@ -180,15 +180,39 @@ Phases (any failure exits nonzero and prints no result line):
    under ``set_sync_debug_mode("error")``; (b) card against CPU (logits,
    loss, every gradient) at full_graph_sm, molecule and minibatch_lg, and
    ogb_products' model on a 131,072-node graph at its mean degree, summed
-   in chunks smaller than E on both devices; (c) 10 ``Trainer`` steps
+   in chunks smaller than E on both devices (there also autograd's saved
+   backward, the edges in one chunk, against the chunked one, which
+   recomputes the softmax and each chunk: within 4x the f32 noise); (c) 10 ``Trainer`` steps
    (AdamW, no weight decay) at full_graph_sm and molecule on a fixed batch
    (losses falling) and at minibatch_lg on a fresh block each step, labels
    a rule of each node's in-neighbours' features, with the step's split,
-   the sampler's host time and peak memory; (d)
+   the sampler's host time and peak memory, and (e) at ogb_products 5
+   full-batch AdamW steps of ``gat_cora.build_gnn_cell(None,
+   "ogb_products").fn`` on (a)'s batch: step 0's loss bit-equal to the
+   forward's, the losses falling, the step's split, peak memory beside
+   the bytes reckoned from the shapes; (d)
    ``launch/gnn_corpus_search.main`` at ogbn-arxiv's size (169,343 nodes,
    mean degree 7, 128 features, 64 queries, Q in {64, 256}), the search
    kernels' launches counted from 0, each query within Q D calls, then one
-   wave of each metric held against the plain versions.
+   wave of each metric held against the plain versions;
+17. the dense LMs of the registry, ``granite-20b`` (52 layers, 48 query
+   heads over 1 kv head) and ``deepseek-coder-33b`` (62 layers, 56 over 8),
+   one at a time, drawn in bf16 on the card at full depth (the phase
+   fails if the weights and caches do not fit) and driven through their cells'
+   ``fn`` (``configs.get_arch(name).build_cell``): (a) the prefill cell on
+   8 (granite) or 4 prompts of 4,096 tokens into caches of 4,160, twice,
+   bit-equal, then 64 decode steps through the decode cell, every step
+   under ``set_sync_debug_mode("error")``, launches counted from 0 over
+   each; the first and last step's logits against the forward's (cosine >=
+   0.99 a row); prefill tokens/s, ms a step beside its byte bound, peak
+   memory; ``embed_pool`` of 64 documents of 256 tokens; (b) the
+   decode_32k cell's cache with the batch cut to 8 (granite) or 1, random
+   k and v at length 32,767, 8 steps timed beside their byte bound, a
+   traced step; (c) each cut to 2 layers in f32 on the card and the CPU:
+   forward, prefill and decode card against CPU, decode against the
+   forward, within 1e-4 of max |logit|; (d) ``flash_attention`` at both
+   prefill layers and ``flash_decode`` at both decode_32k caches against
+   their plain versions, timed beside their bounds and SDPA.
 
 Phases 6, 8, 9, 12's decoding, 14's serving and 15's run under
 ``torch.inference_mode()``
@@ -4480,14 +4504,19 @@ def _sdpa_backend(*args, **kwargs):
     return SDPBackend(torch._fused_sdp_choice(*args, **kwargs)).name
 
 
-def moe_kernel_rows(dev, mz, rehearse):
-    """(e) ``flash_attention`` at DS-V3's MLA prefill layer and granite's
-    (24 query heads over 8: the kernel reads k and v repeated to 24, as
-    ``blockwise_attention`` copies them), bf16 causal, and ``flash_decode``
-    on granite's grouped cache (seeded lengths), each against its plain
-    version within phase 6's full-width limit, timed (eager, graph replay)
-    beside its bound, the plain version and SDPA (``enable_gqa`` for the
-    grouped rows), with the backend SDPA picks."""
+# the plain attention's f32 scores past this many bytes go a batch row at a
+# time (granite-20b's prefill layer would hold 25.8 GB of them at once)
+PLAIN_SCORE_BYTES = 8 << 30
+
+
+def attention_kernel_rows(dev, mz, rehearse):
+    """``flash_attention`` at ``mz["attn"]``'s prefill layers (bf16 causal;
+    grouped heads read k and v repeated to H, as ``blockwise_attention``
+    copies them) and ``flash_decode`` at ``mz["decode"]``'s grouped caches
+    (seeded lengths), each against its plain version within phase 6's
+    full-width limit, timed (eager, graph replay) beside its bound, the
+    plain version and SDPA (``enable_gqa`` for the grouped rows), with the
+    backend SDPA picks. Phase 15(e) and phase 17(d)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -4505,17 +4534,22 @@ def moe_kernel_rows(dev, mz, rehearse):
         run = lambda: fa.flash_attention(q, k, v, causal=True)
         lib = lambda: F.scaled_dot_product_attention(q, k_g, v_g,
                                                      is_causal=True, **gqa)
+        by_row = 4 * b * h * s * s > PLAIN_SCORE_BYTES
+        plain = ((lambda: torch.cat([fa.flash_attention_plain(
+            q[i:i + 1], k[i:i + 1], v[i:i + 1], causal=True)
+            for i in range(b)])) if by_row else
+                 (lambda: fa.flash_attention_plain(q, k, v, causal=True)))
         before = dict(fa.launches)
         with torch.inference_mode():
             got = run()
-            want = fa.flash_attention_plain(q, k, v, causal=True)
+            want = plain()
         launched = [n for n in fa.launches if fa.launches[n] > before[n]]
         require(rehearse or launched == ["flash_attention_wgmma"],
                 f"{role}: launched {launched}")
         atol, rtol = MAIN_TOL[BF16]
         row = dict(kernel="flash_attention", role=role, B=b, H=h, Hkv=hkv,
                    S=s, dh=dh, dv=dv, dtype="bfloat16", causal=True,
-                   route=launched,
+                   route=launched, plain_by_batch_row=by_row,
                    max_abs_err=_agree(got, want, atol, what=role, rtol=rtol),
                    library_backend=_sdpa_backend(q, k_g, v_g, is_causal=True,
                                                  **gqa))
@@ -4528,11 +4562,10 @@ def moe_kernel_rows(dev, mz, rehearse):
             with torch.inference_mode():
                 row["ms"] = time_ms(run)
                 row["device_ms"] = time_graph_ms(run)
-                row["plain_ms"] = time_ms(lambda: fa.flash_attention_plain(
-                    q, k, v, causal=True), reps=3, inner=1)
+                row["plain_ms"] = time_ms(plain, reps=3, inner=1)
                 row["library_ms"] = time_ms(lib)
         rows.append(row)
-        log("  (e) " + json.dumps(row))
+        log("  " + json.dumps(row))
         del q, k, v, k_g, v_g
     for role, b, h, hkv, s, d in mz["decode"]:
         q, k, v = _decode_inputs(g, dev, b, h, s, d, d, BF16, hkv)
@@ -4570,7 +4603,7 @@ def moe_kernel_rows(dev, mz, rehearse):
                     q, k, v, length=length), reps=5, inner=2)
                 row["library_ms"] = time_ms(lib)
         rows.append(row)
-        log("  (e) " + json.dumps(row))
+        log("  " + json.dumps(row))
     return rows
 
 
@@ -4602,7 +4635,7 @@ def moe_slice(dev, sizes, rehearse):
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     out["train"] = moe_train(dev, mz["train"], rehearse)
-    out["attention"] = moe_kernel_rows(dev, mz, rehearse)
+    out["attention"] = attention_kernel_rows(dev, mz, rehearse)
     return out
 
 
@@ -4627,17 +4660,19 @@ def gnn_sizes(rehearse):
     nodes, 114.6 M edges) minibatch_lg's blocks are sampled from, 1,024
     seeds at fanouts (15, 10); the card-against-CPU graph of 131,072 nodes
     at ogb_products' mean degree, summed in chunks of 2^20 edges; 10
-    training steps; the corpus-search twin at ogbn-arxiv's size (169,343
-    nodes, mean degree 7, 128 features), 64 queries. Toy sizes under
-    ``rehearse``."""
+    training steps; 5 full-batch steps at ogb_products, its split timed
+    once; the corpus-search twin at ogbn-arxiv's size (169,343 nodes, mean
+    degree 7, 128 features), 64 queries. Toy sizes under ``rehearse``."""
     from repro_torch.configs import gat_cora
 
     train = dict(steps=10, lr=1e-3, warmup=2)
+    full_train = dict(steps=5, split_reps=1)
     if not rehearse:
         return dict(shapes=gat_cora.GNN_SHAPES, seed=0, fwd_reps=(11, 5),
                     big_reps=(3, 1), reddit=(232965, 492, 602, 41),
                     seeds=1024, fanouts=(15, 10),
                     cross=dict(n=131072, chunk=1 << 20), train=train,
+                    full_train=full_train,
                     search=dict(n=169343, degree=7, d_feat=128, queries=64,
                                 quotas=(64, 256)))
     toy = {"full_graph_sm": dict(true_nodes=240, true_edges=480),
@@ -4649,6 +4684,7 @@ def gnn_sizes(rehearse):
                 seed=0, fwd_reps=(1, 1), big_reps=(1, 1),
                 reddit=(2000, 20, 32, 41), seeds=16, fanouts=(3, 2),
                 cross=dict(n=512, chunk=1000), train=train,
+                full_train=full_train,
                 search=dict(n=512, degree=7, d_feat=16, queries=8,
                             quotas=(32, 64)))
 
@@ -4826,13 +4862,17 @@ def _gnn_loss(info, chunk=None):
                              n_graphs=info.get("n_graphs") or 0, chunk=chunk)
 
 
-def _gnn_cross(shape, info, model, batch, chunk=None):
+def _gnn_cross(shape, info, model, batch, chunk=None, saved=False):
     """(b) The model and batch on the card against a CPU copy, both with
     ``chunk``: logits within ``GNN_LOGIT_REL`` of max |logit|, the loss
     within ``GNN_LOSS_RTOL``, every gradient per leaf within
     ``GNN_GRAD_REL`` x its max |gradient| or ``GNN_NOISE`` x its f32
     noise, whichever is larger (the bias unused on both); the leaves that
-    needed the noise term are reported."""
+    needed the noise term are reported. In more than one chunk the
+    gradients are the backward's that recomputes the softmax and each
+    chunk; with ``saved``, also autograd's saved form on the card (the
+    edges in one chunk), each leaf within ``GNN_NOISE`` x its f32 noise of
+    the recomputed one, the loss within ``GNN_LOSS_RTOL``."""
     from repro_torch.models import gnn
 
     host = gnn.GAT(model.cfg, "cpu")
@@ -4861,6 +4901,24 @@ def _gnn_cross(shape, info, model, batch, chunk=None):
     res["loss"] = (lc, lh)
     require(abs(lc - lh) <= GNN_LOSS_RTOL * abs(lh),
             f"(b) {shape}: loss {lc} vs {lh}")
+    if saved:
+        lo, _ = _gnn_loss(info, res["n_edges"])(model, batch)
+        gs = torch.autograd.grad(lo, list(model.parameters()),
+                                 allow_unused=True)
+        res["saved_loss"] = float(lo.detach())
+        require(abs(res["saved_loss"] - lc) <= GNN_LOSS_RTOL * abs(lc),
+                f"(b) {shape}: the saved form's loss {res['saved_loss']} vs "
+                f"the recomputed one's {lc}")
+        res["saved_vs_recomputed"] = {}
+        for (name, _), x, y, z in zip(host.named_parameters(), gc, gs, gp):
+            if y is None:
+                continue
+            err = float((x - y).abs().max())
+            noise = float((z - x).abs().max())
+            require(err <= GNN_NOISE * noise, f"(b) {shape}: {name} saved "
+                    f"vs recomputed grad {err:.3e}, f32 noise {noise:.3e}")
+            res["saved_vs_recomputed"][name] = dict(err=err, noise=noise)
+        del gs
     worst, res["noise_limited"] = 0.0, {}
     for (name, _), x, y, z in zip(host.named_parameters(), gc, gh, gp):
         if y is None:
@@ -4931,6 +4989,100 @@ def _gnn_train(dev, shape, info, model, batches, tz, rehearse, fixed):
     return out
 
 
+def _gnn_train_reckon(n, e, cfg):
+    """Bytes a training step adds above its inputs and weights, reckoned
+    from the shapes alone (f32), beside what the literal backward would
+    keep: the edge plan (src and dst as int64, valid); what the backward
+    keeps of each layer (its (E, H) coefficients, h and its output (N,
+    H·dh), e_src and e_dst (N, H)); then the larger of one chunk's
+    backward at the costliest layer (its rows, messages and their two
+    gradients, four (C, H·dh); the (N, H·dh) gradient of h twice; the (E,
+    H) gradient of the coefficients twice) and one layer's softmax
+    recomputed with its gradients (nine (E, H)). ``literal``: each layer's
+    (E, H·dh) rows and messages and six (E, H) softmax tensors, all kept."""
+    from repro_torch.models import gnn
+
+    out = dict(plan=17 * e + 8 * (n + 1), kept=0, transient=0, literal=0)
+    for i in range(cfg.n_layers):
+        dh = cfg.n_classes if i == cfg.n_layers - 1 else cfg.d_hidden
+        h, hd = cfg.n_heads, cfg.n_heads * dh
+        c = gnn.edge_chunk(e, n, h, dh)
+        out["kept"] += 4 * (e * h + 2 * n * hd + 2 * n * h)
+        out["transient"] = max(out["transient"],
+                               4 * (4 * c * hd + 2 * n * hd + 2 * e * h),
+                               4 * 9 * e * h)
+        out["literal"] += 4 * (2 * e * hd + 6 * e * h + 2 * n * hd)
+    out["total"] = out["plan"] + out["kept"] + out["transient"]
+    return out
+
+
+def _gnn_train_full(dev, shape, model, batch, want_loss, ez, rehearse):
+    """(e) ``ez["steps"]`` full-batch steps of the shape's cell,
+    ``gat_cora.build_gnn_cell(None, shape).fn`` (AdamW ``OPT``), on (a)'s
+    batch: the cell's abstract batch equal to it in shape and dtype; step
+    0's loss bit-equal to ``want_loss`` (the forward's loss under no
+    grad); the losses falling; step ms, the forward / backward / optimizer
+    split, peak memory above the inputs beside :func:`_gnn_train_reckon`."""
+    from repro_torch.configs import gat_cora
+    from repro_torch.train.optimizer import make_adamw
+
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    cell = gat_cora.build_gnn_cell(None, shape, smoke=rehearse)
+    _, _, b_abs = cell.abstract_args()
+    require({k: (tuple(v.shape), v.dtype) for k, v in b_abs.items()}
+            == {k: (tuple(v.shape), v.dtype) for k, v in batch.items()},
+            f"(e) {shape}: the batch is not the cell's")
+    n, e = batch["feats"].shape[0], batch["src"].shape[0]
+    out = dict(shape=shape, cell=cell.name, steps=ez["steps"], n_nodes=n,
+               n_edges=e, reckoned=_gnn_train_reckon(n, e, model.cfg))
+    opt = make_adamw(gat_cora.OPT)[0](model)
+    if cuda:
+        sync()
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    for _ in range(ez["steps"]):
+        sync()
+        t0 = time.perf_counter()
+        model, opt, metrics = cell.fn(model, opt, batch)
+        sync()
+        step_s.append(time.perf_counter() - t0)
+        losses.append(metrics["loss"])
+    if cuda:
+        out["peak_bytes_above_inputs"] = torch.cuda.max_memory_allocated() - start
+        out["card_bytes"] = torch.cuda.get_device_properties(dev).total_memory
+    out["step0_bit_equal_forward"] = bool(torch.equal(losses[0].cpu(),
+                                                      want_loss.cpu()))
+    out["losses"] = [float(x) for x in losses]
+    out["step_ms"] = [1e3 * t for t in step_s]
+    out["step_ms_median"] = 1e3 * statistics.median(step_s[1:] or step_s)
+    require(all(math.isfinite(x) for x in out["losses"]),
+            f"(e) {shape}: a loss is not finite: {out['losses']}")
+    require(out["step0_bit_equal_forward"], f"(e) {shape}: step 0's loss "
+            f"{out['losses'][0]!r} is not the forward's "
+            f"{float(want_loss)!r}")
+    require(out["losses"][-1] < out["losses"][0],
+            f"(e) {shape}: the loss did not fall: {out['losses']}")
+    params = list(model.parameters())
+    loss = _gnn_loss(gat_cora.GNN_SHAPES[shape])
+    reps = ez["split_reps"]
+    out["forward_ms"] = 1e3 * _wall_s(lambda: loss(model, batch)[0], reps)
+    out["forward_backward_ms"] = 1e3 * _wall_s(lambda: torch.autograd.grad(
+        loss(model, batch)[0], params, allow_unused=True), reps)
+    out["backward_ms"] = out["forward_backward_ms"] - out["forward_ms"]
+    out["optimizer_and_rest_ms"] = (out["step_ms_median"]
+                                    - out["forward_backward_ms"])
+    log(f"  (e) {shape}: " + json.dumps(out))
+    if cuda:
+        log(f"  (e) {shape}: peak {out['peak_bytes_above_inputs'] / 1e9:.2f} "
+            f"GB above the inputs, reckoned {out['reckoned']['total'] / 1e9:.2f}"
+            f" GB (the literal backward would keep "
+            f"{out['reckoned']['literal'] / 1e9:.1f} GB) on a "
+            f"{out['card_bytes'] / 1e9:.1f} GB card")
+    return out
+
+
 def _gnn_search(sz, dev, rehearse):
     """(d) ``launch/gnn_corpus_search.main`` on the card at ``sz``'s size,
     the search kernels' launches counted from 0 over it: each query within
@@ -4974,8 +5126,10 @@ def gnn_slice(dev, gz, rehearse):
     """Phase 16: the GAT at gat-cora's widths (2 layers, 8 heads, d_hidden
     8), f32, weights from ``init_params`` on the card: per shape (a) the
     forward at full size, (b) card against CPU (ogb_products' model on the
-    131,072-node graph, in chunks smaller than E), (c) training (not at
-    ogb_products); then (d) the corpus-search twin."""
+    131,072-node graph, in chunks smaller than E, the saved backward beside
+    the recomputed one), (c) training (ogb_products: (e), full-batch
+    steps of its cell on (a)'s batch, before (b)); then (d) the
+    corpus-search twin."""
     import gc
 
     from repro_torch.configs import gat_cora
@@ -5015,8 +5169,15 @@ def gnn_slice(dev, gz, rehearse):
         res["forward"] = _gnn_forward(dev, shape, model, batch, reps,
                                       rehearse)
         if shape == "ogb_products":
-            del batch
+            with torch.no_grad():
+                want = _gnn_loss(info)(model, batch)[0]
+            res["train_full"] = _gnn_train_full(dev, shape, model, batch,
+                                                want, gz["full_train"],
+                                                rehearse)
+            del batch, want
             gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
             cz = gz["cross"]
             e = round(cz["n"] * info["true_edges"] / info["true_nodes"])
             small = dict(info, n_nodes=cz["n"], n_edges=e, true_nodes=cz["n"],
@@ -5024,7 +5185,7 @@ def gnn_slice(dev, gz, rehearse):
             batch = _gnn_uniform(small, g, dev)
             require(cz["chunk"] < e, "(b) the chunk is not smaller than E")
             res["cross"] = _gnn_cross(shape, small, model, batch,
-                                      cz["chunk"])
+                                      cz["chunk"], saved=True)
         else:
             res["cross"] = _gnn_cross(shape, info, model, batch)
             fresh = blocks if shape == "minibatch_lg" else itertools.repeat(
@@ -5044,6 +5205,375 @@ def gnn_slice(dev, gz, rehearse):
             torch.cuda.empty_cache()
     out["search"] = _gnn_search(gz["search"], dev, rehearse)
     out["phase_s"] = time.perf_counter() - t_start
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 17: the dense LMs of the registry, granite-20b (MQA, 48 query heads
+# over 1) and deepseek-coder-33b (GQA, 56 over 8), at full width on the card
+# --------------------------------------------------------------------------
+# bf16 decode logits against the forward's on the same tokens: the least
+# cosine of a row (max |diff| over max |logit| reported, not gated); fixed
+# before the first run. In f32 at 2 layers, decode against forward and card
+# against CPU within MOE_F32_REL (1e-4) of max |logit|.
+DENSE_COS = 0.99
+DENSE_ARCHS = ("granite-20b", "deepseek-coder-33b")
+
+
+def dense_lm_sizes(rehearse):
+    """Phase 17's sizes, a function of its own so that the phase can run
+    alone (``dense_lm_slice(dev, dense_lm_sizes(False), False)``):
+    granite-20b at full depth, 8 prompts of 4,096 tokens into caches of
+    4,160 and 64 decode steps, its decode_32k cell at B=8 (cut from 128);
+    deepseek-coder-33b at full depth, 4 prompts, its decode_32k cell at
+    B=1 (its cache costs 254 KB a token: B=4 would not fit beside the
+    weights); 64 documents of 256 tokens through ``embed_pool``; 8 steps
+    at decode_32k; card against CPU in f32 cut to 2 layers at B=2, 64
+    prompt tokens and 4 steps; the kernels at both prefill layers and both
+    decode_32k caches. The smoke configs at toy sizes under ``rehearse``."""
+    if not rehearse:
+        each = dict(seed=0, prompt=4096, max_seq=4160, docs=(64, 256),
+                    decode_steps=8)
+        return dict(
+            models=(dict(each, arch="granite-20b", batch=8, decode_batch=8),
+                    dict(each, arch="deepseek-coder-33b", batch=4,
+                         decode_batch=1)),
+            smoke=False, cross=dict(cut_layers=2, batch=2, prompt=64, steps=4),
+            attn=(("granite-20b prefill layer, 48 over 1", 8, 48, 1, 4096,
+                   128, 128),
+                  ("deepseek-coder-33b prefill layer, 56 over 8", 4, 56, 8,
+                   4096, 128, 128)),
+            decode=(("granite-20b decode_32k, B 128 cut to 8, MQA 48 over 1",
+                     8, 48, 1, 32768, 128),
+                    ("deepseek-coder-33b decode_32k, B 128 cut to 1, 56 over "
+                     "8 (a group of 7)", 1, 56, 8, 32768, 128)))
+    each = dict(seed=0, batch=2, prompt=24, max_seq=32, docs=(4, 16),
+                decode_batch=2, decode_steps=2)
+    return dict(models=(dict(each, arch="granite-20b"),
+                        dict(each, arch="deepseek-coder-33b")),
+                smoke=True, cross=dict(cut_layers=1, batch=2, prompt=8,
+                                       steps=2),
+                attn=(("granite-20b layer, toy", 1, 4, 1, 64, 16, 16),
+                      ("deepseek-coder-33b layer, toy", 1, 8, 2, 64, 8, 8)),
+                decode=(("granite-20b decode, toy", 2, 4, 1, 128, 16),
+                        ("deepseek-coder-33b decode, toy", 1, 8, 2, 128, 8)))
+
+
+def _dense_need_bytes(spec, cfg, mz, decode_seq):
+    """Bytes phase 17 must place for ``cfg`` at full depth, from the shapes
+    on the meta device: the weights and the larger of the prefill's cache
+    (``batch`` x ``max_seq``) and decode_32k's (``decode_batch`` x
+    ``decode_seq``)."""
+    from repro_torch.configs import common
+
+    meta = common.abstract_params(spec.model, cfg)
+    weights = sum(p.numel() * p.element_size() for p in meta.parameters())
+    kv_token = (2 * cfg.n_layers * cfg.n_kv_heads * cfg.head_dim
+                * torch.finfo(cfg.dtype).bits // 8)
+    return weights + kv_token * max(mz["batch"] * mz["max_seq"],
+                                    mz["decode_batch"] * decode_seq)
+
+
+def _step_weight_bytes(model):
+    """Bytes of the weights a decode step reads: all but the retrieval
+    head's."""
+    return sum(q.numel() * q.element_size() for k, q in model.named_parameters()
+               if not k.startswith("embed_head"))
+
+
+def dense_serve(dev, spec, cfg, mz, rehearse, what):
+    """(a) ``cfg`` drawn in bf16 on the card from a seed; the prefill_32k
+    cell's ``fn`` on B prompts into a cache of ``max_seq`` (twice: cold,
+    then warm and timed, bit-equal), then the decode_32k cell's ``fn`` for
+    greedy steps that fill it, every step under
+    ``set_sync_debug_mode("error")``; launches counted from 0 over the
+    prefill (one ``flash_attention_wgmma`` a layer) and over the steps (one
+    ``flash_decode`` a layer a step); the first and last step's logits
+    against the forward's on the same tokens (``DENSE_COS`` a row); prefill
+    tokens/s, ms a step beside its byte bound, peak memory; then
+    ``embed_pool`` (D's use) on ``docs`` documents, twice, bit-equal."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer as T
+
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = spec.init_params(mz["seed"], cfg, device=dev)
+    sync()
+    prefill_fn = spec.build_cell(cfg, "prefill_32k", smoke=rehearse).fn
+    decode_fn = spec.build_cell(cfg, "decode_32k", smoke=rehearse).fn
+    b, p, s = mz["batch"], mz["prompt"], mz["max_seq"]
+    n = s - p
+    out = dict(config=cfg.name, n_layers=cfg.n_layers, batch=b, prompt=p,
+               max_seq=s, steps=n, init_s=time.perf_counter() - t0,
+               params=sum(q.numel() for q in model.parameters()),
+               weight_bytes=sum(q.numel() * q.element_size()
+                                for q in model.parameters()))
+    rng = np.random.default_rng(mz["seed"])
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (b, p))).to(dev)
+    with torch.inference_mode():
+        fa.reset_launches()  # the prefill path starts here
+        sync()
+        t0 = time.perf_counter()
+        logits, cache = prefill_fn(model, prompts, max_seq=s)
+        sync()
+        out["prefill_first_s"] = time.perf_counter() - t0
+        out["prefill_launches"] = {k: v for k, v in fa.launches.items() if v}
+        require(tuple(logits.shape) == (b, 1, cfg.vocab)
+                and bool(torch.isfinite(logits).all()),
+                f"{what}: prefill logits {tuple(logits.shape)} or not finite")
+        del cache
+        t0 = time.perf_counter()
+        again, cache = prefill_fn(model, prompts, max_seq=s)
+        sync()
+        out["prefill_s"] = time.perf_counter() - t0
+        out["prefill_repeat_bit_equal"] = bool(torch.equal(again, logits))
+        require(out["prefill_repeat_bit_equal"],
+                f"{what}: two prefills of the same prompts differ")
+        out["prefill_tokens_per_s"] = b * p / out["prefill_s"]
+        if cuda:
+            out["prefill_max_memory_allocated"] = \
+                torch.cuda.max_memory_allocated()
+        toks = [logits[:, -1].argmax(-1, keepdim=True)]
+        fa.reset_launches()  # the decode path starts here
+        sync()
+        t0 = time.perf_counter()
+        if cuda:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            for i in range(n):
+                lg, cache = decode_fn(model, toks[-1], cache)
+                if i == 0:
+                    first = lg
+                toks.append(lg[:, -1].argmax(-1, keepdim=True))
+        finally:
+            if cuda:
+                torch.cuda.set_sync_debug_mode(0)
+        sync()
+        out["decode_s"] = time.perf_counter() - t0
+        out["decode_launches"] = {k: v for k, v in fa.launches.items() if v}
+        require(int(cache.length) == s and bool(torch.isfinite(lg).all()),
+                f"{what}: cache length {int(cache.length)} or logits")
+        if cuda:
+            out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+            # the caching allocator's retries (frees and a new cudaMalloc)
+            # after a failed allocation, so far in the process
+            out["alloc_retries"] = torch.cuda.memory_stats().get(
+                "num_alloc_retries")
+        out["ms_per_step"] = 1e3 * out["decode_s"] / n
+        out["decode_tokens_per_s"] = b * n / out["decode_s"]
+        item = torch.finfo(cfg.dtype).bits // 8
+        kv_row = cfg.n_layers * b * 2 * cfg.n_kv_heads * cfg.head_dim * item
+        out["step_bytes"] = (_step_weight_bytes(model)
+                             + kv_row * (p + (n + 1) / 2 + 1))
+        out["step_bound_ms"] = 1e3 * out["step_bytes"] / HBM_BYTES_PER_S
+        del cache, again
+        # the references: the forward on the same tokens
+        seq = torch.cat([prompts] + toks[:-1], dim=1)
+        for name, lgt, upto in (("first", first, p + 1), ("last", lg, s)):
+            hid = T.forward(model, seq[:, :upto], with_logits=False).hidden
+            res = _logits_gap(lgt[:, 0], hid[:, -1] @ model.embed.T)
+            require(bool(torch.isfinite(lgt).all())
+                    and res["min_cos"] >= DENSE_COS,
+                    f"{what}: decode step {name} vs forward {res}")
+            out[f"{name}_step_vs_forward"] = res
+            del hid
+        # the retrieval embedding, D's use of the model
+        docs = torch.from_numpy(rng.integers(0, cfg.vocab, mz["docs"])).to(
+            dev)
+        fa.reset_launches()  # the embedding path starts here
+        emb = T.embed_pool(model, docs)
+        sync()
+        out["embed_launches"] = {k: v for k, v in fa.launches.items() if v}
+        t0 = time.perf_counter()
+        emb2 = T.embed_pool(model, docs)
+        sync()
+        out["embed_s"] = time.perf_counter() - t0
+        out["embed_docs_per_s"] = mz["docs"][0] / out["embed_s"]
+        norms = emb.norm(dim=-1)
+        require(tuple(emb.shape) == (mz["docs"][0], cfg.embed_dim)
+                and bool(torch.isfinite(emb).all())
+                and bool(((norms - 1).abs() < 1e-4).all())
+                and torch.equal(emb, emb2),
+                f"{what}: embed_pool {tuple(emb.shape)}, norms or repeat")
+        del emb, emb2
+    if not rehearse:
+        want = {"flash_attention_wgmma": cfg.n_layers}
+        require(out["prefill_launches"] == want
+                and out["embed_launches"] == want,
+                f"{what}: prefill launched {out['prefill_launches']}, "
+                f"embed_pool {out['embed_launches']}, not {want}")
+        want = {"flash_decode": cfg.n_layers * n}
+        require(out["decode_launches"] == want,
+                f"{what}: decode launched {out['decode_launches']}, not "
+                f"{want}")
+    log(f"  {what} (a): {out['params']:,} parameters "
+        f"({out['weight_bytes']:,} bytes) drawn in {out['init_s']:.3f} s; "
+        f"prefill {b} x {p} tokens "
+        f"in {out['prefill_s']:.3f} s warm ({out['prefill_tokens_per_s']:.0f} "
+        f"tokens/s; the first call {out['prefill_first_s']:.3f} s); {n} "
+        f"decode steps {out['ms_per_step']:.3f} ms a step (byte bound "
+        f"{out['step_bound_ms']:.3f} ms); embed_pool of {mz['docs']} in "
+        f"{out['embed_s']:.3f} s; launches prefill {out['prefill_launches']}"
+        f", decode {out['decode_launches']}, embed {out['embed_launches']}; "
+        f"peak {out.get('max_memory_allocated')} bytes")
+    log(f"      first step vs forward {out['first_step_vs_forward']}; last "
+        f"{out['last_step_vs_forward']}")
+    return out, model
+
+
+def dense_decode_32k(dev, spec, cfg, model, mz, rehearse, what):
+    """(b) The decode_32k cell: its abstract cache's shape with the batch
+    cut to ``decode_batch``, filled with seeded random k and v at length S
+    - 1; one step, then ``decode_steps`` steps of its ``fn`` timed, each
+    under ``set_sync_debug_mode("error")`` (one ``flash_decode`` a layer a
+    step); ms a step beside its byte bound (the weights and the whole
+    cache), a traced step's idle share, peak memory."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import transformer as T
+
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    cell = spec.build_cell(cfg, "decode_32k", smoke=rehearse)
+    _, tok_abs, c_abs = cell.abstract_args()
+    b, s, n = mz["decode_batch"], c_abs.k.shape[2], mz["decode_steps"]
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    cache = T.init_cache(cfg, b, s, length=s - 1, device=dev)
+    want = (c_abs.k.shape[0], b, *c_abs.k.shape[2:])
+    require(tuple(cache.k.shape) == want == tuple(cache.v.shape)
+            and cache.k.dtype == c_abs.k.dtype and tok_abs.shape[1] == 1,
+            f"{what}: cache {tuple(cache.k.shape)} is not the cell's {want}")
+    g = torch.Generator(device=dev).manual_seed(mz["seed"] + 7)
+    with torch.no_grad():
+        for layer in range(cfg.n_layers):
+            cache.k[layer].normal_(generator=g)
+            cache.v[layer].normal_(generator=g)
+    toks = torch.randint(0, cfg.vocab, (b, 1), generator=g, device=dev)
+    out = dict(batch=b, batch_cut_from=c_abs.k.shape[1], cache_len=s,
+               steps=n, cache_bytes=2 * cache.k.numel() * cache.k.element_size())
+    with torch.inference_mode():
+        lg, cache = cell.fn(model, toks, cache)  # warm
+        fa.reset_launches()  # the timed steps start here
+        sync()
+        t0 = time.perf_counter()
+        if cuda:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            for _ in range(n):
+                lg, cache = cell.fn(model, lg[:, -1].argmax(-1, keepdim=True),
+                                    cache)
+        finally:
+            if cuda:
+                torch.cuda.set_sync_debug_mode(0)
+        sync()
+        out["decode_s"] = time.perf_counter() - t0
+        out["launches"] = {k: v for k, v in fa.launches.items() if v}
+        require(bool(torch.isfinite(lg).all()) and int(cache.length) == s + n,
+                f"{what}: logits or cache length {int(cache.length)}")
+        out["ms_per_step"] = 1e3 * out["decode_s"] / n
+        out["step_bytes"] = _step_weight_bytes(model) + out["cache_bytes"]
+        out["step_bound_ms"] = 1e3 * out["step_bytes"] / HBM_BYTES_PER_S
+        if cuda:
+            out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+            out["alloc_retries"] = torch.cuda.memory_stats().get(
+                "num_alloc_retries")
+        if not rehearse:
+            out["profile_step"] = profile_batch(lambda: cell.fn(
+                model, lg[:, -1].argmax(-1, keepdim=True), cache))
+            require(out["launches"] == {"flash_decode": cfg.n_layers * n},
+                    f"{what}: launched {out['launches']}")
+    del cache, lg
+    log(f"  {what} (b): decode_32k at B={b} (cut from {out['batch_cut_from']}), "
+        f"cache {out['cache_bytes']:,} bytes: {out['ms_per_step']:.3f} ms a "
+        f"step (byte bound {out['step_bound_ms']:.3f} ms); traced step "
+        f"{json.dumps(out.get('profile_step'))}; peak "
+        f"{out.get('max_memory_allocated')} bytes")
+    return out
+
+
+def dense_cross(dev, model, cz, what):
+    """(c) The model cut to its first layers as f32 copies (its bf16
+    weights upcast exactly) on the card and the CPU: the forward's logits
+    card against CPU; ``prefill`` card against CPU; each ``decode_step``
+    card against CPU and against the card's forward at its position; each
+    within ``MOE_F32_REL`` of max |logit|."""
+    from repro_torch.models import transformer as T
+
+    n = cz["cut_layers"]
+    card = _cut_copy(model, n, dev, dtype=torch.float32)
+    host = _cut_copy(model, n, "cpu", dtype=torch.float32)
+    p, steps = cz["prompt"], cz["steps"]
+    toks = torch.from_numpy(np.random.default_rng(21).integers(
+        0, model.cfg.vocab, (cz["batch"], p + steps)))
+    out = dict(layers=n, batch=cz["batch"], prompt=p, steps=steps,
+               dtype="float32")
+    with torch.inference_mode():
+        fc = T.forward(card, toks.to(dev)).logits
+        out["forward_rel"] = _f32_agree(fc, T.forward(host, toks).logits,
+                                        f"{what} (c) forward, card vs CPU")
+        lc, cc = T.prefill(card, toks[:, :p].to(dev), max_seq=p + steps)
+        lh, ch = T.prefill(host, toks[:, :p], max_seq=p + steps)
+        out["prefill_rel"] = _f32_agree(lc, lh, f"{what} (c) prefill")
+        out["decode_rel"] = out["decode_vs_forward_rel"] = 0.0
+        for i in range(steps):
+            tok = toks[:, p + i:p + i + 1]
+            lc, cc = T.decode_step(card, tok.to(dev), cc)
+            lh, ch = T.decode_step(host, tok, ch)
+            out["decode_rel"] = max(out["decode_rel"], _f32_agree(
+                lc, lh, f"{what} (c) decode step {i}, card vs CPU"))
+            out["decode_vs_forward_rel"] = max(
+                out["decode_vs_forward_rel"], _f32_agree(
+                    lc[:, 0], fc[:, p + i],
+                    f"{what} (c) decode step {i} vs forward"))
+    del card, host, cc, ch
+    log(f"  {what} (c) cut to {n} layers, f32: {out}")
+    return out
+
+
+def dense_lm_slice(dev, dz, rehearse):
+    """Phase 17: granite-20b and deepseek-coder-33b through their registry
+    cells (``get_arch(name).build_cell``), one at a time, each drawn in
+    bf16 on the card at full depth (the phase fails, naming the bytes, if
+    the weights and caches do not fit): (a) prefill and decode, embed_pool;
+    (b) decode_32k; (c) card against CPU at 2 layers in f32; then (d)
+    ``flash_attention`` and ``flash_decode`` at their shapes against the
+    plain versions."""
+    import gc
+
+    from repro_torch.configs import get_arch, lm_common
+
+    shapes = lm_common.SMOKE_SHAPES if rehearse else lm_common.LM_SHAPES
+    out = {}
+    for mz in dz["models"]:
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        spec = get_arch(mz["arch"])
+        cfg = spec.make_config(dz["smoke"])
+        what = f"({mz['arch']})"
+        res = dict(need_bytes=_dense_need_bytes(
+            spec, cfg, mz, shapes["decode_32k"]["seq_len"]))
+        if dev.type == "cuda":
+            res["memory_allocated_at_start"] = torch.cuda.memory_allocated()
+            res["free_at_start"] = torch.cuda.mem_get_info(dev)[0]
+            require(res["need_bytes"] <= res["free_at_start"],
+                    f"{what}: {cfg.n_layers} layers need "
+                    f"{res['need_bytes']:,} bytes of weights and cache, "
+                    f"{res['free_at_start']:,} free")
+        serve, model = dense_serve(dev, spec, cfg, mz, rehearse, what)
+        res.update(serve)
+        res["decode_32k"] = dense_decode_32k(dev, spec, cfg, model, mz,
+                                             rehearse, what)
+        res["cross"] = dense_cross(dev, model, dz["cross"], what)
+        out[mz["arch"]] = res
+        del model
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["attention"] = attention_kernel_rows(dev, dz, rehearse)
     return out
 
 
@@ -5156,7 +5686,8 @@ def main() -> int:
                               attn=(("MLA, toy", 1, 4, 4, 64, 24, 16),
                                     ("GQA, toy", 1, 6, 2, 64, 16, 16)),
                               decode=(("GQA decode, toy", 2, 6, 2, 128,
-                                       16),)))
+                                       16),)),
+                     dense=dense_lm_sizes(True))
     else:
         # timing shapes: build wave (B=1024), stage-1 wave, stage-2 wave,
         # stage-2 entry wave (K = Q/2 seeds), re-rank scoring wave (K = Q)
@@ -5165,7 +5696,8 @@ def main() -> int:
                              4096: ((256, 64), (256, 500), (256, 1000))},
                      local_timing={384: ((256, 64),), 4096: ((256, 64),)},
                      shapes=((1024, 256, 64), (256, 500, 64), (256, 1000, 64),
-                             (256, 1000, 500)), cn=8192, cd=384, cD=4096, cq=16,
+                             (256, 1000, 500)), cn=8192, cd=384, cD=4096,
+                     cq=16,
                      quotas=(100, 1000), bn=2048, ctn=2048, fn=args.n, fq=256,
                      # phase 6 at the configurations' widths: one attention
                      # layer (causal prefill) of each tower; decode at
@@ -5282,7 +5814,10 @@ def main() -> int:
                                      "24 over 8", 8, 24, 8, 2048, 64, 64)),
                               decode=(("granite-moe-3b-a800m decode, 24 over "
                                        "8, cache 4,096", 8, 24, 8, 4096,
-                                       64),)))
+                                       64),)),
+                     # phase 17: granite-20b and deepseek-coder-33b at full
+                     # depth, bf16 (dense_lm_sizes)
+                     dense=dense_lm_sizes(False))
 
     t0 = time.perf_counter()
     log("phase 2: kernels vs plain versions")
@@ -5415,6 +5950,16 @@ def main() -> int:
     report["phase16_s"] = time.perf_counter() - t0
     log(f"  phase 16 took {report['phase16_s']:.1f} s")
 
+    t0 = time.perf_counter()
+    log("phase 17: the dense LMs of the registry (granite-20b, MQA 48 over "
+        "1; deepseek-coder-33b, 56 over 8) at full depth through their "
+        "cells: prefill -> decode_step, embed_pool, decode_32k; card vs CPU; "
+        "the kernels at their shapes")
+    dn = dense_lm_slice(dev, sizes["dense"], rehearse)
+    report["dense"] = dn
+    report["phase17_s"] = time.perf_counter() - t0
+    log(f"  phase 17 took {report['phase17_s']:.1f} s")
+
     kernels = [
         dict(name="gather_score", route="cuda",
              source="src/repro_torch/kernels/csrc/l2_topk.cu",
@@ -5513,21 +6058,38 @@ def main() -> int:
             extra["launches_moe_prefill"] = {
                 k: mo[k]["prefill_launches"].get("flash_attention_wgmma", 0)
                 for k in ("granite", "dsv3")}
+            # phase 17(a): the dense LMs' prefill and embed_pool
+            extra["launches_dense_prefill"] = {
+                k: dn[k]["prefill_launches"].get("flash_attention_wgmma", 0)
+                for k in DENSE_ARCHS}
+            extra["launches_dense_embed"] = {
+                k: dn[k]["embed_launches"].get("flash_attention_wgmma", 0)
+                for k in DENSE_ARCHS}
         if name == "flash_decode":  # phase 12(a): decode_step, on its path
             extra["launches_lm_decode"] = lm["decode"]["launches"][name]
             # phase 15(a): granite's decode (DS-V3's MLA decode runs none)
             extra["launches_moe_decode"] = {
                 k: mo[k]["decode_launches"].get(name, 0)
                 for k in ("granite", "dsv3")}
-        if name in ("flash_attention", "flash_decode"):  # phase 15(e)
-            moe_rows = [r for r in mo["attention"] if r["kernel"] == name]
-            errs += [r["max_abs_err"] for r in moe_rows]
-            extra["moe_shapes"] = [
-                {k: r.get(k) for k in ("role", "B", "H", "Hkv", "S", "dh",
-                                       "dv", "ms", "device_ms", "plain_ms",
-                                       "bound_ms", "bound_by", "library_ms",
-                                       "library_backend", "max_abs_err")}
-                for r in moe_rows]
+            # phase 17(a), (b): the dense LMs' decode, at 4,160 and 32k
+            extra["launches_dense_decode"] = {
+                k: dn[k]["decode_launches"].get(name, 0)
+                for k in DENSE_ARCHS}
+            extra["launches_dense_decode_32k"] = {
+                k: dn[k]["decode_32k"]["launches"].get(name, 0)
+                for k in DENSE_ARCHS}
+        if name in ("flash_attention", "flash_decode"):  # phases 15(e), 17(d)
+            for key, rows in (("moe_shapes", mo["attention"]),
+                              ("dense_shapes", dn["attention"])):
+                rows = [r for r in rows if r["kernel"] == name]
+                errs += [r["max_abs_err"] for r in rows]
+                extra[key] = [
+                    {k: r.get(k) for k in ("role", "B", "H", "Hkv", "S", "dh",
+                                           "dv", "ms", "device_ms", "plain_ms",
+                                           "bound_ms", "bound_by",
+                                           "library_ms", "library_backend",
+                                           "max_abs_err")}
+                    for r in rows]
         kernels.append(dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{src}.cu",

@@ -7,6 +7,8 @@ port's ``Bert4RecConfig``, field for field the JAX package's, and JAX's
 serving step (``_serve``)."""
 import torch
 
+from repro_torch.configs.common import sds
+from repro_torch.configs.recsys_common import cand_ids_abs, make_recsys_arch
 from repro_torch.kernels.backend import as_tensor
 from repro_torch.models import recsys as R
 
@@ -45,3 +47,22 @@ def _serve(model: R.Bert4Rec, batch: dict, chunk: int = 8192):
     parts = [score_rows(it) for it in items.split(chunk)]
     return (torch.cat([p.values for p in parts]),
             torch.cat([p.indices for p in parts]))
+
+
+def _batch_abs(cfg, batch):
+    return {k: sds((batch, n), torch.int32) for k, n in (
+        ("items", cfg.seq_len), ("mask_pos", cfg.n_masked),
+        ("mask_labels", cfg.n_masked))}
+
+
+SPEC = make_recsys_arch(
+    "bert4rec",
+    full_cfg_fn=full, smoke_cfg_fn=smoke,
+    init_fn=R.bert4rec_init, model_fn=R.Bert4Rec, loss_fn=R.bert4rec_loss,
+    serve_fn=_serve,
+    retrieval_fn=lambda model, user, cand: R.bert4rec_score_candidates(
+        model, user["items"], cand),
+    batch_abs_fn=_batch_abs,
+    user_abs_fn=lambda cfg: {"items": sds((1, cfg.seq_len), torch.int32)},
+    cand_abs_fn=cand_ids_abs,
+)

@@ -2,14 +2,17 @@
 
 Two embedding towers at a 3-orders-of-magnitude size gap (Table 1) and the
 DiskANN index parameters the paper uses ("standard ANN-benchmark choices":
-alpha=1.2, l_build=125, max_outdegree=64).
+alpha=1.2, l_build=125, max_outdegree=64). The expensive tower also
+registers as an extra LM arch ("sfr-mistral-7b").
 """
 import dataclasses
 
 import torch
 
+from repro_torch.configs.lm_common import make_lm_arch
 from repro_torch.core.vamana import VamanaConfig
 from repro_torch.models.transformer import TransformerConfig
+from repro_torch.train.optimizer import AdamWConfig
 
 #: D: SFR-Embedding-Mistral-like 7B encoder, 4096-dim embeddings
 EXPENSIVE_EMBED_DIM = 4096
@@ -58,3 +61,7 @@ class BiMetricSystemConfig:
     k: int = 10  # report top-10 (paper metric: NDCG@10 / Recall@10)
     seed_frac: float = 0.5  # stage-2 seeds = Q/2 (Figure 3 default)
     quota: int = 1000  # expensive-call budget Q (swept in benchmarks)
+
+
+SPEC = make_lm_arch("sfr-mistral-7b", expensive_tower, cheap_tower_smoke,
+                    AdamWConfig())

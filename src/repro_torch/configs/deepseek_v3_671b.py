@@ -5,10 +5,10 @@ dense (d_ff=18432), MTP head, vocab=129280.
 The port's ``TransformerConfig``, field for field the JAX package's
 ``repro.configs.deepseek_v3_671b``, and its optimizer (int8-quantized Adam
 moments). Its 671 B parameters do not fit one card: ``launch/train.py``
-refuses ``--preset full`` for it before drawing a weight. The JAX ``SPEC``
-waits for the port's training plumbing of several devices."""
+refuses ``--preset full`` for it before drawing a weight."""
 import torch
 
+from repro_torch.configs.lm_common import make_lm_arch
 from repro_torch.models.transformer import TransformerConfig
 from repro_torch.train.optimizer import AdamWConfig
 
@@ -38,3 +38,4 @@ def smoke() -> TransformerConfig:
 
 
 OPT = AdamWConfig(quantized_state=True)
+SPEC = make_lm_arch("deepseek-v3-671b", full, smoke, OPT)

@@ -12,15 +12,17 @@ padded nodes are masked):
   molecule      — 128 disjoint graphs × 30 nodes / 64 edges, graph-level
                   classification via segment-mean readout (pad N to 4096)
 
-JAX's ``build_gnn_cell`` and ``SPEC`` (the dry-run cells on a mesh) are not
-here: they wait for the port's training plumbing of several devices.
-:func:`full` / :func:`smoke` give the ``GATConfig`` that ``build_gnn_cell``
-makes for a shape, and ``OPT`` its optimizer; its loss is
-:func:`graph_loss` with the shape's ``task`` and ``n_graphs``."""
+:func:`build_gnn_cell` makes a shape's train cell: one full-batch forward,
+backward and AdamW step of :func:`graph_loss` (on one card; JAX shards the
+nodes and edges over every mesh axis). :func:`full` / :func:`smoke` give
+the ``GATConfig`` it makes for a shape, and ``OPT`` its optimizer."""
 from __future__ import annotations
+
+import functools
 
 import torch
 
+from repro_torch.configs import common
 from repro_torch.models import gnn
 from repro_torch.train.optimizer import AdamWConfig
 
@@ -83,3 +85,47 @@ def full(shape: str) -> gnn.GATConfig:
 def smoke(shape: str) -> gnn.GATConfig:
     return _config(SMOKE_SHAPES[shape])
 
+
+def build_gnn_cell(cfg_dummy, shape_name: str, *, smoke: bool = False,
+                   opt_cfg: AdamWConfig | None = None) -> common.CellSpec:
+    """The shape's train cell: ``fn(model, opt_state, batch)``, one step of
+    :func:`graph_loss` under AdamW (``OPT`` unless ``opt_cfg``); the
+    abstract batch is JAX's (feats f32 (N, F), src/dst int32 (E,), labels
+    int32 and mask f32 (N,); the graph task's graph_ids (N,) and
+    graph_labels (n_graphs,) in place of labels and mask)."""
+    info = (SMOKE_SHAPES if smoke else GNN_SHAPES)[shape_name]
+    opt_cfg = opt_cfg or OPT
+    cfg = _config(info)
+    task = info["task"]
+    n_graphs = info.get("n_graphs") or 0
+    loss = functools.partial(graph_loss, task=task, n_graphs=n_graphs)
+
+    def abstract_args():
+        p_abs = common.abstract_params(gnn.GAT, cfg)
+        n, e = info["n_nodes"], info["n_edges"]
+        b = {"feats": common.sds((n, info["d_feat"]), torch.float32),
+             "src": common.sds((e,), torch.int32),
+             "dst": common.sds((e,), torch.int32)}
+        if task == "graph":
+            b["graph_ids"] = common.sds((n,), torch.int32)
+            b["graph_labels"] = common.sds((n_graphs,), torch.int32)
+        else:
+            b["labels"] = common.sds((n,), torch.int32)
+            b["mask"] = common.sds((n,), torch.float32)
+        return p_abs, common.abstract_opt_state(opt_cfg, p_abs), b
+
+    return common.CellSpec(
+        name=f"gat-cora/{shape_name}", entry="train",
+        fn=common.make_train_step(loss, opt_cfg),
+        abstract_args=abstract_args, tokens=info["n_nodes"])
+
+
+SPEC = common.ArchSpec(
+    name="gat-cora",
+    family="gnn",
+    make_config=lambda smoke=False: gnn.GATConfig(),
+    shapes=GNN_SHAPES,
+    build_cell=build_gnn_cell,
+    init_params=gnn.init_params,
+    model=gnn.GAT,
+)

@@ -2,12 +2,13 @@
 24H (GQA kv=8) per-expert d_ff=512, vocab=49155, 40 experts top-8.
 
 The port's ``TransformerConfig``, field for field the JAX package's
-``repro.configs.granite_moe_3b_a800m`` (40 experts, top-8: its inline spec;
-its ``SPEC`` and dry-run cells wait for the port's training plumbing of
-several devices)."""
+``repro.configs.granite_moe_3b_a800m`` (40 experts, top-8: its inline
+spec)."""
 import torch
 
+from repro_torch.configs.lm_common import make_lm_arch
 from repro_torch.models.transformer import TransformerConfig
+from repro_torch.train.optimizer import AdamWConfig
 
 
 def full() -> TransformerConfig:
@@ -26,3 +27,6 @@ def smoke() -> TransformerConfig:
         moe=True, n_experts=8, top_k=2, moe_d_ff=64, n_shared=0,
         first_dense=0, embed_dim=32, capacity_factor=4.0,
     )
+
+
+SPEC = make_lm_arch("granite-moe-3b-a800m", full, smoke, AdamWConfig())

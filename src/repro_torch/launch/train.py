@@ -11,9 +11,12 @@ Runs the LM loss (``transformer.loss_fn``) under the ``Trainer`` on
 ``--ckpt-dir``, and a killed run resumes (params, optimizer, data cursor)
 through ``Trainer.maybe_restore`` and ``DeterministicIterator.from_state``.
 Runs on the card; ``--device cpu`` runs the plain versions on the CPU.
-A config whose training state (weights, their f32 master copy, gradients
-and AdamW's moments) exceeds the device's memory is refused before a
-weight is drawn: ``--arch deepseek-v3-671b --preset full`` needs terabytes.
+``--arch`` resolves through the registry (``configs.get_arch``); an arch
+of another family than the LMs is refused with JAX's message. A config
+whose training state (weights, their f32 master copy, gradients and
+AdamW's moments) exceeds the device's memory is refused before a weight
+is drawn: ``--preset full`` of granite-20b needs ≈ 446 GB,
+deepseek-coder-33b ≈ 530 GB and deepseek-v3-671b terabytes.
 """
 from __future__ import annotations
 
@@ -22,43 +25,12 @@ import os
 
 import torch
 
-from repro_torch.configs import (bimetric_paper, deepseek_v3_671b,
-                                 granite_moe_3b_a800m, qwen3_0_6b)
-from repro_torch.kernels.backend import resolve_device
+from repro_torch.configs import get_arch
 from repro_torch.data.pipeline import DeterministicIterator, lm_batch_fn
+from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.train.optimizer import AdamWConfig
 from repro_torch.train.trainer import Trainer, TrainerConfig
-
-#: the LM configs the port has: (full, smoke)
-ARCHS = {
-    "qwen3-0.6b": (qwen3_0_6b.full, qwen3_0_6b.smoke),
-    "sfr-mistral-7b": (bimetric_paper.expensive_tower,
-                       bimetric_paper.cheap_tower_smoke),
-    "granite-moe-3b-a800m": (granite_moe_3b_a800m.full,
-                             granite_moe_3b_a800m.smoke),
-    "deepseek-v3-671b": (deepseek_v3_671b.full, deepseek_v3_671b.smoke),
-}
-#: the JAX registry's other LM archs, by the ROADMAP item (queue 1) that
-#: ports them
-LATER = {"granite-20b": 8, "deepseek-coder-33b": 8}
-#: the recommender archs (``models/recsys.py``) and the GNN
-#: (``models/gnn.py``): not of the LM family, which this launcher drives,
-#: as JAX's refuses them
-RECSYS = ("bst", "din", "bert4rec", "xdeepfm")
-GNN = ("gat-cora",)
-
-
-def get_config(arch: str, smoke: bool) -> T.TransformerConfig:
-    if arch in ARCHS:
-        return ARCHS[arch][1 if smoke else 0]()
-    if arch in RECSYS or arch in GNN:
-        raise SystemExit("train launcher currently drives the LM family; "
-                         "see examples/ for GNN/recsys training loops")
-    if arch in LATER:
-        raise ValueError(f"arch {arch!r} is not ported yet (ROADMAP.md, "
-                         f"queue 1, item {LATER[arch]})")
-    raise ValueError(f"unknown arch {arch!r}; choose from {sorted(ARCHS)}")
 
 
 def train_state_bytes(cfg: T.TransformerConfig, opt: AdamWConfig) -> int:
@@ -93,7 +65,11 @@ def main(argv=None):
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    cfg = get_config(args.arch, args.preset == "smoke")
+    spec = get_arch(args.arch)
+    if spec.family != "lm":
+        raise SystemExit("train launcher currently drives the LM family; "
+                         "see examples/ for GNN/recsys training loops")
+    cfg = spec.make_config(args.preset == "smoke")
     opt = AdamWConfig(lr=3e-4, warmup_steps=10, total_steps=max(args.steps, 100))
     need, have = train_state_bytes(cfg, opt), device_bytes(args.device)
     if need > have:
@@ -101,7 +77,7 @@ def main(argv=None):
             f"arch {args.arch!r} preset {args.preset!r}: its training state "
             f"needs {need:,} bytes (weights, f32 master copy, gradients, "
             f"moments), more than the device's {have:,}")
-    model = T.init_params(0, cfg, device=args.device)
+    model = spec.init_params(0, cfg, device=args.device)
     n_params = sum(p.numel() for p in model.parameters())
     print(f"arch={args.arch} preset={args.preset} params={n_params/1e6:.1f}M")
 

@@ -18,7 +18,10 @@ nothing back to the host. The (E, H, dh) messages are formed and summed in
 chunks of sorted edges (:func:`edge_chunk`, a Python int from the shapes):
 at ogb_products' 61.9 M edges the whole tensor would be 93 GB. A node whose
 run spans two chunks gets the chunks' partial sums added in chunk order;
-at Cora's size the one chunk is the same code path.
+at Cora's size the one chunk is the same code path. Under grad, in more
+than one chunk, the (E, H) softmax and each chunk are recomputed in the
+backward pass, so training at ogb_products' size keeps one chunk's rows and
+messages alive, not all of them (:func:`gat_layer`).
 
 ``init_params(key, cfg, device=None)`` draws the weights from a seeded
 ``torch.Generator`` (``key`` a seed, on the card unless ``device="cpu"``,
@@ -39,6 +42,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import layers
@@ -141,17 +145,11 @@ def _segments(x: torch.Tensor, reduce: str, bounds: torch.Tensor):
     return torch.segment_reduce(x, reduce, lengths=bounds.diff(), unsafe=True)
 
 
-def gat_layer(p: GATLayer, x: torch.Tensor, src: torch.Tensor,
-              dst: torch.Tensor, n_nodes: int, *, n_heads: int, slope: float,
-              average_heads: bool, plan: EdgePlan | None = None,
-              chunk: int | None = None) -> torch.Tensor:
-    """One GAT layer. x: (N, d_in); src/dst: (E,) (-1 = padding edge), or
-    their ``plan`` from :func:`edge_plan`; ``chunk`` edges a chunk of the
-    messages (default :func:`edge_chunk`)."""
-    plan = edge_plan(src, dst, n_nodes) if plan is None else plan
-    h = (x @ p.w).view(x.shape[0], n_heads, -1)  # (N, H, dh)
-    e_src = (h * p.a_src[None]).sum(-1)  # (N, H)
-    e_dst = (h * p.a_dst[None]).sum(-1)
+def _edge_softmax(e_src: torch.Tensor, e_dst: torch.Tensor,
+                  plan: EdgePlan, slope: float) -> torch.Tensor:
+    """Each edge's attention coefficient (E, H) in f32: LeakyReLU of its
+    endpoints' scores, softmax over each destination's valid in-edges (0 on
+    an invalid edge), the denominator clamped at 1e-16."""
     valid = plan.valid[:, None]
     logits = F.leaky_relu((e_src[plan.src] + e_dst[plan.dst]).float(), slope)
     logits = logits.masked_fill(~valid, -torch.inf)  # (E, H), sorted
@@ -161,14 +159,49 @@ def gat_layer(p: GATLayer, x: torch.Tensor, src: torch.Tensor,
     seg_max = torch.where(torch.isfinite(seg_max), seg_max, 0.0)
     ex = torch.where(valid, torch.exp(logits - seg_max[plan.dst]), 0.0)
     denom = _segments(ex, "sum", plan.bounds)
-    coef = ex / denom[plan.dst].clamp(min=1e-16)
+    return ex / denom[plan.dst].clamp(min=1e-16)
+
+
+def _chunk_sum(h: torch.Tensor, coef: torch.Tensor, src: torch.Tensor,
+               bounds: torch.Tensor) -> torch.Tensor:
+    """One chunk's messages ``h[src] * coef`` (C, H, dh) summed over each
+    node's run of it (``bounds`` clamped to the chunk): (N, H, dh)."""
+    return _segments(h[src].float() * coef[:, :, None], "sum", bounds)
+
+
+def gat_layer(p: GATLayer, x: torch.Tensor, src: torch.Tensor,
+              dst: torch.Tensor, n_nodes: int, *, n_heads: int, slope: float,
+              average_heads: bool, plan: EdgePlan | None = None,
+              chunk: int | None = None) -> torch.Tensor:
+    """One GAT layer. x: (N, d_in); src/dst: (E,) (-1 = padding edge), or
+    their ``plan`` from :func:`edge_plan`; ``chunk`` edges a chunk of the
+    messages (default :func:`edge_chunk`).
+
+    Under grad, when the edges take more than one chunk, the (E, H) softmax
+    and each chunk's messages are recomputed in the backward pass
+    (``torch.utils.checkpoint``): the layer keeps its coefficients and the
+    plan, and one chunk's gathered rows and messages are alive at a time
+    (autograd's saved form would keep 2 x 93 GB at ogb_products' last
+    layer). In one chunk autograd saves them. The forward is the same
+    either way, bit for bit."""
+    plan = edge_plan(src, dst, n_nodes) if plan is None else plan
+    h = (x @ p.w).view(x.shape[0], n_heads, -1)  # (N, H, dh)
     n_edges = plan.src.shape[0]
     chunk = chunk or edge_chunk(n_edges, n_nodes, n_heads, h.shape[-1])
+    remat = torch.is_grad_enabled() and n_edges > chunk
+
+    def run(fn, *args):
+        return checkpoint(fn, *args, use_reentrant=False) if remat else fn(
+            *args)
+
+    e_src = (h * p.a_src[None]).sum(-1)  # (N, H)
+    e_dst = (h * p.a_dst[None]).sum(-1)
+    coef = run(_edge_softmax, e_src, e_dst, plan, slope)
     out = None
     for c0 in range(0, max(n_edges, 1), chunk):
         c1 = min(c0 + chunk, n_edges)
-        msg = h[plan.src[c0:c1]].float() * coef[c0:c1, :, None]
-        part = _segments(msg, "sum", plan.bounds.clamp(c0, c1))
+        part = run(_chunk_sum, h, coef[c0:c1], plan.src[c0:c1],
+                   plan.bounds.clamp(c0, c1))
         out = part if out is None else out + part  # (N, H, dh)
     if average_heads:
         return out.mean(1).to(x.dtype)

@@ -1621,3 +1621,159 @@ def test_gnn_forward_bit_equal_no_sync_and_chunked(dev):
         assert torch.equal(first, again)
         assert torch.equal(chunked, run(4096))
         assert (chunked - first).abs().max() <= 1e-6 * first.abs().max()
+
+
+# --------------------------------------------------------------------------
+# the dense LMs of the registry (granite-20b, deepseek-coder-33b) and GAT
+# training with the recomputed backward
+# --------------------------------------------------------------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,hkv", [(48, 1), (56, 8)])
+def test_dense_lm_flash_attention_vs_plain(dev, h, hkv):
+    """granite-20b's heads (48 query heads over 1 kv head) and
+    deepseek-coder-33b's (56 over 8, a group of 7), head_dim 128, bf16
+    causal, through ``blockwise_attention`` (k and v repeated to H heads on
+    the way): one tensor-core launch, within the bf16 tolerance of the
+    plain version on the repeated heads."""
+    from repro_torch.models import layers
+
+    b, s, d = 2, 300, 128
+    g = torch.Generator().manual_seed(h + hkv)
+    q = _randn(g, b, s, h, d, dtype=torch.bfloat16)
+    k = _randn(g, b, s, hkv, d, dtype=torch.bfloat16)
+    v = _randn(g, b, s, hkv, d, dtype=torch.bfloat16)
+    before = flash_attention.launches["flash_attention_wgmma"]
+    with torch.no_grad():
+        got = layers.blockwise_attention(q.to(dev), k.to(dev), v.to(dev))
+    assert flash_attention.launches["flash_attention_wgmma"] == before + 1
+    rep = h // hkv
+    want = flash_attention.flash_attention_plain(
+        *(x.transpose(1, 2) for x in (q, layers.repeat_kv(k, rep),
+                                      layers.repeat_kv(v, rep)))).transpose(1, 2)
+    tol = ATTN_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,hkv", [(48, 1), (56, 8)])
+def test_dense_lm_flash_decode_vs_plain(dev, h, hkv):
+    """``flash_decode`` at granite-20b's MQA cache (48 over 1) and
+    deepseek-coder-33b's (56 over 8): lengths 1, a split's edges and S, one
+    launch, within the bf16 tolerance of the plain version; query head h
+    reads kv head ``h // (H // Hkv)``, so the grouped read equals the
+    kernel on the cache repeated to H heads."""
+    b, s, d = 4, 2500, 128
+    c = flash_attention.decode_split(s, b * h)[0]
+    g = torch.Generator().manual_seed(h * hkv)
+    q = _randn(g, b, h, d, dtype=torch.bfloat16)
+    k = _randn(g, b, s, hkv, d, dtype=torch.bfloat16)
+    v = _randn(g, b, s, hkv, d, dtype=torch.bfloat16)
+    lens = torch.tensor([1, c - 1, c + 1, s], dtype=torch.int32)
+    before = flash_attention.launches["flash_decode"]
+    got = ops.flash_decode(q.to(dev), k.to(dev), v.to(dev),
+                           length=lens.to(dev))
+    assert flash_attention.launches["flash_decode"] == before + 1
+    want = flash_attention.flash_decode_plain(q, k, v, length=lens)
+    tol = ATTN_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.cpu().float(), want.float(), rtol=tol,
+                               atol=tol)
+    rep = h // hkv
+    full = ops.flash_decode(q.to(dev), *(t.to(dev).repeat_interleave(rep, 2)
+                                         for t in (k, v)),
+                            length=lens.to(dev))
+    assert torch.equal(full, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-20b", "deepseek-coder-33b"])
+def test_dense_lm_cells_on_card_equal_cpu(dev, arch):
+    """The smoke config through its registry cells, ``prefill_32k``'s and
+    ``decode_32k``'s ``fn``, on the card against a CPU copy (f32): the
+    logits within 1e-4 x max |logit|, one ``flash_decode`` a layer a step,
+    no host sync in a step; decode against the card's own forward."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+
+    spec = get_arch(arch)
+    cfg = spec.make_config(True)
+    card = spec.init_params(5, cfg, device=dev)
+    host = T.Transformer(cfg, device="cpu")
+    host.load_state_dict(card.state_dict())
+    prefill = spec.build_cell(cfg, "prefill_32k", smoke=True).fn
+    decode = spec.build_cell(cfg, "decode_32k", smoke=True).fn
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab, (3, 20)))
+
+    def agree(a, b):
+        a, b = a.float().cpu(), b.float().cpu()
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+
+    with torch.inference_mode():
+        ref = T.forward(card, toks.to(dev)).logits
+        agree(ref, T.forward(host, toks).logits)
+        lc, cc = prefill(card, toks[:, :16].to(dev), max_seq=20)
+        lh, ch = prefill(host, toks[:, :16], max_seq=20)
+        agree(lc, lh)
+        for i in range(16, 20):
+            tok = toks[:, i:i + 1].to(dev)
+            before = flash_attention.launches["flash_decode"]
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                lc, cc = decode(card, tok, cc)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            assert flash_attention.launches["flash_decode"] == before + \
+                cfg.n_layers
+            lh, ch = decode(host, toks[:, i:i + 1], ch)
+            agree(lc, lh)
+            agree(lc[:, 0], ref[:, i])
+
+
+@pytest.mark.cuda
+def test_gnn_train_recomputed_backward_on_card(dev):
+    """The backward in chunks smaller than E (the softmax and each chunk
+    recomputed) on the card against autograd's saved one (the edges in one
+    chunk): the losses within 1e-5, each gradient within 1e-4 x its max
+    |gradient| or 4x its f32 noise (the gradient with the edges permuted);
+    then three steps of ``build_gnn_cell``'s ``fn`` (a smoke shape), the
+    first loss bit-equal to the forward's under no grad, the losses
+    falling."""
+    from repro_torch.configs import gat_cora
+    from repro_torch.models import gnn
+    from repro_torch.train.optimizer import make_adamw
+
+    host, batch = _gnn_case("node", n=3000, e=40000)
+    model = host.to(dev)
+    b = {k: v.to(dev) for k, v in batch.items()}
+    perm = torch.randperm(40000, generator=torch.Generator().manual_seed(2))
+    permuted = dict(b, src=b["src"][perm.to(dev)], dst=b["dst"][perm.to(dev)])
+    got = []
+    for bb, chunk in ((b, 4096), (b, 40000), (permuted, 4096)):
+        loss, _ = gnn.loss_fn(model, bb, chunk=chunk)
+        got.append((loss.detach(), torch.autograd.grad(
+            loss, list(model.parameters()), allow_unused=True)))
+    (l1, g1), (l2, g2), (_, g3) = got
+    assert (l1 - l2).abs() <= 1e-5 * l2.abs()
+    for x, y, z in zip(g1, g2, g3):
+        if x is None:
+            continue
+        assert (x - y).abs().max() <= max(1e-4 * y.abs().max(),
+                                          4 * (x - z).abs().max())
+
+    cell = gat_cora.build_gnn_cell(None, "ogb_products", smoke=True)
+    _, _, b_abs = cell.abstract_args()
+    small, sb = _gnn_case("node", n=b_abs["feats"].shape[0],
+                          e=b_abs["src"].shape[0])
+    model = small.to(dev)
+    sb = {k: v.to(dev) for k, v in sb.items()}
+    with torch.no_grad():
+        want = gat_cora.graph_loss(model, sb, task="node")[0]
+    opt = make_adamw(gat_cora.OPT)[0](model)
+    losses = []
+    for _ in range(3):
+        model, opt, m = cell.fn(model, opt, sb)
+        losses.append(m["loss"])
+    assert torch.equal(losses[0], want)
+    assert float(losses[-1]) < float(losses[0])

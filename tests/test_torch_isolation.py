@@ -155,3 +155,24 @@ def test_gnn_entry_points_without_device_raise_on_cpu_host():
     edges = torch.tensor([0, 1, -1], dtype=torch.int32)
     assert gnn.forward(convert.gat_from_numpy(pytree, cfg, device="cpu"), x,
                        edges, edges).shape == (4, cfg.n_classes)
+
+
+def test_registry_entry_points_without_device_raise_on_cpu_host():
+    """Every arch's initialiser in the registry draws on the card unless
+    told otherwise, and the launcher trains there: with no card they raise.
+    The abstract arguments need no device (the meta device)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible: device=None means the card")
+    from repro_torch.configs import ARCHS, EXTRA_ARCHS
+    from repro_torch.launch import train as launch_train
+
+    for name, spec in {**ARCHS, **EXTRA_ARCHS}.items():
+        cfg = spec.make_config(True)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            spec.init_params(0, cfg)
+        args = spec.build_cell(cfg, next(iter(spec.shapes)),
+                               smoke=True).abstract_args()
+        assert next(iter(args[0].parameters())).device.type == "meta", name
+        spec.init_params(0, cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_train.main(["--arch", "granite-20b", "--steps", "1"])

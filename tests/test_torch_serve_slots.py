@@ -42,6 +42,18 @@ def _exp_smoke():
         head_dim=16, d_ff=128, vocab=512, embed_dim=32)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The engines here are small: torch's intra-op threads cost more than
+    they save when the suite runs its files side by side (this file took
+    549 s of worker time in a six-worker run of the suite). Restored after
+    the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def engine_parts():
     cheap = EmbedTower(T.init_params(0, launch_serve.cheap_smoke(),
