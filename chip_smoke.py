@@ -212,7 +212,31 @@ Phases (any failure exits nonzero and prints no result line):
    forward, prefill and decode card against CPU, decode against the
    forward, within 1e-4 of max |logit|; (d) ``flash_attention`` at both
    prefill layers and ``flash_decode`` at both decode_32k caches against
-   their plain versions, timed beside their bounds and SDPA.
+   their plain versions, timed beside their bounds and SDPA;
+18. training on a mesh: (a) qwen3-0.6b's train_4k cell (28 layers, full
+   width, bf16, the batch 256 cut to 2, one row a data shard) on
+   ``make_mesh((2, 2), ("data", "model"), devices=["cuda:0"] * 4)``, its
+   weights drawn on the card from a seed and placed by
+   ``abstract_args(mesh)``'s shardings: every block of its spec's shape,
+   the blocks' bytes (each element once) the unsharded state's, step 0's
+   loss, weights and master copy within 4x the f32 noise of the unsharded
+   step on a copy (the noise: that step with the two rows in the other
+   order; the moments' gaps are printed: they read the gradient, which
+   each row rounds to bf16 on its own), the master copy and moments
+   bit-equal to AdamW on the two rows' gradients summed in row order,
+   three steps with the wgmma forward and backward launches
+   exactly twice the unsharded step's (a set a data shard), ms a step
+   beside the unsharded step, the bytes at each position and the peak; (b)
+   GPipe over the same 28 blocks as 4 stages of 7 on ``["cuda:0"] * 4``,
+   4 microbatches of 1 x 4,096 embedded tokens, ``remat=True``: outputs
+   bit-equal to the blocks run on each microbatch in turn, the gradients
+   of the mean square within 4x the noise of that loop with the
+   microbatches in another order, launches exact, both timed; (c)
+   ``quantized_psum`` over (a)'s two data shards' step-0 gradients (every
+   leaf): each element within S · scale / 2 of the exact sum (plus the
+   bf16 rounding of the output), the card's bit-equal to the CPU's on the
+   embedding and the first block's leaves, the relative error as JAX's
+   test reads it.
 
 Phases 6, 8, 9, 12's decoding, 14's serving and 15's run under
 ``torch.inference_mode()``
@@ -5577,6 +5601,363 @@ def dense_lm_slice(dev, dz, rehearse):
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 18: training on a mesh
+# --------------------------------------------------------------------------
+MESH_NOISE = 4.0  # the mesh against the unsharded step, x the f32 noise
+
+
+def _rows_adamw(rows, opt0, grad_norm, dtypes):
+    """AdamW's first update from ``opt0`` on the data rows' gradients
+    summed as the mesh step sums them: in row order, in f32, each weighted
+    by its share, cast to the parameter's dtype; at the mesh step's global
+    norm. Elementwise, so the mesh's blocks must equal it bit for bit."""
+    from repro_torch.train.optimizer import (AdamWConfig, adamw_leaf,
+                                             adamw_scalars)
+
+    cfg = AdamWConfig()
+    sc = adamw_scalars(cfg, 1, grad_norm)
+    out = {}
+    for name, master in opt0.master.items():
+        acc = None
+        for r in rows:
+            term = (1.0 / len(rows)) * r[name].float()
+            acc = term if acc is None else acc + term
+        out[name] = adamw_leaf(cfg, acc.to(dtypes[name]), master,
+                               opt0.m[name], opt0.v[name], sc,
+                               master.ndim >= 2)
+    return out
+
+
+def mesh_sizes(rehearse):
+    """Phase 18: qwen3-0.6b (its smoke config in a rehearsal) at train_4k's
+    sequence with the batch cut to 2, 3 steps on a (2, 2) mesh; GPipe over
+    its blocks as 4 stages (2 in a rehearsal), 4 microbatches of 1 row."""
+    return dict(arch="qwen3-0.6b", smoke=rehearse, seed=0, batch=2,
+                seq=64 if rehearse else 4096, steps=3,
+                stages=2 if rehearse else 4, n_micro=4)
+
+
+def _max_gap(a: dict, b: dict) -> float:
+    return max(float((a[n].float() - b[n].float()).abs().max()) for n in b)
+
+
+def _named_detached(model) -> dict:
+    return {n: p.detach() for n, p in model.named_parameters()}
+
+
+def _sharded_bytes(tree_list, mesh):
+    """(bytes at each position, the unique blocks' bytes, with replicas)."""
+    from repro_torch.distributed import sharding as shr
+
+    at = [0] * mesh.size
+    unique = 0
+    for tree in tree_list:
+        leaves = []
+        shr.tree_map(lambda x: leaves.append(x)
+                     if isinstance(x, shr.Placed) else None, tree)
+        for x in leaves:
+            for i, b in enumerate(x.blocks):
+                at[i] += b.nbytes
+            unique += sum(b.nbytes for b in x.unique_blocks())
+    return at, unique, sum(at)
+
+
+def mesh_train(dev, mz, rehearse):
+    """(a) the train cell on a (data 2, model 2) mesh of one device."""
+    import copy
+
+    from repro_torch.configs import common, get_arch
+    from repro_torch.distributed import sharding as shr
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optimizer import AdamWConfig, make_adamw
+
+    spec = get_arch(mz["arch"])
+    cfg = spec.make_config(mz["smoke"])
+    cell = spec.build_cell(cfg, "train_4k", smoke=mz["smoke"])
+    mesh = make_mesh((2, 2), ("data", "model"), [dev] * 4)
+    args = cell.abstract_args(mesh)
+    opt_init = make_adamw(AdamWConfig())[0]  # qwen3's SPEC: AdamWConfig()
+    out = dict(arch=mz["arch"], layers=cfg.n_layers, batch=mz["batch"],
+               seq=mz["seq"], steps=mz["steps"], mesh=str(mesh))
+    if dev.type == "cuda":
+        out["memory_allocated_at_start"] = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    model = T.init_params(mz["seed"], cfg, device=dev)
+    rng = np.random.default_rng(mz["seed"])
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (
+        mz["batch"], mz["seq"] + 1)).astype(np.int32)).to(dev)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous()}
+    swapped = {k: v.flip(0).contiguous() for k, v in batch.items()}
+
+    # each data row's step-0 gradients, as its copy of the weights gives
+    # them: (c)'s input
+    rows = []
+    for r in range(mz["batch"]):
+        loss_r, _ = T.loss_fn(model, {k: v[r:r + 1] for k, v in
+                                      batch.items()})
+        gs = torch.autograd.grad(loss_r, list(model.parameters()),
+                                 allow_unused=True)  # embed_head: unused
+        rows.append({n: torch.zeros_like(p) if g is None else g
+                     for (n, p), g in zip(model.named_parameters(), gs)})
+        del loss_r, gs
+
+    # the unsharded step on copies: the reference, and the noise (the two
+    # rows in the other order)
+    def unsharded(b, steps):
+        m = copy.deepcopy(model)
+        o = opt_init(m)
+        first, times, counts = None, [], []
+        for i in range(steps):
+            fa.reset_launches()
+            t0 = time.perf_counter()
+            m, o, met = cell.fn(m, o, b)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            counts.append(dict(fa.launches))
+            if first is None:
+                first = (float(met["loss"]), {n: t.clone() for n, t in
+                                              _named_detached(m).items()}, o,
+                         float(met["grad_norm"]))
+        del m, o
+        return first, times, counts
+
+    ref, ref_times, ref_counts = unsharded(batch, mz["steps"])
+    noise_run, _, _ = unsharded(swapped, 1)
+    noise = dict(loss=abs(noise_run[0] - ref[0]),
+                 grad_norm=abs(noise_run[3] - ref[3]),
+                 params=_max_gap(noise_run[1], ref[1]))
+    top = dict(loss=abs(ref[0]), grad_norm=ref[3], params=max(
+        float(t.float().abs().max()) for t in ref[1].values()))
+    for f in ("master", "m", "v"):
+        noise[f] = _max_gap(getattr(noise_run[2], f), getattr(ref[2], f))
+        top[f] = max(float(t.abs().max())
+                     for t in getattr(ref[2], f).values())
+    del noise_run
+
+    # placed by abstract_args(mesh)'s shardings
+    pp = shr.place(model, common.arg_shardings(args[0]))
+    po = shr.place(opt_init(model), common.arg_shardings(args[1]))
+    pb = shr.place(batch, common.arg_shardings(args[2]))
+    blocks_ok = all(
+        tuple(b.shape) == x.sharding.block_shape(x.shape)
+        for tree in (pp, po.master, po.m, po.v) for x in tree.values()
+        for b in x.blocks)
+    require(blocks_ok, "(a) a block's shape is not its spec's")
+    at, unique, with_replicas = _sharded_bytes([pp, po], mesh)
+    whole = sum(p.nbytes for p in model.parameters()) + sum(
+        t.nbytes for f in ("master", "m", "v")
+        for t in getattr(ref[2], f).values())
+    require(unique == whole, f"(a) the blocks hold {unique:,} bytes, the "
+            f"unsharded state {whole:,}")
+    out.update(bytes_at_position=at, bytes_unique=unique,
+               bytes_with_replicas=with_replicas, bytes_unsharded=whole)
+
+    # three steps on the mesh, launches counted from 0
+    fa.reset_launches()
+    losses, times = [], []
+    for i in range(mz["steps"]):
+        t0 = time.perf_counter()
+        pp, po, met = cell.fn(pp, po, pb)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(met["loss"]))
+        if i == 0:
+            gap = dict(loss=abs(losses[0] - ref[0]),
+                       grad_norm=abs(float(met["grad_norm"]) - ref[3]),
+                       params=_max_gap(shr.gather(pp), ref[1]))
+            for f in ("master", "m", "v"):
+                gap[f] = _max_gap(shr.gather(getattr(po, f)),
+                                  getattr(ref[2], f))
+            # the data-parallel sum itself: the state is AdamW on the rows'
+            # gradients summed in row order, bit for bit
+            want = _rows_adamw(rows, opt_init(model), met["grad_norm"],
+                               {n: p.dtype for n, p in
+                                model.named_parameters()})
+            exact = True
+            for k, f in enumerate(("master", "m", "v")):
+                got = shr.gather(getattr(po, f))
+                exact &= all(torch.equal(got[n], want[n][k]) for n in want)
+                del got
+            del want
+    launches = dict(fa.launches)  # read just after the path
+    out.update(losses=losses, ref_loss=ref[0], gap=gap, noise=noise,
+               max_abs=top, rows_sum_exact=exact, step_ms=[1e3 * t for t in times],
+               unsharded_step_ms=[1e3 * t for t in ref_times],
+               launches=launches, unsharded_launches_per_step=ref_counts[-1])
+    log(f"  (a) {cfg.n_layers} layers on {mesh}: losses "
+        f"{json.dumps(losses)}; step 0 vs unsharded {json.dumps(gap)}, "
+        f"f32 noise {json.dumps(noise)}, max |x| {json.dumps(top)}; the "
+        f"state = AdamW on the rows' summed gradients bit for bit: {exact}")
+    for k in ("loss", "params", "master"):
+        lim = MESH_NOISE * noise[k]
+        if k == "loss":  # a sum's order may not move a loss at all
+            lim = max(lim, 1e-6 * abs(ref[0]))
+        require(gap[k] <= lim, f"(a) step 0's {k}: mesh vs unsharded "
+                f"{gap[k]:.3e}, limit {lim:.3e} (f32 noise {noise[k]:.3e})")
+    require(exact, "(a) step 0's master copy and moments are not AdamW's "
+            "on the data rows' gradients summed in row order")
+    require(all(math.isfinite(x) for x in losses), "(a) a loss is not finite")
+    if not rehearse:
+        per = ref_counts[-1]
+        for k in ("flash_attention_wgmma", "flash_attention_bwd_wgmma"):
+            require(per[k] > 0 and launches[k] == 2 * per[k] * mz["steps"],
+                    f"(a) {k}: {launches[k]} launches in {mz['steps']} "
+                    f"steps, the unsharded step {per[k]} a step")
+        require(launches["flash_attention_simt"] == 0
+                and launches["flash_attention_bwd"]
+                == launches["flash_attention_bwd_wgmma"],
+                f"(a) a launch off the wgmma route: {launches}")
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    log(f"      step ms {json.dumps([round(x, 3) for x in out['step_ms']])} "
+        f"beside the unsharded "
+        f"{json.dumps([round(x, 3) for x in out['unsharded_step_ms']])}; "
+        f"launches {launches} (unsharded a step {ref_counts[-1]})")
+    log(f"      bytes at each position {at}; each element once {unique:,} "
+        f"= unsharded {whole:,}; with replicas {with_replicas:,}; "
+        f"max_memory_allocated {out.get('max_memory_allocated')}")
+    del pp, po, pb, ref
+    return out, model, rows
+
+
+def mesh_gpipe(dev, mz, model, rehearse):
+    """(b) GPipe over the model's blocks."""
+    from torch import nn
+
+    from repro_torch.distributed.pipeline import gpipe_apply
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_mesh
+
+    cfg = model.cfg
+    n_st, n_micro, seq = mz["stages"], mz["n_micro"], mz["seq"]
+    per = cfg.n_layers // n_st
+    require(per * n_st == cfg.n_layers, f"(b) {cfg.n_layers} layers in "
+            f"{n_st} stages")
+    stages = [nn.ModuleList(model.blocks[s * per:(s + 1) * per])
+              for s in range(n_st)]
+    mesh = make_mesh((n_st,), ("pod",), [dev] * n_st)
+    rng = np.random.default_rng(mz["seed"] + 1)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (n_micro, 1, seq))
+                            .astype(np.int32)).to(dev)
+    with torch.no_grad():
+        xm = model.embed_tokens(toks)  # (n_micro, 1, seq, d)
+    params = [p for st in stages for p in st.parameters()]
+
+    def stage_fn(blocks, x):
+        pos = torch.arange(x.shape[1], device=x.device)
+        for blk in blocks:
+            x = blk(x, pos)[0]
+        return x
+
+    def loop(order):
+        ys = [None] * n_micro
+        for i in order:
+            ys[i] = stage_fn(model.blocks, xm[i])
+        return torch.stack(ys)
+
+    def run(fn):
+        fa.reset_launches()
+        t0 = time.perf_counter()
+        y = fn()
+        loss = (y.float() ** 2).mean()
+        g = torch.autograd.grad(loss, params)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return (y.detach(), g, time.perf_counter() - t0, dict(fa.launches))
+
+    # the noise run first: it also warms the kernels for the two timed runs
+    _, ng, _, _ = run(lambda: loop(reversed(range(n_micro))))
+    piped, pg, pt, launches = run(lambda: gpipe_apply(
+        stage_fn, stages, xm, mesh=mesh, n_micro=n_micro, remat=True)[0])
+    looped, lg, lt, loop_launches = run(lambda: loop(range(n_micro)))
+    require(torch.equal(piped, looped), "(b) GPipe's outputs differ from "
+            "the per-microbatch loop's")
+    gap = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(pg, lg))
+    noise = max(float((a.float() - b.float()).abs().max())
+                for a, b in zip(ng, lg))
+    require(gap <= MESH_NOISE * noise, f"(b) GPipe's gradients {gap:.3e} "
+            f"from the loop's, f32 noise {noise:.3e}")
+    if not rehearse:
+        want = dict(flash_attention_wgmma=2 * cfg.n_layers * n_micro,
+                    flash_attention_bwd_wgmma=cfg.n_layers * n_micro)
+        for k, n in want.items():
+            require(launches[k] == n, f"(b) {k}: {launches[k]} launches, "
+                    f"want {n} (the forward twice: remat)")
+    out = dict(stages=n_st, blocks_a_stage=per, n_micro=n_micro, seq=seq,
+               gpipe_ms=1e3 * pt, loop_ms=1e3 * lt, grad_gap=gap,
+               grad_noise=noise, launches=launches,
+               loop_launches=loop_launches)
+    log(f"  (b) GPipe {n_st} stages of {per} blocks, {n_micro} microbatches "
+        f"of 1 x {seq}: outputs bit-equal to the loop; gradients "
+        f"{gap:.3e} from it (noise {noise:.3e}); {out['gpipe_ms']:.3f} ms "
+        f"beside the loop's {out['loop_ms']:.3f} ms (forward and "
+        f"backward); launches {launches}")
+    del stages, xm, pg, lg, ng
+    return out
+
+
+def mesh_qpsum(dev, model, rows):
+    """(c) the int8 all-reduce over the two data shards' gradients."""
+    from repro_torch.train.compression import QBLOCK, quantized_psum
+
+    out_trees = quantized_psum(rows)
+    worst = top = 0.0
+    s = len(rows)
+    for name in rows[0]:
+        exact = sum(r[name].float() for r in rows)
+        d = exact.shape[-1]
+        pad = (-d) % QBLOCK
+        scale = torch.stack([
+            torch.nn.functional.pad(r[name].float(), (0, pad)).reshape(
+                *exact.shape[:-1], -1, QBLOCK).abs().amax(-1) / 127.0
+            for r in rows]).amax(0)
+        per = scale.repeat_interleave(QBLOCK, -1)[..., :d]
+        # the quantization's bound, plus the bf16 rounding of the output
+        lim = s * per / 2 * (1 + 2.0 ** -8) + exact.abs() * 2.0 ** -8
+        err = (out_trees[0][name].float() - exact).abs()
+        require(bool((err <= lim).all()), f"(c) {name}: an element past its "
+                f"bound by {float((err - lim).max()):.3e}")
+        worst = max(worst, float(err.max()))
+        top = max(top, float(exact.abs().max()))
+        require(all(torch.equal(o[name], out_trees[0][name])
+                    for o in out_trees), f"(c) {name}: the shards differ")
+    names = ["embed"] + [n for n in rows[0] if n.startswith("blocks.0.")]
+    cpu = quantized_psum([{n: r[n].cpu() for n in names} for r in rows])
+    for n in names:
+        require(torch.equal(cpu[0][n], out_trees[0][n].cpu()),
+                f"(c) {n}: the card's sum differs from the CPU's")
+    out = dict(rel_err=worst / top, max_abs_err=worst, leaves=len(rows[0]),
+               cpu_equal=names)
+    log(f"  (c) quantized_psum over {s} shards, {len(rows[0])} leaves: "
+        f"every element within S·scale/2; relative error {worst / top:.4e} "
+        f"(max |err| / max |sum|); card = CPU on {len(names)} leaves")
+    return out
+
+
+def mesh_slice(dev, mz, rehearse):
+    """Phase 18 at ``mz`` (:func:`mesh_sizes`)."""
+    import gc
+
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out = {}
+    out["train"], model, rows = mesh_train(dev, mz, rehearse)
+    out["gpipe"] = mesh_gpipe(dev, mz, model, rehearse)
+    out["qpsum"] = mesh_qpsum(dev, model, rows)
+    del model, rows
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--n", type=int, default=171_332,
@@ -5960,6 +6341,15 @@ def main() -> int:
     report["phase17_s"] = time.perf_counter() - t0
     log(f"  phase 17 took {report['phase17_s']:.1f} s")
 
+    t0 = time.perf_counter()
+    log("phase 18: training on a mesh (qwen3-0.6b's train cell on a (data "
+        "2, model 2) mesh of one card; GPipe over its blocks; the int8 "
+        "all-reduce)")
+    ms = mesh_slice(dev, mesh_sizes(rehearse), rehearse)
+    report["mesh"] = ms
+    report["phase18_s"] = time.perf_counter() - t0
+    log(f"  phase 18 took {report['phase18_s']:.1f} s")
+
     kernels = [
         dict(name="gather_score", route="cuda",
              source="src/repro_torch/kernels/csrc/l2_topk.cu",
@@ -6065,6 +6455,11 @@ def main() -> int:
             extra["launches_dense_embed"] = {
                 k: dn[k]["embed_launches"].get("flash_attention_wgmma", 0)
                 for k in DENSE_ARCHS}
+            # phase 18: the train cell on a mesh (3 steps) and GPipe
+            extra["launches_mesh_train"] = ms["train"]["launches"][
+                "flash_attention_wgmma"]
+            extra["launches_gpipe"] = ms["gpipe"]["launches"][
+                "flash_attention_wgmma"]
         if name == "flash_decode":  # phase 12(a): decode_step, on its path
             extra["launches_lm_decode"] = lm["decode"]["launches"][name]
             # phase 15(a): granite's decode (DS-V3's MLA decode runs none)
@@ -6131,6 +6526,12 @@ def main() -> int:
             for r in ("wgmma", "tf32", "simt")},
         launches_recsys_by_route={
             r: rs["launches"][f"flash_attention_bwd_{r}"]
+            for r in ("wgmma", "tf32", "simt")},
+        launches_mesh_train_by_route={
+            r: ms["train"]["launches"][f"flash_attention_bwd_{r}"]
+            for r in ("wgmma", "tf32", "simt")},
+        launches_gpipe_by_route={
+            r: ms["gpipe"]["launches"][f"flash_attention_bwd_{r}"]
             for r in ("wgmma", "tf32", "simt")},
         recsys_shapes=[
             {k: r.get(k) for k in ("role", "B", "H", "S", "dh", "route",

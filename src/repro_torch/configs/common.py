@@ -1,35 +1,68 @@
 """Shared machinery for architecture configs: cells, step builders, specs;
-the counterpart of ``repro.configs.common`` in its one-card form.
+the counterpart of ``repro.configs.common``.
 
 An *arch* module exposes ``SPEC: ArchSpec``. Each of its shapes defines one
-**cell**: a step function plus allocation-free abstract arguments.
+**cell**: a step function plus allocation-free abstract arguments and, on a
+mesh, their shardings.
 
 PyTorch idiom: JAX's ``ShapeDtypeStruct`` is a tensor on the ``meta``
 device (shape and dtype, no storage), and ``jax.eval_shape`` of an
 initialiser is the model's module built on ``meta``, its draws skipped
-(:func:`abstract_params`). There is no mesh yet: ``abstract_args`` takes no
-argument and the arguments carry no sharding; JAX's ``out_shardings``,
-``act_axes`` and ``grad_specs_holder`` wait for the multi-device plumbing,
-and ``donate`` has no counterpart (the train step writes the new weights
-into the module in place, :func:`make_train_step`).
+(:func:`abstract_params`). ``abstract_args()`` with no mesh gives those;
+``abstract_args(mesh)`` gives each leaf with its ``NamedSharding`` in the
+attribute ``sharding`` (:func:`sds`, :func:`with_shardings`), the weights as
+a ``{name: leaf}`` map. ``distributed.sharding.place`` lays concrete tensors
+out by those shardings, and the train cell's ``fn`` runs on what it laid
+out (:func:`make_train_step`). ``donate`` has no counterpart: the step
+writes the new weights into its argument in place.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any, Callable
 
 import torch
 from torch import nn
 
-from repro_torch.train.optimizer import AdamWConfig, make_adamw, named
+from repro_torch.distributed.sharding import (NamedSharding, Placed,
+                                              gather_tensor, shard_tensor,
+                                              tree_map)
+from repro_torch.train.optimizer import (AdamWConfig, AdamWState, adamw_leaf,
+                                         adamw_scalars, make_adamw, named)
 
 META = torch.device("meta")
 
 
-def sds(shape, dtype) -> torch.Tensor:
+def sds(shape, dtype, mesh=None, spec=None) -> torch.Tensor:
     """A tensor of ``shape`` and ``dtype`` with no storage (JAX's
-    ``ShapeDtypeStruct``)."""
-    return torch.empty(shape, dtype=dtype, device=META)
+    ``ShapeDtypeStruct``); with ``mesh`` and ``spec`` it carries
+    ``NamedSharding(mesh, spec)`` as ``.sharding``."""
+    t = torch.empty(shape, dtype=dtype, device=META)
+    if mesh is not None and spec is not None:
+        t.sharding = NamedSharding(mesh, spec)
+    return t
+
+
+def with_shardings(abstract, specs, mesh):
+    """The abstract leaves of ``abstract`` (a meta module reads as its
+    parameters) with shardings attached, leaf by leaf from ``specs``."""
+    if isinstance(abstract, nn.Module):
+        abstract = named(abstract)
+
+    def one(a, s):
+        if not isinstance(a, torch.Tensor):
+            return a  # AdamWState.step, an int
+        return sds(a.shape, a.dtype, mesh, s)
+
+    return tree_map(one, abstract, specs)
+
+
+def arg_shardings(tree):
+    """The sharding of each abstract leaf (None where it has none)."""
+    if isinstance(tree, nn.Module):
+        tree = named(tree)
+    return tree_map(lambda a: getattr(a, "sharding", None), tree)
 
 
 @dataclasses.dataclass
@@ -39,10 +72,16 @@ class CellSpec:
     name: str  # f"{arch}/{shape}"
     entry: str  # train | prefill | decode | serve | retrieval
     fn: Callable  # the step
-    # () -> args of meta tensors (a module on meta for the weights)
-    abstract_args: Callable[[], tuple]
+    # (mesh=None) -> args of meta tensors (without a mesh a module on meta
+    # for the weights; on a mesh every leaf with its sharding)
+    abstract_args: Callable[..., tuple]
     # batch-like dims for MODEL_FLOPS accounting
     tokens: int = 0  # tokens processed per step (LM) / items scored (recsys)
+    # mesh axes of the activations' batch ("dp" = pod+data, "all" =
+    # pod+data+model: the GNN's nodes and edges)
+    act_axes: str = "dp"
+    # abstract args -> the outputs' shardings (None entries: as they come)
+    out_shardings: Any = None
 
 
 @dataclasses.dataclass
@@ -76,7 +115,8 @@ def abstract_params(model_fn: Callable[[Any, Any], nn.Module],
     return model_fn(cfg, META)
 
 
-def make_train_step(loss_fn: Callable, opt_cfg: AdamWConfig):
+def make_train_step(loss_fn: Callable, opt_cfg: AdamWConfig,
+                    grad_specs_holder: dict | None = None):
     """A fused forward, backward and AdamW step: ``(params, opt_state,
     batch) -> (params, opt_state, metrics)``.
 
@@ -85,11 +125,29 @@ def make_train_step(loss_fn: Callable, opt_cfg: AdamWConfig):
     weights are written into ``params`` in place, which is returned, as a
     donated buffer would be; ``opt_state`` is replaced. A parameter the
     loss does not reach (the GAT's bias) gets a zero gradient, as under
-    ``jax.grad``."""
+    ``jax.grad``.
+
+    On a mesh the arguments are laid out by the cell's
+    ``abstract_args(mesh)`` (``sharding.place``), which fills
+    ``grad_specs_holder`` with the mesh, the optimizer's specs (``specs``)
+    and the model's module on the meta device (``model``). Each data row's
+    rows of the batch run on that row's first device, through a copy of the
+    model gathered from the weights' blocks; the gradients are summed over
+    the rows in row order, weighted by their share of the batch (the
+    global loss is the mean over positions) and cast to the parameter's
+    dtype, as JAX pins them; they are cut to the optimizer's layout and
+    AdamW runs on each block, the global norm summed over the blocks (each
+    element once); the new weights are written back into their blocks. The
+    "model" axis shards the storage (weights, master copy, moments), not
+    the products.
+    """
     _, opt_update = make_adamw(opt_cfg)
 
     def train_step(params, opt_state, batch):
         leaves = named(params)
+        if any(isinstance(p, Placed) for p in leaves.values()):
+            return _mesh_step(loss_fn, opt_cfg, grad_specs_holder or {},
+                              leaves, opt_state, batch)
         loss, metrics = loss_fn(params, batch)
         grads = torch.autograd.grad(loss, list(leaves.values()),
                                     allow_unused=True)
@@ -102,6 +160,121 @@ def make_train_step(loss_fn: Callable, opt_cfg: AdamWConfig):
         return params, opt_state, {"loss": loss.detach(), **stats}
 
     return train_step
+
+
+def _row_groups(batch: dict, mesh):
+    """``[(device, {key: rows}, n_rows)]``: the placed batch's row blocks
+    along its first dimension, each once, in row order, on the first
+    position that holds it."""
+    first = next(iter(batch.values()))
+    if not isinstance(first, Placed):
+        raise ValueError("a step on placed weights takes a placed batch")
+    groups, seen = [], set()
+    for i, pos in enumerate(mesh.positions()):
+        rows = first.sharding.block_slices(first.shape, pos)[0]
+        if (rows.start, rows.stop) in seen:
+            continue
+        seen.add((rows.start, rows.stop))
+        for x in batch.values():
+            if x.sharding.block_slices(x.shape, pos)[0] != rows:
+                raise ValueError("the batch's leaves split their rows "
+                                 "differently")
+        groups.append((mesh.device_at(pos),
+                       {k: x.blocks[i] for k, x in batch.items()},
+                       rows.stop - rows.start))
+    return groups
+
+
+def _mesh_step(loss_fn, opt_cfg, holder, params, opt_state, batch):
+    """:func:`make_train_step` on placed arguments (see there)."""
+    if holder.get("mesh") is None:
+        raise ValueError(
+            "a step on placed arguments needs the cell's abstract_args(mesh) "
+            "first: it fills the step's grad_specs_holder")
+    mesh, specs, template = holder["mesh"], holder["specs"], holder["model"]
+    groups = _row_groups(batch, mesh)
+    total = sum(n for _, _, n in groups)
+    dev0 = groups[0][0]
+    row_grads, loss = [], torch.zeros((), device=dev0)
+    for dev, rows, n in groups:
+        replica = copy.deepcopy(template).to_empty(device=dev)
+        weights = named(replica)
+        with torch.no_grad():
+            for name, w in weights.items():
+                gather_tensor(params[name].blocks, params[name].sharding,
+                              out=w)
+        lo, _ = loss_fn(replica, rows)
+        gs = torch.autograd.grad(lo, list(weights.values()),
+                                 allow_unused=True)
+        row_grads.append((n / total, [torch.zeros_like(w) if g is None
+                                      else g for w, g in zip(
+                                          weights.values(), gs)]))
+        loss = loss + (n / total) * lo.detach().float().to(dev0)
+        del replica, weights, gs, lo
+    # the rows' gradients summed in row order, in f32, cast to the
+    # parameter's dtype and cut to the optimizer's layout
+    grads = {}
+    for i, name in enumerate(params):
+        acc = None
+        for w, gs in row_grads:
+            term = w * gs[i].float().to(dev0)
+            acc = term if acc is None else acc + term
+            gs[i] = None
+        sh = NamedSharding(mesh, specs[name])
+        if sh != opt_state.master[name].sharding:
+            raise ValueError(f"{name}: the gradients' layout {specs[name]} "
+                             "is not the optimizer's")
+        grads[name] = shard_tensor(acc.to(params[name].dtype), sh)
+    del row_grads
+    sq = torch.zeros((), device=dev0)
+    for name, blocks in grads.items():
+        for pos, g in zip(mesh.positions(), blocks):
+            if opt_state.master[name].sharding.replica_id(pos) == 0:
+                sq = sq + (g.float() ** 2).sum().to(dev0)
+    gn = torch.sqrt(sq)
+    step = opt_state.step + 1
+    sc = adamw_scalars(opt_cfg, step, gn)
+    master, m, v = {}, {}, {}
+    for name, p in params.items():
+        ms = opt_state.master[name]
+        decay = len(ms.shape) >= 2
+        if opt_cfg.quantized_state:
+            # a quantized moment's scales span the whole last axis: the
+            # leaf is updated whole on the first device, then cut again
+            mm, vv = ({k: x.gather() for k, x in t[name].items()}
+                      for t in (opt_state.m, opt_state.v))
+            full = adamw_leaf(opt_cfg,
+                              gather_tensor(grads[name], ms.sharding),
+                              ms.gather(), mm, vv, sc, decay)
+            master[name] = Placed(shard_tensor(full[0], ms.sharding),
+                                  ms.sharding)
+            for tree, old, new in ((m, opt_state.m, full[1]),
+                                   (v, opt_state.v, full[2])):
+                tree[name] = {k: Placed(shard_tensor(new[k], x.sharding),
+                                        x.sharding)
+                              for k, x in old[name].items()}
+        else:
+            outs = [adamw_leaf(opt_cfg, g, mb, mm, vv, sc, decay)
+                    for g, mb, mm, vv in zip(
+                        grads[name], ms.blocks, opt_state.m[name].blocks,
+                        opt_state.v[name].blocks)]
+            for tree, k in ((master, 0), (m, 1), (v, 2)):
+                tree[name] = Placed(tuple(o[k] for o in outs), ms.sharding)
+        _write_weights(p, master[name])
+    return (params, AdamWState(step=step, master=master, m=m, v=v),
+            {"loss": loss, "grad_norm": gn, "lr": sc.lr})
+
+
+@torch.no_grad()
+def _write_weights(p: Placed, master: Placed) -> None:
+    """The new master copy, cast, into the weight's blocks in place."""
+    if p.sharding == master.sharding:
+        for blk, mb in zip(p.blocks, master.blocks):
+            blk.copy_(mb)
+        return
+    full = master.gather()
+    for pos, blk in zip(p.sharding.mesh.positions(), p.blocks):
+        blk.copy_(full[p.sharding.block_slices(full.shape, pos)])
 
 
 def abstract_opt_state(opt_cfg: AdamWConfig, params_abs):

@@ -19,10 +19,12 @@ the ``GATConfig`` it makes for a shape, and ``OPT`` its optimizer."""
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 
 from repro_torch.configs import common
+from repro_torch.distributed import sharding as shr
 from repro_torch.models import gnn
 from repro_torch.train.optimizer import AdamWConfig
 
@@ -100,24 +102,46 @@ def build_gnn_cell(cfg_dummy, shape_name: str, *, smoke: bool = False,
     n_graphs = info.get("n_graphs") or 0
     loss = functools.partial(graph_loss, task=task, n_graphs=n_graphs)
 
-    def abstract_args():
+    def abstract_args(mesh=None):
+        """Without a mesh: meta tensors. On a mesh, JAX's specs: the
+        weights replicated, the nodes and edges over every axis where they
+        divide, the graph labels replicated."""
         p_abs = common.abstract_params(gnn.GAT, cfg)
+        o_abs = common.abstract_opt_state(opt_cfg, p_abs)
         n, e = info["n_nodes"], info["n_edges"]
-        b = {"feats": common.sds((n, info["d_feat"]), torch.float32),
-             "src": common.sds((e,), torch.int32),
-             "dst": common.sds((e,), torch.int32)}
+        nd = ed = None  # the node and edge dimensions' axes
+        if mesh is not None:
+            ax = shr.all_axes(mesh)
+            nd = ax if n % _axprod(mesh, ax) == 0 else None
+            ed = ax if e % _axprod(mesh, ax) == 0 else None
+        sds = functools.partial(common.sds, mesh=mesh)
+        b = {"feats": sds((n, info["d_feat"]), torch.float32,
+                          spec=shr.P(nd, None)),
+             "src": sds((e,), torch.int32, spec=shr.P(ed)),
+             "dst": sds((e,), torch.int32, spec=shr.P(ed))}
         if task == "graph":
-            b["graph_ids"] = common.sds((n,), torch.int32)
-            b["graph_labels"] = common.sds((n_graphs,), torch.int32)
+            b["graph_ids"] = sds((n,), torch.int32, spec=shr.P(nd))
+            b["graph_labels"] = sds((n_graphs,), torch.int32, spec=shr.P())
         else:
-            b["labels"] = common.sds((n,), torch.int32)
-            b["mask"] = common.sds((n,), torch.float32)
-        return p_abs, common.abstract_opt_state(opt_cfg, p_abs), b
+            b["labels"] = sds((n,), torch.int32, spec=shr.P(nd))
+            b["mask"] = sds((n,), torch.float32, spec=shr.P(nd))
+        if mesh is None:
+            return p_abs, o_abs, b
+        p_specs = shr.replicated_specs(p_abs)
+        o_specs = shr.opt_state_specs(p_specs, o_abs, p_abs)
+        return (common.with_shardings(p_abs, p_specs, mesh),
+                common.with_shardings(o_abs, o_specs, mesh), b)
 
     return common.CellSpec(
         name=f"gat-cora/{shape_name}", entry="train",
         fn=common.make_train_step(loss, opt_cfg),
-        abstract_args=abstract_args, tokens=info["n_nodes"])
+        abstract_args=abstract_args, tokens=info["n_nodes"], act_axes="all",
+        out_shardings=lambda args: (common.arg_shardings(args[0]),
+                                    common.arg_shardings(args[1]), None))
+
+
+def _axprod(mesh, axes) -> int:
+    return math.prod(mesh.shape[a] for a in axes)
 
 
 SPEC = common.ArchSpec(

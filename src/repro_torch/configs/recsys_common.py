@@ -6,17 +6,21 @@
   serve_bulk     — pointwise scoring, batch 262,144 (offline)
   retrieval_cand — ONE user vs 1,000,000 candidates (broadcast scoring)
 
-JAX row-shards the tables over "model", batch-shards the activations and
-pads the candidate sweep to a multiple of 512 so that it shards over every
-mesh axis; the port has no mesh yet, so a cell's arguments are whole
-tensors on one device and the candidates go unpadded."""
+Embedding tables row-sharded over "model" (they are the memory); MLP heads
+small enough to FSDP or replicate; activations batch-sharded over
+(pod, data): each cell's ``abstract_args(mesh)`` gives JAX's specs. The
+cells' ``fn`` take whole tensors on one device (running them on a mesh is
+a later item), and the candidates go unpadded (JAX pads them to a multiple
+of 512 so that they shard over every mesh axis)."""
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 
 from repro_torch.configs import common
+from repro_torch.distributed import sharding as shr
 from repro_torch.train.optimizer import AdamWConfig
 
 RS_SHAPES = {
@@ -32,6 +36,20 @@ SMOKE_SHAPES = {
     "serve_bulk": dict(batch=64, entry="serve"),
     "retrieval_cand": dict(batch=1, n_candidates=256, entry="retrieval"),
 }
+
+
+def _dp_spec(mesh, batch: int):
+    dp = shr.batch_axes(mesh)
+    total = math.prod(mesh.shape[a] for a in dp)
+    return shr.P(dp if batch % total == 0 else None)
+
+
+def _on_mesh(tree: dict, mesh, first) -> dict:
+    """Each leaf of an abstract batch with its first dimension on ``first``
+    and the rest replicated (JAX's ``P(bspec[0], None)``)."""
+    return {k: common.sds(t.shape, t.dtype, mesh,
+                          shr.P(first, *(None,) * (t.ndim - 1)))
+            for k, t in tree.items()}
 
 
 def make_recsys_arch(
@@ -58,34 +76,66 @@ def make_recsys_arch(
                                  entry=entry)
         params = functools.partial(common.abstract_params, model_fn, cfg)
 
+        def params_shardings(mesh):
+            p_abs = params()
+            return p_abs, shr.lm_param_specs(p_abs, mesh,
+                                             fsdp=shr.batch_axes(mesh),
+                                             stacked=False)
+
         if entry == "train":
             batch = info["batch"]
 
-            def abstract_args():
-                p_abs = params()
-                return (p_abs, common.abstract_opt_state(opt_cfg, p_abs),
-                        batch_abs_fn(cfg, batch))
+            def abstract_args(mesh=None):
+                if mesh is None:
+                    p_abs = params()
+                    return (p_abs, common.abstract_opt_state(opt_cfg, p_abs),
+                            batch_abs_fn(cfg, batch))
+                p_abs, p_specs = params_shardings(mesh)
+                o_abs = common.abstract_opt_state(opt_cfg, p_abs)
+                o_specs = shr.opt_state_specs(p_specs, o_abs, p_abs)
+                return (common.with_shardings(p_abs, p_specs, mesh),
+                        common.with_shardings(o_abs, o_specs, mesh),
+                        _on_mesh(batch_abs_fn(cfg, batch), mesh,
+                                 _dp_spec(mesh, batch)[0]))
 
             return cell(fn=common.make_train_step(loss_fn, opt_cfg),
-                        abstract_args=abstract_args, tokens=batch)
+                        abstract_args=abstract_args, tokens=batch,
+                        out_shardings=lambda args: (
+                            common.arg_shardings(args[0]),
+                            common.arg_shardings(args[1]), None))
 
         if entry == "serve":
             batch = info["batch"]
 
-            def abstract_args():
+            def abstract_args(mesh=None):
                 b = batch_abs_fn(cfg, batch)
                 b.pop("label", None)
                 b.pop("mask_labels", None)
-                return (params(), b)
+                if mesh is None:
+                    return (params(), b)
+                p_abs, p_specs = params_shardings(mesh)
+                return (common.with_shardings(p_abs, p_specs, mesh),
+                        _on_mesh(b, mesh, _dp_spec(mesh, batch)[0]))
 
             return cell(fn=serve_fn, abstract_args=abstract_args,
                         tokens=batch)
 
         n_cand = info["n_candidates"]
-        return cell(fn=retrieval_fn,
-                    abstract_args=lambda: (params(), user_abs_fn(cfg),
-                                           cand_abs_fn(cfg, n_cand)),
-                    tokens=n_cand)
+
+        def abstract_args(mesh=None):
+            user, cand = user_abs_fn(cfg), cand_abs_fn(cfg, n_cand)
+            if mesh is None:
+                return (params(), user, cand)
+            p_abs, p_specs = params_shardings(mesh)
+            m = mesh.shape["model"]
+            return (common.with_shardings(p_abs, p_specs, mesh),
+                    _on_mesh(user, mesh, None),
+                    common.sds(cand.shape, cand.dtype, mesh, shr.P(
+                        "model" if n_cand % m == 0 else None,
+                        *(None,) * (cand.ndim - 1))))
+
+        return cell(fn=retrieval_fn, abstract_args=abstract_args,
+                    tokens=n_cand, act_axes="all")
 
     return common.ArchSpec(
         name=name,
@@ -99,5 +149,5 @@ def make_recsys_arch(
 
 
 def cand_ids_abs(cfg, n_cand: int) -> torch.Tensor:
-    """The 1-D candidate id vector (JAX shards it over "model")."""
+    """The 1-D candidate id vector (sharded over "model" on a mesh)."""
     return common.sds((n_cand,), torch.int32)

@@ -16,13 +16,14 @@ from torch import nn
 
 from repro_torch.core.covertree import FlatCoverTree
 from repro_torch.core.distributed import ShardedIndex
-from repro_torch.distributed.sharding import search_mesh
+from repro_torch.distributed.sharding import P, search_mesh
 from repro_torch.core.vamana import VamanaConfig, VamanaIndex
 from repro_torch.kernels.backend import CorpusView, resolve_device
 from repro_torch.models import gnn
 from repro_torch.models import recsys as R
 from repro_torch.models.transformer import (KVCache, Transformer,
                                             TransformerConfig)
+from repro_torch.train.optimizer import AdamWState
 
 _BY_NAME = {"bfloat16": (np.uint16, torch.bfloat16),
             "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
@@ -274,3 +275,66 @@ def kv_cache_to_numpy(cache: KVCache) -> tuple:
     ``KVCache`` fields (length a 0-d int32)."""
     return (tensor_to_numpy(cache.k), tensor_to_numpy(cache.v),
             np.asarray(tensor_to_numpy(cache.length), np.int32))
+
+
+def _is_moment(node) -> bool:
+    return isinstance(node, dict) and set(node) == {"q", "scale"}
+
+
+def _spec_leaves(tree, prefix: str = "") -> dict:
+    """:func:`_flatten` of a spec pytree: a quantized moment's ``{"q",
+    "scale"}`` pair stays one leaf."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    out = {}
+    for key, val in items:
+        if isinstance(val, (dict, list)) and not _is_moment(val):
+            out.update(_spec_leaves(val, f"{prefix}{key}."))
+        else:
+            out[f"{prefix}{key}"] = val
+    return out
+
+
+def _port_spec(leaf, stacked: bool):
+    if _is_moment(leaf):
+        return {k: _port_spec(v, stacked) for k, v in leaf.items()}
+    parts = tuple(leaf)
+    if stacked:
+        if parts[:1] != (None,):
+            raise ValueError(f"a stacked layer's spec {leaf} splits the "
+                             "layer axis")
+        parts = parts[1:]
+    return P(*parts)
+
+
+def specs_from_jax(spec_tree, cfg: TransformerConfig | None = None):
+    """JAX's spec pytree (``lm_param_specs``, ``opt_state_specs``, or any
+    tree of PartitionSpecs over a parameter pytree) under the port's
+    parameter names, each spec a port :class:`~repro_torch.distributed.
+    sharding.P`. An LM's ``dense_blocks`` / ``moe_blocks`` are stacked on a
+    leading layer axis: their specs lose that axis and go to ``blocks.<i>``
+    for each layer, as :func:`transformer_from_numpy` names them (``cfg``
+    gives the layer counts). An ``AdamWState`` or a ``KVCache`` comes back
+    as the port's, a lone spec as a port ``P``."""
+    if hasattr(spec_tree, "_fields"):  # AdamWState, KVCache
+        fields = [specs_from_jax(v, cfg) for v in spec_tree]
+        if spec_tree._fields == AdamWState._fields:
+            return AdamWState(*fields)
+        if spec_tree._fields == KVCache._fields:
+            return KVCache(*fields)
+        return dict(zip(spec_tree._fields, fields))
+    if not isinstance(spec_tree, dict):
+        return _port_spec(spec_tree, False)
+    stacks = ("dense_blocks", "moe_blocks")
+    out = {n: _port_spec(v, False) for n, v in _spec_leaves(
+        {k: v for k, v in spec_tree.items() if k not in stacks}).items()}
+    if not any(k in spec_tree for k in stacks):
+        return out
+    if cfg is None:
+        raise ValueError("specs_from_jax: a stacked LM tree needs its cfg")
+    for stack, first, count in (
+            ("dense_blocks", 0, cfg.n_dense),
+            ("moe_blocks", cfg.n_dense, cfg.n_layers - cfg.n_dense)):
+        for name, leaf in _spec_leaves(spec_tree.get(stack, {})).items():
+            for i in range(first, first + count):
+                out[f"blocks.{i}.{name}"] = _port_spec(leaf, True)
+    return out

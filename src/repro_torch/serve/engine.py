@@ -258,6 +258,18 @@ class ServeFuture(concurrent.futures.Future):
             pass
 
 
+def _settle(outcomes) -> None:
+    """Resolve each ``(future, result)`` pair, or fail it where the result
+    is an exception. The slot pool calls this after it has published the
+    counters that count these requests, and outside ``_mu``: a done-callback
+    runs here, on the drive thread, and may read ``counters()``."""
+    for fut, out in outcomes:
+        if isinstance(out, BaseException):
+            fut._fail(out)
+        else:
+            fut._resolve(out)
+
+
 @dataclasses.dataclass
 class _Pending:
     """One queued request: (request, future, submit stamp)."""
@@ -480,6 +492,7 @@ class _SlotPool:
         quota-0 rows resolve empty, as they would fault-free."""
         eng = self.eng
         now = time.monotonic()
+        outcomes = []
         for pend, s in valid:
             kk = int(pend.req.k)
             ids = np.asarray(proxy_ids[s, :kk], np.int64)
@@ -491,10 +504,12 @@ class _SlotPool:
                 d_calls=int(d_calls[s]), D_calls=0,
                 queue_ms=(now - pend.t_submit) * 1e3, compute_ms=0.0,
                 degraded=True)
-            pend.future._resolve(SearchResult(ids[ok], dd[ok], stats))
+            outcomes.append((pend.future,
+                             SearchResult(ids[ok], dd[ok], stats)))
         with eng._mu:
             eng._counters.degraded += len(valid)
             eng._counters.completed += len(valid)
+        _settle(outcomes)
 
     def admit(self, prep: _Prepared) -> None:
         """Recycle the group's slots in the resident state and pay the entry
@@ -730,10 +745,11 @@ class _SlotPool:
             return a.proxy_ids, a.proxy_dists
         return ids_all[s], dd_all[s]
 
-    def _resolve_degraded(self, s: int, ids_row, dd_row, *, now,
-                          D_calls: int) -> None:
-        """Resolve slot ``s``'s future with ``degraded=True`` stats. Does not
-        free the slot: callers mark ``early`` and sweep later."""
+    def _degraded_outcome(self, s: int, ids_row, dd_row, *, now,
+                          D_calls: int):
+        """``(future, result)`` of slot ``s`` with ``degraded=True`` stats,
+        for :func:`_settle`. Does not free the slot: callers mark ``early``
+        and sweep later."""
         a = self.active_req[s]
         r = a.pend.req
         kk = int(r.k)
@@ -747,7 +763,7 @@ class _SlotPool:
             compute_ms=(now - a.t_admit) * 1e3,
             slot_occupancy=a.occ_snap, queue_depth=a.depth_snap,
             degraded=True)
-        a.pend.future._resolve(SearchResult(ids[ok], dd[ok], stats))
+        return a.pend.future, SearchResult(ids[ok], dd[ok], stats)
 
     def _pools(self):
         """The resident pools and call counts on the host."""
@@ -778,28 +794,32 @@ class _SlotPool:
         ids_all, dd_all, calls = self._pools()
         degraded = 0
         failed = 0
+        outcomes = []
         for s in np.nonzero(rows)[0]:
             a = self.active_req[s]
             if eng.on_tower_failure == "degrade":
                 ids_row, dd_row = self._degraded_rows(a, s, ids_all, dd_all)
-                self._resolve_degraded(s, ids_row, dd_row, now=now,
-                                       D_calls=int(calls[s]))
+                outcomes.append(self._degraded_outcome(
+                    s, ids_row, dd_row, now=now, D_calls=int(calls[s])))
                 degraded += 1
             else:
-                a.pend.future._fail(DeadlineExceeded(
+                outcomes.append((a.pend.future, DeadlineExceeded(
                     f"deadline {a.pend.req.deadline_ms} ms exceeded "
-                    "mid-flight"))
+                    "mid-flight")))
                 failed += 1
             self.early[s] = True
-        # close the expired rows' frontiers; the other rows are untouched
-        self.state = beam.early_resolve(self.state,
-                                        torch.from_numpy(rows).to(eng.device))
-        with eng._mu:
-            eng._counters.deadline_misses += degraded + failed
-            eng._counters.degraded += degraded
-            eng._counters.completed += degraded
-        if not defer_free:
-            self.sweep_early()
+        try:
+            # close the expired rows' frontiers; the other rows are untouched
+            self.state = beam.early_resolve(
+                self.state, torch.from_numpy(rows).to(eng.device))
+            with eng._mu:
+                eng._counters.deadline_misses += degraded + failed
+                eng._counters.degraded += degraded
+                eng._counters.completed += degraded
+            if not defer_free:
+                self.sweep_early()
+        finally:  # a failed state op still answers the rows marked early
+            _settle(outcomes)
 
     def sweep_early(self) -> None:
         """Free the rows resolved early, now that no wave is in flight."""
@@ -824,20 +844,21 @@ class _SlotPool:
         ids_all, dd_all, calls = self._pools()
         degraded = 0
         failed = 0
+        outcomes = []
         rows = self.occupied & ~self.early
         for s in np.nonzero(rows)[0]:
             a = self.active_req[s]
             if eng.on_tower_failure == "degrade":
                 ids_row, dd_row = self._degraded_rows(a, s, ids_all, dd_all)
-                self._resolve_degraded(s, ids_row, dd_row, now=now,
-                                       D_calls=int(calls[s]))
+                outcomes.append(self._degraded_outcome(
+                    s, ids_row, dd_row, now=now, D_calls=int(calls[s])))
                 degraded += 1
             else:
                 err = TowerFailure(
                     "expensive-tower drain failed; request resolved "
                     "against policy on_tower_failure='fail' (see __cause__)")
                 err.__cause__ = exc
-                a.pend.future._fail(err)
+                outcomes.append((a.pend.future, err))
                 failed += 1
             self.early[s] = True
         self.sweep_early()
@@ -845,6 +866,7 @@ class _SlotPool:
             eng._counters.degraded += degraded
             eng._counters.completed += degraded
             eng._counters.shed += failed
+        _settle(outcomes)
 
     # -------------------------------------------------------------- resolve
     def resolve_finished(self) -> None:
@@ -861,8 +883,8 @@ class _SlotPool:
             return
         ids_all, dd_all, calls = self._pools()
         now = time.monotonic()
-        done = 0
         misses = 0
+        outcomes = []
         for s in np.nonzero(fin)[0]:
             a = self.active_req[s]
             r = a.pend.req
@@ -879,14 +901,14 @@ class _SlotPool:
             if (r.deadline_ms is not None
                     and (now - a.pend.t_submit) * 1e3 > r.deadline_ms):
                 misses += 1  # admitted late: resolve anyway, count the miss
-            a.pend.future._resolve(
-                SearchResult(row_ids[ok], row_dd[ok], stats))
-            done += 1
+            outcomes.append((a.pend.future,
+                             SearchResult(row_ids[ok], row_dd[ok], stats)))
             self.free_slot(s)
         with eng._mu:
-            eng._counters.completed += done
+            eng._counters.completed += len(outcomes)
             eng._counters.deadline_misses += misses
             eng._counters.slot_occupancy = int(self.occupied.sum())
+        _settle(outcomes)
 
     def free_slot(self, s: int) -> None:
         self.occupied[s] = False

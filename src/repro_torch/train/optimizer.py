@@ -128,6 +128,48 @@ def _f32_pow(base: float, step: int) -> torch.Tensor:
         float(step), dtype=torch.float32)
 
 
+class AdamWScalars(NamedTuple):
+    """One step's scalars: the learning rate and the bias corrections (f32
+    0-d tensors on the host) and the clip factor (on the gradients'
+    device)."""
+    lr: torch.Tensor
+    clip: torch.Tensor
+    b1c: torch.Tensor
+    b2c: torch.Tensor
+
+
+def adamw_scalars(cfg: AdamWConfig, step: int,
+                  grad_norm: torch.Tensor) -> AdamWScalars:
+    """The scalars of update ``step`` (counted from 1) for gradients of
+    global norm ``grad_norm``."""
+    return AdamWScalars(
+        lr=lr_schedule(cfg, step),
+        clip=(cfg.grad_clip / grad_norm.clamp(min=1e-9)).clamp(max=1.0),
+        b1c=1 - _f32_pow(cfg.b1, step), b2c=1 - _f32_pow(cfg.b2, step))
+
+
+@torch.no_grad()
+def adamw_leaf(cfg: AdamWConfig, g: torch.Tensor, master: torch.Tensor,
+               m, v, sc: AdamWScalars, decay: bool):
+    """One tensor's update, elementwise: ``(master, m, v)`` after it, the
+    moments in their stored form. ``decay``: the parameter has two or more
+    dimensions (a block of one decays as its whole tensor does)."""
+    is_q = cfg.quantized_state
+    g = g.float() * sc.clip.to(g.device)
+    m_f = _read_moment(m, is_q)
+    v_f = _read_moment(v, is_q)
+    if is_q:  # v stored as sqrt(v): halves the dynamic range the
+        v_f = v_f * v_f  # int8 grid has to span
+    m_new = cfg.b1 * m_f + (1 - cfg.b1) * g
+    v_new = cfg.b2 * v_f + (1 - cfg.b2) * g * g
+    upd = (m_new / sc.b1c) / (torch.sqrt(v_new / sc.b2c) + cfg.eps)
+    wd = cfg.weight_decay * master if decay else 0.0
+    master_new = master - sc.lr * (upd + wd)
+    v_store = torch.sqrt(v_new) if is_q else v_new
+    return (master_new, _write_moment(m_new, is_q),
+            _write_moment(v_store, is_q))
+
+
 def make_adamw(cfg: AdamWConfig):
     """``(init, update)``: ``init(params) -> AdamWState``;
     ``update(grads, state, params) -> (new params, new state, {"grad_norm",
@@ -146,36 +188,20 @@ def make_adamw(cfg: AdamWConfig):
     def update(grads, state: AdamWState, params):
         params, grads = named(params), named(grads)
         step = state.step + 1
-        lr = lr_schedule(cfg, step)
         gn = global_norm(grads)
-        clip = (cfg.grad_clip / gn.clamp(min=1e-9)).clamp(max=1.0)
-        b1c = 1 - _f32_pow(cfg.b1, step)
-        b2c = 1 - _f32_pow(cfg.b2, step)
-        is_q = cfg.quantized_state
+        sc = adamw_scalars(cfg, step, gn)
         out = {}
-        with torch.no_grad():
-            for n, p in params.items():
-                g = grads[n].float() * clip
-                master = state.master[n]
-                m_f = _read_moment(state.m[n], is_q)
-                v_f = _read_moment(state.v[n], is_q)
-                if is_q:  # v stored as sqrt(v): halves the dynamic range the
-                    v_f = v_f * v_f  # int8 grid has to span
-                m_new = cfg.b1 * m_f + (1 - cfg.b1) * g
-                v_new = cfg.b2 * v_f + (1 - cfg.b2) * g * g
-                upd = (m_new / b1c) / (torch.sqrt(v_new / b2c) + cfg.eps)
-                decay = cfg.weight_decay * master if master.ndim >= 2 else 0.0
-                master_new = master - lr * (upd + decay)
-                v_store = torch.sqrt(v_new) if is_q else v_new
-                out[n] = (master_new, _write_moment(m_new, is_q),
-                          _write_moment(v_store, is_q),
-                          master_new.to(p.dtype))
+        for n, p in params.items():
+            master = state.master[n]
+            new = adamw_leaf(cfg, grads[n], master, state.m[n], state.v[n],
+                             sc, master.ndim >= 2)
+            out[n] = (*new, new[0].to(p.dtype))
         new_state = AdamWState(step=step,
                                master={n: o[0] for n, o in out.items()},
                                m={n: o[1] for n, o in out.items()},
                                v={n: o[2] for n, o in out.items()})
         return ({n: o[3] for n, o in out.items()}, new_state,
-                {"grad_norm": gn, "lr": lr})
+                {"grad_norm": gn, "lr": sc.lr})
 
     return init, update
 

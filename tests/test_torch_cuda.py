@@ -1777,3 +1777,134 @@ def test_gnn_train_recomputed_backward_on_card(dev):
         losses.append(m["loss"])
     assert torch.equal(losses[0], want)
     assert float(losses[-1]) < float(losses[0])
+
+
+def _qwen3_cut(dev, n_layers=2):
+    """qwen3-0.6b at full width and in bf16, cut to ``n_layers``, from a
+    seed on the card."""
+    import dataclasses
+
+    from repro_torch.configs import qwen3_0_6b
+    from repro_torch.models import transformer as T
+
+    cfg = dataclasses.replace(qwen3_0_6b.full(), n_layers=n_layers)
+    return cfg, T.init_params(3, cfg, device=dev)
+
+
+@pytest.mark.cuda
+def test_mesh_train_step_on_card(dev):
+    """Phase 18(a) at a 2-layer cut: the train_4k cell on a (2, 2) mesh of
+    ``["cuda:0"] * 4``, batch 2 at 512 positions. Step 0's loss, weights
+    and master copy within 4x the f32 noise of the unsharded step on a
+    copy (the noise: that step with the two rows in the other order);
+    the wgmma forward and backward launches twice the unsharded step's;
+    the blocks' bytes (each element once) the unsharded state's; the
+    master copy and moments bit-equal to AdamW on the two rows' gradients
+    summed in row order."""
+    import copy
+
+    from repro_torch.configs import common, get_arch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optimizer import (AdamWConfig, adamw_leaf,
+                                             adamw_scalars, make_adamw)
+
+    cfg, model = _qwen3_cut(dev)
+    cell = get_arch("qwen3-0.6b").build_cell(cfg, "train_4k")
+    mesh = make_mesh((2, 2), ("data", "model"), [dev] * 4)
+    args = cell.abstract_args(mesh)
+    opt_init = make_adamw(AdamWConfig())[0]
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 513)).astype(np.int32)).to(dev)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous()}
+
+    def unsharded(b):
+        m = copy.deepcopy(model)
+        flash_attention.reset_launches()
+        m, o, met = cell.fn(m, opt_init(m), b)
+        state = {n: p.detach() for n, p in m.named_parameters()}
+        return (float(met["loss"]), state, o, dict(flash_attention.launches))
+
+    rows = []
+    for r in range(2):
+        loss = T.loss_fn(model, {k: v[r:r + 1] for k, v in batch.items()})[0]
+        gs = torch.autograd.grad(loss, list(model.parameters()),
+                                 allow_unused=True)
+        rows.append({n: torch.zeros_like(p) if g is None else g
+                     for (n, p), g in zip(model.named_parameters(), gs)})
+
+    ref = unsharded(batch)
+    noise = unsharded({k: v.flip(0).contiguous() for k, v in batch.items()})
+    pp = sharding.place(model, common.arg_shardings(args[0]))
+    po = sharding.place(opt_init(model), common.arg_shardings(args[1]))
+    pb = sharding.place(batch, common.arg_shardings(args[2]))
+    unique = sum(b.nbytes for tree in (pp, po.master, po.m, po.v)
+                 for x in tree.values() for b in x.unique_blocks())
+    assert unique == sum(p.nbytes for p in model.parameters()) + sum(
+        t.nbytes for f in ("master", "m", "v")
+        for t in getattr(ref[2], f).values())
+    flash_attention.reset_launches()
+    pp, po, met = cell.fn(pp, po, pb)
+    launches = dict(flash_attention.launches)
+
+    def gap(a, b):
+        return max(float((a[n].float() - b[n].float()).abs().max())
+                   for n in b)
+
+    lim = max(4 * abs(noise[0] - ref[0]), 1e-6 * abs(ref[0]))
+    assert abs(float(met["loss"]) - ref[0]) <= lim
+    assert gap(sharding.gather(pp), ref[1]) <= 4 * gap(noise[1], ref[1])
+    assert gap(sharding.gather(po.master), ref[2].master) <= 4 * gap(
+        noise[2].master, ref[2].master)
+    # the data-parallel sum itself: AdamW on the rows' gradients summed in
+    # row order (in f32, cast to bf16) at the step's global norm, bit for
+    # bit (the moments read the gradient, which each row rounds to bf16 on
+    # its own: against the unsharded step they move by more than its noise)
+    sc = adamw_scalars(AdamWConfig(), 1, met["grad_norm"])
+    opt0 = opt_init(model)
+    for name, p in model.named_parameters():
+        g = (0.5 * rows[0][name].float() + 0.5 * rows[1][name].float())
+        want = adamw_leaf(AdamWConfig(), g.to(p.dtype), opt0.master[name],
+                          opt0.m[name], opt0.v[name], sc, p.ndim >= 2)
+        for k, f in enumerate(("master", "m", "v")):
+            assert torch.equal(getattr(po, f)[name].gather(), want[k]), name
+    for k in ("flash_attention_wgmma", "flash_attention_bwd_wgmma"):
+        assert ref[3][k] > 0 and launches[k] == 2 * ref[3][k], k
+
+
+@pytest.mark.cuda
+def test_gpipe_on_card_equals_loop(dev):
+    """Phase 18(b) at a 2-layer cut: qwen3's two full-width blocks as 2
+    stages on ``["cuda:0"] * 2``, 2 microbatches of 1 x 512 embedded
+    tokens, ``remat=True``: the outputs bit-equal to the blocks run on each
+    microbatch in turn, the wgmma forward launched twice a block a
+    microbatch (remat) and the backward once."""
+    from torch import nn
+
+    from repro_torch.distributed.pipeline import gpipe_apply
+    from repro_torch.launch.mesh import make_mesh
+
+    cfg, model = _qwen3_cut(dev)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 1, 512)).astype(np.int32)).to(dev)
+    with torch.no_grad():
+        xm = model.embed_tokens(toks)
+    pos = torch.arange(512, device=dev)
+
+    def stage_fn(blocks, x):
+        for blk in blocks:
+            x = blk(x, pos)[0]
+        return x
+
+    stages = [nn.ModuleList([b]) for b in model.blocks]
+    flash_attention.reset_launches()
+    out = gpipe_apply(stage_fn, stages, xm,
+                      mesh=make_mesh((2,), ("pod",), [dev] * 2), n_micro=2)
+    torch.autograd.grad((out[0].float() ** 2).mean(),
+                        list(model.blocks.parameters()))
+    launches = dict(flash_attention.launches)
+    want = torch.stack([stage_fn(model.blocks, xm[i]) for i in range(2)])
+    assert torch.equal(out[0], want) and torch.equal(out[1], want)
+    assert launches["flash_attention_wgmma"] == 2 * 2 * 2
+    assert launches["flash_attention_bwd_wgmma"] == 2 * 2

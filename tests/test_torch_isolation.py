@@ -176,3 +176,22 @@ def test_registry_entry_points_without_device_raise_on_cpu_host():
         spec.init_params(0, cfg, device="cpu")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         launch_train.main(["--arch", "granite-20b", "--steps", "1"])
+
+
+def test_mesh_entry_points_without_device_raise_on_cpu_host():
+    """A mesh takes the cards unless told otherwise: with no card
+    ``make_host_mesh()`` and ``make_mesh`` without devices raise, and with
+    ``device="cpu"`` (the CPU counts as one device) they build; the
+    training modules import without JAX (above)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible: device=None means the card")
+    from repro_torch.launch import mesh
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mesh.make_host_mesh()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mesh.make_mesh((2, 2), ("data", "model"))
+    assert mesh.make_host_mesh(device="cpu").size == 1
+    assert mesh.make_mesh((1, 1), ("data", "model"), device="cpu").size == 1
+    with pytest.raises(ValueError, match="needs 4 devices"):
+        mesh.make_mesh((2, 2), ("data", "model"), device="cpu")

@@ -466,6 +466,34 @@ def test_sharded_slot_drive_parity(parts97, shards, dedup):
     eng.close(timeout=WAIT)
 
 
+@pytest.mark.parametrize("shards", [1, 2, 4])
+def test_counters_count_a_request_before_it_resolves(parts97, shards):
+    """The slot pool publishes ``completed`` before it resolves the futures
+    it counts: a done-callback, run on the drive thread as each request
+    resolves, reads ``counters().completed`` at least at that request's
+    place in the order of completion. So a caller that holds every result
+    also sees counters that count them."""
+    parts, reqs, _ = parts97
+    eng = (_engine(parts, slots=2) if shards == 1
+           else _sharded(parts, shards, slots=2))
+    seen: list[int] = []
+    mu = threading.Lock()
+
+    def record(_fut):
+        with mu:
+            seen.append(eng.counters().completed)
+
+    futs = [eng.submit(r) for r in reqs]
+    for f in futs:
+        f.add_done_callback(record)
+    for f in futs:
+        f.result(timeout=WAIT)
+    eng.close(timeout=WAIT)
+    assert len(seen) == len(reqs)
+    for place, completed in enumerate(seen, start=1):
+        assert completed >= place, seen
+
+
 @pytest.mark.parametrize("shards", [2, 4])
 def test_sharded_stage2_async_parity(parts97, shards):
     """``tests/test_serve_async.py::test_sharded_stage2_async_parity``: the

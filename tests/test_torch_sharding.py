@@ -448,9 +448,17 @@ def test_port_matches_jax_sharded_engine():
     scatter-gather ``sharded_bimetric_search`` over the port's
     ``build_sharded`` graphs (N=256, S=4) on JAX's (1, 4) data × model mesh
     at a quota below k·S (ids and D calls exact, dists within 1e-5), with
-    JAX's index carried back by ``convert.sharded_index_from_numpy``; and
-    the ring matmuls against JAX's on a 4-device mesh (1e-4). The JAX work
-    runs in threads, so its programs compile concurrently."""
+    JAX's index carried back by ``convert.sharded_index_from_numpy``; the
+    ring matmuls against JAX's on a 4-device mesh (1e-4); training on a
+    mesh: ``gpipe_apply`` at 4 stages from JAX's stacked stage weights
+    (outputs and gradients within 1e-5), ``quantized_psum`` over 4 shards
+    (bit-equal), and qwen3's smoke train cell, JAX's jitted with its
+    ``abstract_args(mesh)`` shardings on a (2, 2) mesh and the port's on
+    ``["cpu"] * 4``: every block of the weights and the optimizer's state
+    at every position bit-equal to JAX's shard there before the step, the
+    loss, the gradients' norm and the new state within 1e-5 (x max) after
+    it. The JAX work runs
+    in threads, so its programs compile concurrently."""
     code = textwrap.dedent("""
         import os
         os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
@@ -594,13 +602,92 @@ def test_port_matches_jax_sharded_engine():
                            out_specs=P("x", None))
             return res, np.asarray(ag(mx, mw)), np.asarray(rs(rx, rw))
 
-        with ThreadPoolExecutor(7) as ex:
+        # training on a mesh
+        from repro.configs import common as jcommon, qwen3_0_6b as jq
+        from repro.distributed import pipeline as jpp
+        from repro.train.compression import quantized_psum as jqpsum
+        from repro.train.optimizer import make_adamw as jadamw
+        from repro_torch import configs as TC
+        from repro_torch.configs import common as tcommon
+        from repro_torch.distributed import pipeline as tpp
+        from repro_torch.distributed import sharding as tshr
+        from repro_torch.launch.mesh import make_mesh as tmake_mesh
+        from repro_torch.train.compression import quantized_psum as tqpsum
+        from repro_torch.train.optimizer import AdamWConfig, make_adamw
+
+        prng = np.random.default_rng(7)
+        pw = (prng.normal(size=(4, 16, 16)) * 0.5).astype(np.float32)
+        pb = (prng.normal(size=(4, 16)) * 0.1).astype(np.float32)
+        pxm = prng.normal(size=(4, 6, 16)).astype(np.float32)
+        qg = prng.normal(size=(4, 3, 300)).astype(np.float32)
+
+        def jax_gpipe():
+            xm_ = make_mesh((4,), ("x",))
+
+            def stage(p_, x_):
+                return jnp.tanh(x_ @ p_["w"] + p_["b"])
+
+            def ploss(sp, x):
+                o = shard_map(
+                    lambda s_, x_: jpp.gpipe_apply(
+                        stage, jax.tree.map(lambda a: a[0], s_), x_,
+                        axis_name="x", n_micro=4),
+                    mesh=xm_, in_specs=(P("x"), P(None)),
+                    out_specs=P(None))(sp, x)
+                return (o ** 2).sum(), o
+
+            sp = {"w": jnp.asarray(pw), "b": jnp.asarray(pb)}
+            (_, o), g = jax.value_and_grad(ploss, has_aux=True)(
+                sp, jnp.asarray(pxm))
+            return np.asarray(o), {k: np.asarray(v) for k, v in g.items()}
+
+        def jax_qpsum():
+            f = shard_map(lambda g_: jqpsum({"g": g_}, "x")["g"],
+                          mesh=make_mesh((4,), ("x",)), in_specs=P("x"),
+                          out_specs=P("x"))
+            return np.asarray(f(jnp.asarray(qg)))
+
+        jspec = jq.SPEC
+        jcfg = jspec.make_config(True)
+        jcell = jspec.cell("train_4k", smoke=True)
+        jmesh = make_mesh((2, 2), ("data", "model"))
+        jargs = jcell.abstract_args(jmesh)
+        jp0 = jspec.init_params(jax.random.PRNGKey(0), jcfg)
+        trng = np.random.default_rng(11)
+        toks = trng.integers(0, jcfg.vocab, (4, 65)).astype(np.int32)
+        nbatch = {"tokens": toks[:, :-1].copy(), "labels": toks[:, 1:].copy()}
+
+        def shards_of(tree):  # each leaf's shards, in row-major order
+            def one(a):
+                by = {s.device: np.asarray(s.data)
+                      for s in a.addressable_shards}
+                return tuple(by[jmesh.devices[pos]]
+                             for pos in np.ndindex(2, 2))
+            return jax.tree.map(one, tree)
+
+        def jax_train():
+            sh = jcommon.arg_shardings(jargs)
+            p0 = jax.device_put(jp0, sh[0])
+            o0 = jax.device_put(jadamw(AdamWConfig())[0](jp0), sh[1])
+            b0 = jax.device_put({k: jnp.asarray(v) for k, v in
+                                 nbatch.items()}, sh[2])
+            before = (shards_of(p0), shards_of(o0))
+            step = jax.jit(jcell.fn, in_shardings=sh,
+                           out_shardings=jcell.out_shardings(jargs))
+            p1, o1, m = jax.block_until_ready(step(p0, o0, b0))
+            return before, jax.tree.map(np.asarray, (p1, o1)), (
+                float(m["loss"]), float(m["grad_norm"]))
+
+        with ThreadPoolExecutor(10) as ex:
             futs = {2: ex.submit(jax_engine, 2), 4: ex.submit(jax_engine, 4),
                     "bimetric": ex.submit(jax_bimetric),
                     ("stepper", 2): ex.submit(jax_stepper, 2),
                     ("stepper", 4): ex.submit(jax_stepper, 4),
                     "cover": ex.submit(jax_cover),
-                    "distributed": ex.submit(jax_distributed)}
+                    "distributed": ex.submit(jax_distributed),
+                    "gpipe": ex.submit(jax_gpipe),
+                    "qpsum": ex.submit(jax_qpsum),
+                    "train": ex.submit(jax_train)}
             want = {k: f.result() for k, f in futs.items()}
 
         for shards in (2, 4):
@@ -667,6 +754,73 @@ def test_port_matches_jax_sharded_engine():
         for got, ref, dense in ((ag[0], jag, mx @ mw), (rs, jrs, rx @ rw)):
             assert np.abs(got.numpy() - ref).max() < 1e-4
             assert np.abs(got.numpy() - dense).max() < 1e-4
+
+        # GPipe from JAX's stacked stage weights
+        pmesh = tmake_mesh((4,), ("pod",), ["cpu"] * 4)
+        sp = [{"w": t(pw[s]).requires_grad_(), "b": t(pb[s]).requires_grad_()}
+              for s in range(4)]
+        out = tpp.gpipe_apply(lambda p_, x_: torch.tanh(x_ @ p_["w"] + p_["b"]),
+                              sp, t(pxm), mesh=pmesh, n_micro=4)
+        grads = torch.autograd.grad((out[0] ** 2).sum(),
+                                    [p_[k] for k in "wb" for p_ in sp])
+        jo, jg = want["gpipe"]
+        assert np.abs(out[0].detach().numpy() - jo).max() <= 1e-5
+        for i, k in enumerate("wb"):
+            got = torch.stack(grads[4 * i:4 * i + 4]).numpy()
+            assert np.abs(got - jg[k]).max() <= 1e-5, k
+        # the int8 all-reduce, bit-equal
+        qout = tqpsum([{"g": t(qg[s])} for s in range(4)])
+        for s in range(4):
+            assert np.array_equal(qout[s]["g"].numpy(),
+                                  want["qpsum"][s]), s
+
+        # qwen3's smoke train cell on a (2, 2) mesh
+        (jp_sh, jo_sh), (jp1, jo1), (jloss, jgn) = want["train"]
+        tspec = TC.get_arch("qwen3-0.6b")
+        tcfg = tspec.make_config(True)
+        tcell = tspec.build_cell(tcfg, "train_4k", smoke=True)
+        tmesh = tmake_mesh((2, 2), ("data", "model"), ["cpu"] * 4)
+        targs = tcell.abstract_args(tmesh)
+        model = convert.transformer_from_numpy(
+            jax.tree.map(np.asarray, jp0), tcfg, device="cpu")
+        tbatch = {k: t(v) for k, v in nbatch.items()}
+        placed = [tshr.place(x, tcommon.arg_shardings(a)) for x, a in zip(
+            (model, make_adamw(AdamWConfig())[0](model), tbatch), targs)]
+
+        def jax_name(n):
+            if n.startswith("blocks."):
+                _, i, rest = n.split(".", 2)
+                return "dense_blocks." + rest, int(i)
+            return n, None
+
+        def same_blocks(tree, jtree):
+            jflat = convert._flatten(jtree)
+            for n, x in tree.items():
+                jn, layer = jax_name(n)
+                for i, blk in enumerate(x.blocks):
+                    ref = jflat[jn][i]
+                    ref = ref if layer is None else ref[layer]
+                    assert np.array_equal(blk.numpy(), ref), (n, i)
+
+        same_blocks(placed[0], jp_sh)
+        for f in ("master", "m", "v"):
+            same_blocks(getattr(placed[1], f), getattr(jo_sh, f))
+        tp1, to1, tm = tcell.fn(*placed)
+        assert abs(float(tm["loss"]) - jloss) <= 1e-5 * abs(jloss)
+        assert abs(float(tm["grad_norm"]) - jgn) <= 1e-5 * jgn
+
+        def close(tree, jtree, what):
+            got = convert._flatten(convert.transformer_to_numpy(
+                {n: x.detach() for n, x in tshr.gather(tree).items()}))
+            ref = convert._flatten(jtree)
+            assert got.keys() == ref.keys(), what
+            top = max(float(np.abs(r).max()) for r in ref.values())
+            gap = max(float(np.abs(got[k] - ref[k]).max()) for k in ref)
+            assert gap <= 1e-5 * top, (what, gap, top)
+
+        close(tp1, jp1, "params")
+        for f in ("master", "m", "v"):
+            close(getattr(to1, f), getattr(jo1, f), f)
         print("PORT_SHARDED_OK")
     """)
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
