@@ -5605,41 +5605,106 @@ def dense_lm_slice(dev, dz, rehearse):
 # phase 18: training on a mesh
 # --------------------------------------------------------------------------
 MESH_NOISE = 4.0  # the mesh against the unsharded step, x the f32 noise
-
-
-def _rows_adamw(rows, opt0, grad_norm, dtypes):
-    """AdamW's first update from ``opt0`` on the data rows' gradients
-    summed as the mesh step sums them: in row order, in f32, each weighted
-    by its share, cast to the parameter's dtype; at the mesh step's global
-    norm. Elementwise, so the mesh's blocks must equal it bit for bit."""
-    from repro_torch.train.optimizer import (AdamWConfig, adamw_leaf,
-                                             adamw_scalars)
-
-    cfg = AdamWConfig()
-    sc = adamw_scalars(cfg, 1, grad_norm)
-    out = {}
-    for name, master in opt0.master.items():
-        acc = None
-        for r in rows:
-            term = (1.0 / len(rows)) * r[name].float()
-            acc = term if acc is None else acc + term
-        out[name] = adamw_leaf(cfg, acc.to(dtypes[name]), master,
-                               opt0.m[name], opt0.v[name], sc,
-                               master.ndim >= 2)
-    return out
+# an f32 step's gradient norm and moments: the noise, or this share of
+# their max (the CPU tests' limit for the mesh step's state)
+MESH_F32_FLOOR = 1e-5
+# the f32 copy's moments, each tensor against its own max: its gradients
+# are sums over 8,192 tokens, which the mesh forms in other groupings than
+# the unsharded kernels
+MESH_F32_MOMENTS = 1e-4
+# the router of an MoE layer where the f32 copy's mesh step routed some
+# (token, slot) assignment to another expert than its unsharded step did
+# (a near-tie of two probabilities, broken by f32's rounding), and the
+# norm whose output it reads: a swap of a token's first two slots moves
+# two experts' top-1 counts, so the aux loss's gradient reaches every
+# token's router logits otherwise
+MESH_F32_FLIPPED_ROUTER = 1e-3
 
 
 def mesh_sizes(rehearse):
-    """Phase 18: qwen3-0.6b (its smoke config in a rehearsal) at train_4k's
-    sequence with the batch cut to 2, 3 steps on a (2, 2) mesh; GPipe over
-    its blocks as 4 stages (2 in a rehearsal), 4 microbatches of 1 row."""
+    """Phase 18: (a) qwen3-0.6b at train_4k's sequence with the batch cut
+    to 2, 3 steps on a (2, 2) mesh; (b) GPipe over its blocks as 4 stages
+    (2 in a rehearsal), 4 microbatches of 1 row; (d) granite-moe-3b-a800m
+    at full width with its depth cut to 4 layers, batch 2 at 4,096, 2
+    steps; (e) BST's train_batch cell (65,536 rows), 2 steps; the two
+    attention kernels at a model shard's heads of (a) and (d). The smoke
+    configs at toy sizes in a rehearsal."""
+    attn = ((("qwen3-0.6b's train_4k, a model shard's heads: 8 over 4 of "
+              "16 over 8", 1, 8, 4, 4096, 128, 128),
+             ("granite-moe-3b-a800m's train_4k, a model shard's heads: 12 "
+              "over 4 of 24 over 8", 1, 12, 4, 4096, 64, 64))
+            if not rehearse else
+            (("qwen3 shard, toy", 1, 2, 1, 64, 32, 32),
+             ("granite-moe shard, toy", 1, 2, 1, 64, 16, 16)))
     return dict(arch="qwen3-0.6b", smoke=rehearse, seed=0, batch=2,
                 seq=64 if rehearse else 4096, steps=3,
-                stages=2 if rehearse else 4, n_micro=4)
+                stages=2 if rehearse else 4, n_micro=4,
+                moe=dict(arch="granite-moe-3b-a800m", layers=4, batch=2,
+                         seq=64 if rehearse else 4096, steps=2),
+                recsys=dict(arch="bst", steps=2, pool=1 << 16),
+                attn=attn)
 
 
 def _max_gap(a: dict, b: dict) -> float:
     return max(float((a[n].float() - b[n].float()).abs().max()) for n in b)
+
+
+def _shares(a: dict, b: dict):
+    """[(share, name, gap, that tensor's max |b|)] of every tensor, its
+    largest gap as a share of its own max |b| (a gap where b is all 0
+    counts as infinite), the largest share first."""
+    out = []
+    for n in b:
+        g = float((a[n].float() - b[n].float()).abs().max())
+        t = float(b[n].float().abs().max())
+        out.append((g / t if t else (math.inf if g else 0.0), n, g, t))
+    return sorted(out, reverse=True)
+
+
+@contextlib.contextmanager
+def _recording_routes():
+    """Within: every ``moe.plan`` call appends its (T, K) expert ids and
+    (T, E) router probabilities, detached, to the yielded list (both the
+    unsharded ``moe_ffn`` and the tensor-parallel ``moe_rows`` route
+    through it)."""
+    from repro_torch.models import moe as M
+
+    seen = []
+    orig = M.plan
+
+    def recording(router, xt, cfg, g, cap):
+        res = orig(router, xt, cfg, g, cap)
+        seen.append((res[3].detach().reshape(-1, cfg.top_k).clone(),
+                     res[1].detach().reshape(-1, cfg.n_experts).clone()))
+        return res
+
+    M.plan = recording
+    try:
+        yield seen
+    finally:
+        M.plan = orig
+
+
+def _route_flips(unsharded, mesh, routers, n_rows):
+    """Each MoE layer's routing in a step's forward, the mesh's against the
+    unsharded step's: ``unsharded`` holds the forward's calls first (one a
+    layer), ``mesh`` one a data row a layer, rows in batch order.
+    {router name: (token, slot) assignments whose expert differs, tokens
+    whose set of experts differs, the largest gap of the unsharded step's
+    probabilities between the two experts of a differing assignment,
+    tokens whose top-1 expert differs}."""
+    out = {}
+    for i, name in enumerate(routers):
+        ue, up = unsharded[i]
+        me = torch.cat([mesh[i * n_rows + r][0] for r in range(n_rows)])
+        diff = ue != me
+        sets = (ue.sort(-1).values != me.sort(-1).values).any(-1)
+        gap = ((up.gather(1, ue) - up.gather(1, me)).abs()[diff]
+               if diff.any() else torch.zeros(1))
+        out[name] = dict(assignments=int(diff.sum()), tokens=int(sets.sum()),
+                         prob_gap=float(gap.max()),
+                         top1=int((ue[:, 0] != me[:, 0]).sum()))
+    return out
 
 
 def _named_detached(model) -> dict:
@@ -5663,55 +5728,110 @@ def _sharded_bytes(tree_list, mesh):
     return at, unique, sum(at)
 
 
-def mesh_train(dev, mz, rehearse):
-    """(a) the train cell on a (data 2, model 2) mesh of one device."""
-    import copy
+@contextlib.contextmanager
+def _attention_shapes():
+    """Within: the (q, k) shapes of every ``flash_attention`` call the
+    models' attention makes (``layers.blockwise_attention``), appended to
+    the yielded list."""
+    from repro_torch.models import layers
 
-    from repro_torch.configs import common, get_arch
-    from repro_torch.distributed import sharding as shr
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models import transformer as T
-    from repro_torch.train.optimizer import AdamWConfig, make_adamw
+    seen = []
+    orig = layers.flash_attention
 
-    spec = get_arch(mz["arch"])
-    cfg = spec.make_config(mz["smoke"])
-    cell = spec.build_cell(cfg, "train_4k", smoke=mz["smoke"])
-    mesh = make_mesh((2, 2), ("data", "model"), [dev] * 4)
-    args = cell.abstract_args(mesh)
-    opt_init = make_adamw(AdamWConfig())[0]  # qwen3's SPEC: AdamWConfig()
-    out = dict(arch=mz["arch"], layers=cfg.n_layers, batch=mz["batch"],
-               seq=mz["seq"], steps=mz["steps"], mesh=str(mesh))
-    if dev.type == "cuda":
-        out["memory_allocated_at_start"] = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-    model = T.init_params(mz["seed"], cfg, device=dev)
-    rng = np.random.default_rng(mz["seed"])
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (
-        mz["batch"], mz["seq"] + 1)).astype(np.int32)).to(dev)
-    batch = {"tokens": toks[:, :-1].contiguous(),
-             "labels": toks[:, 1:].contiguous()}
-    swapped = {k: v.flip(0).contiguous() for k, v in batch.items()}
+    def recording(q, k, v, **kw):
+        seen.append((tuple(q.shape), tuple(k.shape)))
+        return orig(q, k, v, **kw)
 
-    # each data row's step-0 gradients, as its copy of the weights gives
-    # them: (c)'s input
+    layers.flash_attention = recording
+    try:
+        yield seen
+    finally:
+        layers.flash_attention = orig
+
+
+def _row_grads(model, batch, row_loss):
+    """Each data row's (half the batch's) gradients of its own loss."""
+    half = next(iter(batch.values())).shape[0] // 2
     rows = []
-    for r in range(mz["batch"]):
-        loss_r, _ = T.loss_fn(model, {k: v[r:r + 1] for k, v in
-                                      batch.items()})
-        gs = torch.autograd.grad(loss_r, list(model.parameters()),
+    for r in range(2):
+        lo = row_loss(model, {k: v[r * half:(r + 1) * half]
+                              for k, v in batch.items()})[0]
+        gs = torch.autograd.grad(lo, list(model.parameters()),
                                  allow_unused=True)  # embed_head: unused
         rows.append({n: torch.zeros_like(p) if g is None else g
                      for (n, p), g in zip(model.named_parameters(), gs)})
-        del loss_r, gs
+        del lo, gs
+    return rows
 
-    # the unsharded step on copies: the reference, and the noise (the two
-    # rows in the other order)
-    def unsharded(b, steps):
-        m = copy.deepcopy(model)
+
+def _run_gaps(run, ref):
+    """The gaps of one unsharded step's (loss, weights, state, gradient
+    norm) from another's."""
+    gaps = dict(loss=abs(run[0] - ref[0]), grad_norm=abs(run[3] - ref[3]),
+                params=_max_gap(run[1], ref[1]))
+    for f in ("master", "m", "v"):
+        gaps[f] = _max_gap(getattr(run[2], f), getattr(ref[2], f))
+    return gaps
+
+
+def _f32_limits(what, gap, noise, top, keys):
+    """f32 steps: each of ``keys`` within MESH_NOISE x its noise, or 1e-6
+    of the loss / MESH_F32_FLOOR of the others' max."""
+    for k in keys:
+        floor = 1e-6 if k == "loss" else MESH_F32_FLOOR
+        lim = max(MESH_NOISE * noise[k], floor * top[k])
+        require(gap[k] <= lim, f"{what}: step 0's {k}: mesh vs unsharded "
+                f"{gap[k]:.3e}, limit {lim:.3e} (noise {noise[k]:.3e})")
+
+
+def _mesh_vs_unsharded(dev, what, cell, model, batch, mz, opt_cfg,
+                       rehearse, cell32=None):
+    """``cell`` (a train cell) on a (data 2, model 2) mesh of one device
+    against its unsharded step on copies of ``model``, ``mz["steps"]``
+    steps each: step 0's loss, gradient norm, weights, master copy and
+    moments against the unsharded step's and its noise (that step with the
+    batch's two halves in the other order); the blocks' shapes and bytes;
+    step times, launches by route and the attention's shapes over the
+    mesh's steps, counted from 0.
+
+    Limits: the weights and master copy within MESH_NOISE x the noise (PR
+    30's; with f32 weights plus two learning-rate steps: at step 1 AdamW
+    moves each element by lr times its gradient's sign). With 16-bit
+    weights the tensor-parallel products round in other places than the
+    unsharded ones (other GEMM shapes), so first an f32 copy of the model
+    runs one step on the mesh (``cell32``, the same cell of the f32
+    config) against its own unsharded step at the f32 limits below, each
+    of its moment tensors within MESH_F32_MOMENTS of its own max (a
+    router whose layer the mesh routed otherwise, counted by
+    :func:`_route_flips`, and the norm it reads, within
+    MESH_F32_FLIPPED_ROUTER); then
+    the 16-bit mesh step's loss and moments are held no
+    further from that f32 step than MESH_NOISE x the unsharded 16-bit step
+    is (the loss plus 1e-6 of it). With f32 weights the loss, the gradient
+    norm and the moments within MESH_NOISE x the noise or the same
+    floors. (out, step 0's metrics)."""
+    import copy
+
+    from repro_torch.configs import common
+    from repro_torch.distributed import sharding as shr
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.optimizer import adamw_scalars, make_adamw
+
+    mesh = make_mesh((2, 2), ("data", "model"), [dev] * 4)
+    args = cell.abstract_args(mesh)
+    opt_init = make_adamw(opt_cfg)[0]
+    steps = mz["steps"]
+    out = dict(mesh=str(mesh), steps=steps)
+    half16 = any(p.dtype != torch.float32 for p in model.parameters())
+    half = next(iter(batch.values())).shape[0] // 2
+    swapped = {k: torch.cat([v[half:], v[:half]]) for k, v in batch.items()}
+
+    def unsharded(b, n_steps, src=model):
+        m = copy.deepcopy(src)
         o = opt_init(m)
         first, times, counts = None, [], []
-        for i in range(steps):
+        for i in range(n_steps):
             fa.reset_launches()
             t0 = time.perf_counter()
             m, o, met = cell.fn(m, o, b)
@@ -5726,18 +5846,73 @@ def mesh_train(dev, mz, rehearse):
         del m, o
         return first, times, counts
 
-    ref, ref_times, ref_counts = unsharded(batch, mz["steps"])
+    ref, ref_times, ref_counts = unsharded(batch, steps)
     noise_run, _, _ = unsharded(swapped, 1)
-    noise = dict(loss=abs(noise_run[0] - ref[0]),
-                 grad_norm=abs(noise_run[3] - ref[3]),
-                 params=_max_gap(noise_run[1], ref[1]))
+    noise = _run_gaps(noise_run, ref)
     top = dict(loss=abs(ref[0]), grad_norm=ref[3], params=max(
         float(t.float().abs().max()) for t in ref[1].values()))
     for f in ("master", "m", "v"):
-        noise[f] = _max_gap(getattr(noise_run[2], f), getattr(ref[2], f))
         top[f] = max(float(t.abs().max())
                      for t in getattr(ref[2], f).values())
     del noise_run
+    if half16:
+        # an f32 copy: its mesh step against its unsharded step at f32's
+        # limits, then its unsharded step is the 16-bit steps' yardstick
+        m32 = _cut_copy(model, model.cfg.n_layers, dev, dtype=torch.float32)
+        with _recording_routes() as f32_routes:
+            f32_run, _, _ = unsharded(batch, 1, src=m32)
+        noise_f32 = _run_gaps(unsharded(swapped, 1, src=m32)[0], f32_run)
+        args32 = cell32.abstract_args(mesh)
+        routers = [n for n, _ in m32.named_parameters()
+                   if n.endswith("moe.router")]
+        with _recording_routes() as mesh_routes:
+            pp32, po32, met32 = cell32.fn(
+                *(shr.place(x, common.arg_shardings(a)) for x, a in zip(
+                    (m32, opt_init(m32), batch), args32)))
+        del m32
+        flips = _route_flips(f32_routes, mesh_routes, routers, 2)
+        del mesh_routes, f32_routes
+        gap_f32 = dict(loss=abs(float(met32["loss"]) - f32_run[0]),
+                       grad_norm=abs(float(met32["grad_norm"]) - f32_run[3]),
+                       params=_max_gap(shr.gather(pp32), f32_run[1]))
+        top_f32 = dict(loss=abs(f32_run[0]), grad_norm=f32_run[3],
+                       params=max(float(t.abs().max())
+                                  for t in f32_run[1].values()))
+        for f in ("master", "m", "v"):
+            gap_f32[f] = _max_gap(shr.gather(getattr(po32, f)),
+                                  getattr(f32_run[2], f))
+            top_f32[f] = max(float(t.abs().max())
+                             for t in getattr(f32_run[2], f).values())
+        shares = {f: _shares(shr.gather(getattr(po32, f)),
+                             getattr(f32_run[2], f)) for f in ("m", "v")}
+        del pp32, po32, met32
+        out.update(f32_mesh_gap=gap_f32, f32_noise=noise_f32,
+                   f32_max_abs=top_f32, f32_route_flips=flips,
+                   f32_moment_shares={f: x[:6] for f, x in shares.items()})
+        log(f"  {what} an f32 copy, its mesh step vs its unsharded step: "
+            f"{json.dumps(gap_f32)}; noise {json.dumps(noise_f32)}; max |x| "
+            f"{json.dumps(top_f32)}; each MoE layer's routing, the mesh's "
+            f"assignments to another expert {json.dumps(flips)}; m's and "
+            f"v's largest gaps of a tensor's own max (share, name, gap, its "
+            f"max) {json.dumps(out['f32_moment_shares'])}")
+        relaxed = {}
+        for name, fl in flips.items():
+            if fl["assignments"]:
+                relaxed[name] = relaxed[name.replace("moe.router", "ln2")] = fl
+        for f, rows in shares.items():
+            for _, name, g, t_max in rows:
+                k = (MESH_F32_FLIPPED_ROUTER if name in relaxed
+                     else MESH_F32_MOMENTS)
+                require(g <= k * t_max, f"{what} the f32 copy: step 0's {f} "
+                        f"of {name}: mesh vs unsharded {g:.3e}, limit {k} x "
+                        f"its max {t_max:.3e} (routing: {relaxed.get(name)})")
+        _f32_limits(f"{what} the f32 copy", gap_f32, noise_f32, top_f32,
+                    ("loss", "grad_norm", "params", "master"))
+        f32 = dict(loss=f32_run[0], m=f32_run[2].m, v=f32_run[2].v)
+        del f32_run
+        dist = dict(loss=abs(ref[0] - f32["loss"]),
+                    m=_max_gap(ref[2].m, f32["m"]),
+                    v=_max_gap(ref[2].v, f32["v"]))
 
     # placed by abstract_args(mesh)'s shardings
     pp = shr.place(model, common.arg_shardings(args[0]))
@@ -5747,82 +5922,307 @@ def mesh_train(dev, mz, rehearse):
         tuple(b.shape) == x.sharding.block_shape(x.shape)
         for tree in (pp, po.master, po.m, po.v) for x in tree.values()
         for b in x.blocks)
-    require(blocks_ok, "(a) a block's shape is not its spec's")
+    require(blocks_ok, f"{what}: a block's shape is not its spec's")
     at, unique, with_replicas = _sharded_bytes([pp, po], mesh)
     whole = sum(p.nbytes for p in model.parameters()) + sum(
         t.nbytes for f in ("master", "m", "v")
         for t in getattr(ref[2], f).values())
-    require(unique == whole, f"(a) the blocks hold {unique:,} bytes, the "
-            f"unsharded state {whole:,}")
+    require(unique == whole, f"{what}: the blocks hold {unique:,} bytes, "
+            f"the unsharded state {whole:,}")
     out.update(bytes_at_position=at, bytes_unique=unique,
                bytes_with_replicas=with_replicas, bytes_unsharded=whole)
 
-    # three steps on the mesh, launches counted from 0
+    # the mesh's steps, launches counted from 0
     fa.reset_launches()
     losses, times = [], []
-    for i in range(mz["steps"]):
-        t0 = time.perf_counter()
-        pp, po, met = cell.fn(pp, po, pb)
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        losses.append(float(met["loss"]))
-        if i == 0:
-            gap = dict(loss=abs(losses[0] - ref[0]),
-                       grad_norm=abs(float(met["grad_norm"]) - ref[3]),
-                       params=_max_gap(shr.gather(pp), ref[1]))
-            for f in ("master", "m", "v"):
-                gap[f] = _max_gap(shr.gather(getattr(po, f)),
-                                  getattr(ref[2], f))
-            # the data-parallel sum itself: the state is AdamW on the rows'
-            # gradients summed in row order, bit for bit
-            want = _rows_adamw(rows, opt_init(model), met["grad_norm"],
-                               {n: p.dtype for n, p in
-                                model.named_parameters()})
-            exact = True
-            for k, f in enumerate(("master", "m", "v")):
-                got = shr.gather(getattr(po, f))
-                exact &= all(torch.equal(got[n], want[n][k]) for n in want)
-                del got
-            del want
+    with _attention_shapes() as shapes:
+        for i in range(steps):
+            t0 = time.perf_counter()
+            pp, po, met = cell.fn(pp, po, pb)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(met["loss"]))
+            if i == 0:
+                met0 = {k: v for k, v in met.items()}
+                gap = dict(loss=abs(losses[0] - ref[0]),
+                           grad_norm=abs(float(met["grad_norm"]) - ref[3]),
+                           params=_max_gap(shr.gather(pp), ref[1]))
+                for f in ("master", "m", "v"):
+                    gap[f] = _max_gap(shr.gather(getattr(po, f)),
+                                      getattr(ref[2], f))
+                if half16:
+                    gap32 = dict(loss=abs(losses[0] - f32["loss"]),
+                                 m=_max_gap(shr.gather(po.m), f32["m"]),
+                                 v=_max_gap(shr.gather(po.v), f32["v"]))
     launches = dict(fa.launches)  # read just after the path
+    lr1 = float(adamw_scalars(opt_cfg, 1, torch.tensor(1.0)).lr)
     out.update(losses=losses, ref_loss=ref[0], gap=gap, noise=noise,
-               max_abs=top, rows_sum_exact=exact, step_ms=[1e3 * t for t in times],
+               max_abs=top, step_ms=[1e3 * t for t in times],
                unsharded_step_ms=[1e3 * t for t in ref_times],
-               launches=launches, unsharded_launches_per_step=ref_counts[-1])
-    log(f"  (a) {cfg.n_layers} layers on {mesh}: losses "
-        f"{json.dumps(losses)}; step 0 vs unsharded {json.dumps(gap)}, "
-        f"f32 noise {json.dumps(noise)}, max |x| {json.dumps(top)}; the "
-        f"state = AdamW on the rows' summed gradients bit for bit: {exact}")
-    for k in ("loss", "params", "master"):
-        lim = MESH_NOISE * noise[k]
-        if k == "loss":  # a sum's order may not move a loss at all
-            lim = max(lim, 1e-6 * abs(ref[0]))
-        require(gap[k] <= lim, f"(a) step 0's {k}: mesh vs unsharded "
-                f"{gap[k]:.3e}, limit {lim:.3e} (f32 noise {noise[k]:.3e})")
-    require(exact, "(a) step 0's master copy and moments are not AdamW's "
-            "on the data rows' gradients summed in row order")
-    require(all(math.isfinite(x) for x in losses), "(a) a loss is not finite")
-    if not rehearse:
-        per = ref_counts[-1]
-        for k in ("flash_attention_wgmma", "flash_attention_bwd_wgmma"):
-            require(per[k] > 0 and launches[k] == 2 * per[k] * mz["steps"],
-                    f"(a) {k}: {launches[k]} launches in {mz['steps']} "
-                    f"steps, the unsharded step {per[k]} a step")
-        require(launches["flash_attention_simt"] == 0
-                and launches["flash_attention_bwd"]
-                == launches["flash_attention_bwd_wgmma"],
-                f"(a) a launch off the wgmma route: {launches}")
+               launches=launches, unsharded_launches_per_step=ref_counts[-1],
+               attention_shapes=sorted({str(x) for x in shapes}), lr_step1=lr1)
+    log(f"  {what}: losses {json.dumps(losses)}; step 0 vs unsharded "
+        f"{json.dumps(gap)}, noise {json.dumps(noise)}, max |x| "
+        f"{json.dumps(top)}")
+    for k in ("params", "master"):
+        lim = MESH_NOISE * noise[k] + (0.0 if half16 else 2 * lr1)
+        require(gap[k] <= lim, f"{what}: step 0's {k}: mesh vs unsharded "
+                f"{gap[k]:.3e}, limit {lim:.3e} (noise {noise[k]:.3e})")
+    if half16:
+        out.update(f32_loss=f32["loss"], unsharded_from_f32=dist,
+                   mesh_from_f32=gap32)
+        log(f"      from the f32 copy's step: the mesh step "
+            f"{json.dumps(gap32)}, the unsharded step {json.dumps(dist)}")
+        for k in ("loss", "m", "v"):
+            lim = MESH_NOISE * dist[k] + (1e-6 * top[k] if k == "loss"
+                                          else 0.0)
+            require(gap32[k] <= lim, f"{what}: step 0's {k} is {gap32[k]:.3e}"
+                    f" from the f32 step's, limit {lim:.3e} (the unsharded "
+                    f"step's {dist[k]:.3e})")
+        del f32
+    else:
+        _f32_limits(what, gap, noise, top, ("loss", "grad_norm", "m", "v"))
+    require(all(math.isfinite(x) for x in losses),
+            f"{what}: a loss is not finite")
+    if dev.type == "cuda":
         out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
     log(f"      step ms {json.dumps([round(x, 3) for x in out['step_ms']])} "
         f"beside the unsharded "
         f"{json.dumps([round(x, 3) for x in out['unsharded_step_ms']])}; "
-        f"launches {launches} (unsharded a step {ref_counts[-1]})")
+        f"launches {launches} (unsharded a step {ref_counts[-1]}); attention "
+        f"shapes (q, k) {out['attention_shapes']}")
     log(f"      bytes at each position {at}; each element once {unique:,} "
         f"= unsharded {whole:,}; with replicas {with_replicas:,}; "
         f"max_memory_allocated {out.get('max_memory_allocated')}")
     del pp, po, pb, ref
+    return out, met0
+
+
+def _require_shard_launches(what, out, heads, rehearse):
+    """The wgmma forward and backward launched R x M = 4 times the
+    unsharded step's a step, on the route's counters only, and every
+    attention call at a model shard's (B_row, H / 2, S, dh) query heads
+    with k and v repeated to them."""
+    if rehearse:
+        return
+    per, launches, steps = (out["unsharded_launches_per_step"],
+                            out["launches"], out["steps"])
+    for k in ("flash_attention_wgmma", "flash_attention_bwd_wgmma"):
+        require(per[k] > 0 and launches[k] == 4 * per[k] * steps,
+                f"{what}: {k}: {launches[k]} launches in {steps} steps, the "
+                f"unsharded step {per[k]} a step")
+    require(launches["flash_attention_simt"] == 0
+            and launches["flash_attention_bwd"]
+            == launches["flash_attention_bwd_wgmma"],
+            f"{what}: a launch off the wgmma route: {launches}")
+    require(out["attention_shapes"] == [str((heads, heads))],
+            f"{what}: attention at {out['attention_shapes']}, a shard's "
+            f"heads are {heads}")
+
+
+def mesh_train(dev, mz, rehearse):
+    """(a) qwen3-0.6b's train cell on a (data 2, model 2) mesh of one
+    device: the tensor-parallel step against the unsharded step."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optimizer import AdamWConfig
+
+    spec = get_arch(mz["arch"])
+    cfg = spec.make_config(mz["smoke"])
+    cell = spec.build_cell(cfg, "train_4k", smoke=mz["smoke"])
+    cell32 = spec.build_cell(dataclasses.replace(cfg, dtype=torch.float32),
+                             "train_4k", smoke=mz["smoke"])
+    if dev.type == "cuda":
+        start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    model = T.init_params(mz["seed"], cfg, device=dev)
+    rng = np.random.default_rng(mz["seed"])
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (
+        mz["batch"], mz["seq"] + 1)).astype(np.int32)).to(dev)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous()}
+    # each data row's step-0 gradients: (c)'s input
+    rows = _row_grads(model, batch, T.loss_fn)
+    out, _ = _mesh_vs_unsharded(dev, "(a)", cell, model, batch, mz,
+                                AdamWConfig(), rehearse, cell32)
+    out.update(arch=mz["arch"], layers=cfg.n_layers, batch=mz["batch"],
+               seq=mz["seq"])
+    if dev.type == "cuda":
+        out["memory_allocated_at_start"] = start
+    heads = (mz["batch"] // 2, cfg.n_heads // 2, mz["seq"], cfg.head_dim)
+    _require_shard_launches("(a)", out, heads, rehearse)
     return out, model, rows
+
+
+def mesh_moe(dev, mz, rehearse):
+    """(d) granite-moe-3b-a800m at full width, depth cut to
+    ``mz["moe"]["layers"]`` (its smoke config in a rehearsal), on the
+    (2, 2) mesh against its unsharded step; the MoE's routing layout the
+    global batch's (32 groups of 256 tokens at capacity 64 at full size),
+    the aux loss and each layer's dropped assignments against the
+    unsharded forward's."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
+    from repro_torch.train.optimizer import AdamWConfig
+
+    mm = mz["moe"]
+    spec = get_arch(mm["arch"])
+    cfg = dataclasses.replace(spec.make_config(mz["smoke"]),
+                              n_layers=mm["layers"])
+    cell = spec.build_cell(cfg, "train_4k", smoke=mz["smoke"])
+    cell32 = spec.build_cell(dataclasses.replace(cfg, dtype=torch.float32),
+                             "train_4k", smoke=mz["smoke"])
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+    model = T.init_params(mz["seed"], cfg, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(mz["seed"] + 2)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (
+        mm["batch"], mm["seq"] + 1)).astype(np.int32)).to(dev)
+    batch = {"tokens": toks[:, :-1].contiguous(),
+             "labels": toks[:, 1:].contiguous()}
+    mc = cfg.moe_cfg()
+    n_tok = mm["batch"] * mm["seq"]
+    g = MOE.n_groups(mc, n_tok)
+    layout = dict(groups=g, group_tokens=n_tok // g,
+                  capacity=MOE.capacity(mc, n_tok // g),
+                  row_groups_capacity=MOE.row_layout(mc, n_tok, 2))
+    if not mz["smoke"]:
+        require((g, n_tok // g, layout["capacity"]) == (32, 256, 64)
+                and layout["row_groups_capacity"] == (16, 64),
+                f"(d) the routing layout {layout}")
+    def forward_stats(m):
+        with torch.no_grad(), _counting_drops() as counts:
+            _, fwd = T.loss_fn(m, batch)
+        return float(fwd["aux"]), [int(c) for c, _ in counts], counts[0][1]
+
+    ref_aux, ref_drop, assignments = forward_stats(model)
+    m32 = _cut_copy(model, cfg.n_layers, dev, dtype=torch.float32)
+    aux32, drop32, _ = forward_stats(m32)
+    del m32
+    out, met0 = _mesh_vs_unsharded(dev, "(d)", cell, model, batch, mm,
+                                   AdamWConfig(), rehearse, cell32)
+    drop = [int(x) for x in met0["dropped"]]
+    aux = float(met0["aux"])
+    out.update(arch=mm["arch"], layers=cfg.n_layers, batch=mm["batch"],
+               seq=mm["seq"], params=n_params, layout=layout, aux=aux,
+               ref_aux=ref_aux, f32_aux=aux32, dropped=drop,
+               ref_dropped=ref_drop, f32_dropped=drop32,
+               assignments_a_layer=assignments,
+               dropped_equal=drop == ref_drop)
+    if dev.type == "cuda":
+        out["memory_allocated_at_start"] = start
+    log(f"      routing {json.dumps(layout)}; aux {aux!r} (the unsharded "
+        f"forward's {ref_aux!r}, its f32 copy's {aux32!r}); dropped a layer "
+        f"{drop} (unsharded {ref_drop}, f32 {drop32}) of {assignments}")
+    # the aux as the losses: no further from the f32 copy's than MESH_NOISE
+    # x the unsharded 16-bit forward is, plus MOE_LOSS_RTOL of it
+    lim = MESH_NOISE * abs(ref_aux - aux32) + MOE_LOSS_RTOL * abs(aux32)
+    require(abs(aux - aux32) <= lim, f"(d) aux {aux!r} is "
+            f"{abs(aux - aux32):.3e} from the f32 copy's {aux32!r}, limit "
+            f"{lim:.3e} (the unsharded forward's {ref_aux!r})")
+    require(len(drop) == len(ref_drop) and all(
+        abs(a - b) <= 1e-3 * assignments for a, b in zip(drop, ref_drop)),
+        f"(d) dropped {drop} against the unsharded forward's {ref_drop}")
+    heads = (mm["batch"] // 2, cfg.n_heads // 2, mm["seq"], cfg.head_dim)
+    _require_shard_launches("(d)", out, heads, rehearse)
+    del model, batch
+    return out
+
+
+def mesh_recsys(dev, mz, rehearse):
+    """(e) BST's train_batch cell at full size (its smoke cell in a
+    rehearsal) on the (2, 2) mesh against its unsharded step: each data
+    row through a copy of the model ("model" shards the storage)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import recsys as R
+    from repro_torch.train.optimizer import AdamWConfig
+
+    rz = mz["recsys"]
+    spec = get_arch(rz["arch"])
+    cfg = spec.make_config(mz["smoke"])
+    cell = spec.build_cell(cfg, "train_batch", smoke=mz["smoke"])
+    b = cell.abstract_args()[2]["label"].shape[0]
+    model = R.bst_init(torch.Generator(device=dev).manual_seed(mz["seed"]),
+                       cfg)
+    g = torch.Generator(device=dev).manual_seed(mz["seed"] + 3)
+    batch = _rs_batch(rz["arch"], cfg, b, g, dev, min(rz["pool"], cfg.vocab))
+    out, _ = _mesh_vs_unsharded(dev, "(e)", cell, model, batch, rz,
+                                AdamWConfig(weight_decay=0.0), rehearse)
+    out.update(arch=rz["arch"], batch=b)
+    if not rehearse:
+        require(out["launches"]["flash_attention_simt"] > 0
+                and out["launches"]["flash_attention_bwd_simt"] > 0,
+                f"(e) BST's attention did not launch: {out['launches']}")
+    del model, batch
+    return out
+
+
+def mesh_attention_rows(dev, mz, rehearse):
+    """The attention kernels at a model shard's heads of (a) and (d)
+    (bf16, causal, k and v repeated to the shard's query heads as
+    ``blockwise_attention`` copies them): the forward through
+    :func:`attention_kernel_rows`; the backward (``wgmma``, given the
+    forward's log-sum-exp) against its plain version within BWD_TOL, bit-
+    equal twice, timed beside its bound, the plain version and SDPA's
+    backward alone. (forward rows, backward rows)."""
+    from repro_torch.kernels import flash_attention as fa
+
+    fwd = attention_kernel_rows(dev, dict(attn=mz["attn"], decode=()),
+                                rehearse)
+    g = torch.Generator(device=dev).manual_seed(37)
+    bwd = []
+    for role, b, h, hkv, s, dh, dv in mz["attn"]:
+        q, k, v = _attn_inputs(g, dev, b, h, s, s, dh, dv, BF16)
+        dout = torch.randn(b, h, s, dv, generator=g, device=dev).to(BF16)
+        with torch.inference_mode():
+            o, lse = fa.flash_attention_lse(q, k, v, causal=True)
+        before = fa.launches["flash_attention_bwd_wgmma"]
+        got = fa.flash_attention_bwd(q, k, v, o, dout, causal=True, lse=lse)
+        want = fa.flash_attention_bwd_plain(q, k, v, o, dout, causal=True)
+        require(rehearse or fa.launches["flash_attention_bwd_wgmma"]
+                == before + 1, f"{role}: the wgmma backward not launched")
+        err = 0.0
+        for x, w, name in zip(got, want, ("dq", "dk", "dv")):
+            e = float((x.float() - w.float()).abs().max())
+            require(e <= BWD_TOL[BF16] * float(w.float().abs().max()),
+                    f"{role}: {name} max err {e:.3e}")
+            err = max(err, e)
+        again = fa.flash_attention_bwd(q, k, v, o, dout, causal=True, lse=lse)
+        require(all(torch.equal(x, y) for x, y in zip(got, again)),
+                f"{role}: two backward calls differ")
+        pairs = b * h * _valid_pairs(s, s, True)
+        nbytes = 2 * (2 * (q.numel() + k.numel() + v.numel())
+                      + 2 * o.numel())
+        row = dict(kernel="flash_attention_bwd", role=role, route="wgmma",
+                   B=b, H=h, Hkv=hkv, S=s, dh=dh, dv=dv, dtype="bfloat16",
+                   causal=True, max_abs_err=err)
+        row["bound_ms"], row["bound_by"] = _bwd_bound("wgmma", BF16, nbytes,
+                                                      pairs, dh, dv)
+        if not rehearse:
+            def run():
+                return fa._backward_card(q, k, v, o, dout, True, dh ** -0.5,
+                                         lse, None)
+
+            row["ms"] = time_ms(run)
+            row["device_ms"] = time_graph_ms(run)
+            row["plain_ms"] = time_ms(lambda: fa.flash_attention_bwd_plain(
+                q, k, v, o, dout, causal=True), reps=3, inner=1)
+            lib = _sdpa_backward(q, k, v, dout, True)
+            row.update({k_: lib[k_] for k_ in ("library_ms", "library_backend",
+                                               "library_device_ms")
+                        if k_ in lib})
+        bwd.append(row)
+        log("  " + json.dumps(row))
+        del q, k, v, o, lse, dout, got, want, again
+    return fwd, bwd
 
 
 def mesh_gpipe(dev, mz, model, rehearse):
@@ -5944,17 +6344,25 @@ def mesh_slice(dev, mz, rehearse):
     """Phase 18 at ``mz`` (:func:`mesh_sizes`)."""
     import gc
 
-    gc.collect()
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
+    def free():
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+
+    free()
     out = {}
     out["train"], model, rows = mesh_train(dev, mz, rehearse)
     out["gpipe"] = mesh_gpipe(dev, mz, model, rehearse)
     out["qpsum"] = mesh_qpsum(dev, model, rows)
     del model, rows
-    gc.collect()
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
+    free()
+    out["moe"] = mesh_moe(dev, mz, rehearse)
+    free()
+    out["recsys"] = mesh_recsys(dev, mz, rehearse)
+    free()
+    out["attention"], out["attention_bwd"] = mesh_attention_rows(
+        dev, mz, rehearse)
+    free()
     return out
 
 
@@ -6343,8 +6751,10 @@ def main() -> int:
 
     t0 = time.perf_counter()
     log("phase 18: training on a mesh (qwen3-0.6b's train cell on a (data "
-        "2, model 2) mesh of one card; GPipe over its blocks; the int8 "
-        "all-reduce)")
+        "2, model 2) mesh of one card, tensor-parallel; GPipe over its "
+        "blocks; the int8 all-reduce; granite-moe-3b-a800m at full width, 4 "
+        "layers, routed over the global batch; BST's train cell; the "
+        "attention kernels at a model shard's heads)")
     ms = mesh_slice(dev, mesh_sizes(rehearse), rehearse)
     report["mesh"] = ms
     report["phase18_s"] = time.perf_counter() - t0
@@ -6460,6 +6870,18 @@ def main() -> int:
                 "flash_attention_wgmma"]
             extra["launches_gpipe"] = ms["gpipe"]["launches"][
                 "flash_attention_wgmma"]
+            # phase 18(d), (e): granite-moe's mesh steps, BST's
+            extra["launches_mesh_moe_train"] = ms["moe"]["launches"][
+                "flash_attention_wgmma"]
+            extra["launches_mesh_recsys_train"] = ms["recsys"]["launches"][
+                "flash_attention_simt"]
+            errs += [r["max_abs_err"] for r in ms["attention"]]
+            extra["mesh_shapes"] = [
+                {k: r.get(k) for k in ("role", "B", "H", "Hkv", "S", "dh",
+                                       "dv", "ms", "device_ms", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms",
+                                       "library_backend", "max_abs_err")}
+                for r in ms["attention"]]
         if name == "flash_decode":  # phase 12(a): decode_step, on its path
             extra["launches_lm_decode"] = lm["decode"]["launches"][name]
             # phase 15(a): granite's decode (DS-V3's MLA decode runs none)
@@ -6509,7 +6931,8 @@ def main() -> int:
                       "of blockwise_attention with jax.grad",
         launches=tn["launches"]["flash_attention_bwd"],
         max_abs_err=max(bwd_err, *(r["bwd_max_abs_err"]
-                                   for r in rs["attention"])),
+                                   for r in rs["attention"]),
+                        *(r["max_abs_err"] for r in ms["attention_bwd"])),
         launches_by_route={r: tn["launches"][f"flash_attention_bwd_{r}"]
                            for r in ("wgmma", "tf32", "simt")},
         route_d_layer=d_row["route"], ms=d_row.get("ms"),
@@ -6533,6 +6956,19 @@ def main() -> int:
         launches_gpipe_by_route={
             r: ms["gpipe"]["launches"][f"flash_attention_bwd_{r}"]
             for r in ("wgmma", "tf32", "simt")},
+        launches_mesh_moe_train_by_route={
+            r: ms["moe"]["launches"][f"flash_attention_bwd_{r}"]
+            for r in ("wgmma", "tf32", "simt")},
+        launches_mesh_recsys_train_by_route={
+            r: ms["recsys"]["launches"][f"flash_attention_bwd_{r}"]
+            for r in ("wgmma", "tf32", "simt")},
+        mesh_shapes=[
+            {k: r.get(k) for k in ("role", "B", "H", "Hkv", "S", "dh", "dv",
+                                   "route", "ms", "device_ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms",
+                                   "library_backend", "library_device_ms",
+                                   "max_abs_err")}
+            for r in ms["attention_bwd"]],
         recsys_shapes=[
             {k: r.get(k) for k in ("role", "B", "H", "S", "dh", "route",
                                    "bwd_ms", "bwd_device_ms", "bwd_plain_ms",

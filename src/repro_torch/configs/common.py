@@ -130,16 +130,19 @@ def make_train_step(loss_fn: Callable, opt_cfg: AdamWConfig,
     On a mesh the arguments are laid out by the cell's
     ``abstract_args(mesh)`` (``sharding.place``), which fills
     ``grad_specs_holder`` with the mesh, the optimizer's specs (``specs``)
-    and the model's module on the meta device (``model``). Each data row's
-    rows of the batch run on that row's first device, through a copy of the
-    model gathered from the weights' blocks; the gradients are summed over
-    the rows in row order, weighted by their share of the batch (the
-    global loss is the mean over positions) and cast to the parameter's
-    dtype, as JAX pins them; they are cut to the optimizer's layout and
+    and the model's module on the meta device (``model``); an LM cell also
+    leaves ``blocks_loss`` there (``tensor_parallel.lm_loss_and_grads``):
+    the forward and one backward run on the weights' blocks themselves,
+    each data row's layers on its "model" shards, every row and shard of a
+    layer before the next, and the gradients arrive in the blocks' layout.
+    Without it (the recommenders) each data row's rows of the batch run on
+    that row's first device through a copy of the model gathered from the
+    weights' blocks, and the gradients are summed over the rows in row
+    order, weighted by their share of the batch (each loss is a mean with
+    a fixed count a row), in f32, then cast to the parameter's dtype. Either
+    way the gradients are cut to the optimizer's layout where it differs,
     AdamW runs on each block, the global norm summed over the blocks (each
-    element once); the new weights are written back into their blocks. The
-    "model" axis shards the storage (weights, master copy, moments), not
-    the products.
+    element once), and the new weights are written back into their blocks.
     """
     _, opt_update = make_adamw(opt_cfg)
 
@@ -163,8 +166,8 @@ def make_train_step(loss_fn: Callable, opt_cfg: AdamWConfig,
 
 
 def _row_groups(batch: dict, mesh):
-    """``[(device, {key: rows}, n_rows)]``: the placed batch's row blocks
-    along its first dimension, each once, in row order, on the first
+    """``[(position, {key: rows}, n_rows)]``: the placed batch's row blocks
+    along its first dimension, each once, in row order, at the first
     position that holds it."""
     first = next(iter(batch.values()))
     if not isinstance(first, Placed):
@@ -179,25 +182,19 @@ def _row_groups(batch: dict, mesh):
             if x.sharding.block_slices(x.shape, pos)[0] != rows:
                 raise ValueError("the batch's leaves split their rows "
                                  "differently")
-        groups.append((mesh.device_at(pos),
-                       {k: x.blocks[i] for k, x in batch.items()},
+        groups.append((pos, {k: x.blocks[i] for k, x in batch.items()},
                        rows.stop - rows.start))
     return groups
 
 
-def _mesh_step(loss_fn, opt_cfg, holder, params, opt_state, batch):
-    """:func:`make_train_step` on placed arguments (see there)."""
-    if holder.get("mesh") is None:
-        raise ValueError(
-            "a step on placed arguments needs the cell's abstract_args(mesh) "
-            "first: it fills the step's grad_specs_holder")
-    mesh, specs, template = holder["mesh"], holder["specs"], holder["model"]
-    groups = _row_groups(batch, mesh)
+def _replica_grads(loss_fn, template, params, groups, mesh):
+    """(loss, whole gradients, {}) of the rows run one after the other,
+    each through a copy of the model gathered from the blocks."""
     total = sum(n for _, _, n in groups)
-    dev0 = groups[0][0]
+    dev0 = mesh.device_at(groups[0][0])
     row_grads, loss = [], torch.zeros((), device=dev0)
-    for dev, rows, n in groups:
-        replica = copy.deepcopy(template).to_empty(device=dev)
+    for pos, rows, n in groups:
+        replica = copy.deepcopy(template).to_empty(device=mesh.device_at(pos))
         weights = named(replica)
         with torch.no_grad():
             for name, w in weights.items():
@@ -212,7 +209,7 @@ def _mesh_step(loss_fn, opt_cfg, holder, params, opt_state, batch):
         loss = loss + (n / total) * lo.detach().float().to(dev0)
         del replica, weights, gs, lo
     # the rows' gradients summed in row order, in f32, cast to the
-    # parameter's dtype and cut to the optimizer's layout
+    # parameter's dtype
     grads = {}
     for i, name in enumerate(params):
         acc = None
@@ -220,12 +217,39 @@ def _mesh_step(loss_fn, opt_cfg, holder, params, opt_state, batch):
             term = w * gs[i].float().to(dev0)
             acc = term if acc is None else acc + term
             gs[i] = None
+        grads[name] = acc.to(params[name].dtype)
+    return loss, grads, {}
+
+
+def _mesh_step(loss_fn, opt_cfg, holder, params, opt_state, batch):
+    """:func:`make_train_step` on placed arguments (see there)."""
+    if holder.get("mesh") is None:
+        raise ValueError(
+            "a step on placed arguments needs the cell's abstract_args(mesh) "
+            "first: it fills the step's grad_specs_holder")
+    mesh, specs, template = holder["mesh"], holder["specs"], holder["model"]
+    groups = _row_groups(batch, mesh)
+    dev0 = mesh.device_at(groups[0][0])
+    blocks_loss = holder.get("blocks_loss")
+    if blocks_loss is not None:
+        loss, by_block, extra = blocks_loss(template, params, groups, mesh)
+    else:
+        loss, whole, extra = _replica_grads(loss_fn, template, params,
+                                            groups, mesh)
+    # cut to the optimizer's layout
+    grads = {}
+    for name, p in params.items():
         sh = NamedSharding(mesh, specs[name])
         if sh != opt_state.master[name].sharding:
             raise ValueError(f"{name}: the gradients' layout {specs[name]} "
                              "is not the optimizer's")
-        grads[name] = shard_tensor(acc.to(params[name].dtype), sh)
-    del row_grads
+        if blocks_loss is None:
+            grads[name] = shard_tensor(whole.pop(name), sh)
+        elif p.sharding == sh:
+            grads[name] = by_block.pop(name)
+        else:
+            grads[name] = shard_tensor(
+                gather_tensor(by_block.pop(name), p.sharding), sh)
     sq = torch.zeros((), device=dev0)
     for name, blocks in grads.items():
         for pos, g in zip(mesh.positions(), blocks):
@@ -262,7 +286,7 @@ def _mesh_step(loss_fn, opt_cfg, holder, params, opt_state, batch):
                 tree[name] = Placed(tuple(o[k] for o in outs), ms.sharding)
         _write_weights(p, master[name])
     return (params, AdamWState(step=step, master=master, m=m, v=v),
-            {"loss": loss, "grad_norm": gn, "lr": sc.lr})
+            {**extra, "loss": loss, "grad_norm": gn, "lr": sc.lr})
 
 
 @torch.no_grad()

@@ -10,9 +10,11 @@ Shape semantics (per assignment):
 Sharding, JAX's: params FSDP×TP (ZeRO-3), activations batch-sharded over
 (pod, data); decode caches sharded (batch → dp, seq → model), except where
 the batch does not split over dp (long_500k's batch of 1), where seq goes
-over (data, model). The train cell runs on a mesh; the prefill and decode
-cells give their specs on a mesh, and their ``fn`` takes whole tensors on
-one device: running a cache sharded over the sequence is a later item.
+over (data, model). The train cell runs on a mesh, its products
+tensor-parallel on "model" (``distributed/tensor_parallel.py``); the
+prefill and decode cells give their specs on a mesh, and their ``fn``
+takes whole tensors on one device: running a cache sharded over the
+sequence is a later item.
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import torch
 
 from repro_torch.configs import common
 from repro_torch.distributed import sharding as shr
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import transformer as T
 from repro_torch.train.optimizer import AdamWConfig
 
@@ -112,9 +115,10 @@ def build_lm_cell(cfg: T.TransformerConfig, shape_name: str,
             o_abs = common.abstract_opt_state(opt_cfg, p_abs)
             opt_base = _opt_base_shardings(cfg, mesh, p_abs)
             o_specs = shr.opt_state_specs(opt_base, o_abs, p_abs)
-            # grads live where the opt shards live; the module is the
-            # template of each data row's copy of the weights
-            holder.update(mesh=mesh, specs=opt_base, model=p_abs)
+            # grads live where the opt shards live; the step runs the
+            # module's layers on the weights' blocks
+            holder.update(mesh=mesh, specs=opt_base, model=p_abs,
+                          blocks_loss=tp.lm_loss_and_grads)
             bspec = _batch_spec(mesh, batch)
             return (common.with_shardings(p_abs, p_specs, mesh),
                     common.with_shardings(o_abs, o_specs, mesh),

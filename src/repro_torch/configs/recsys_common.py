@@ -9,8 +9,10 @@
 Embedding tables row-sharded over "model" (they are the memory); MLP heads
 small enough to FSDP or replicate; activations batch-sharded over
 (pod, data): each cell's ``abstract_args(mesh)`` gives JAX's specs. The
-cells' ``fn`` take whole tensors on one device (running them on a mesh is
-a later item), and the candidates go unpadded (JAX pads them to a multiple
+train cell runs on a mesh (each data row through a copy of the model
+gathered from the blocks: "model" shards the storage, not the products);
+the serve and retrieval cells' ``fn`` take whole tensors on one device,
+and the candidates go unpadded (JAX pads them to a multiple
 of 512 so that they shard over every mesh axis)."""
 from __future__ import annotations
 
@@ -85,6 +87,8 @@ def make_recsys_arch(
         if entry == "train":
             batch = info["batch"]
 
+            holder: dict = {}
+
             def abstract_args(mesh=None):
                 if mesh is None:
                     p_abs = params()
@@ -93,12 +97,15 @@ def make_recsys_arch(
                 p_abs, p_specs = params_shardings(mesh)
                 o_abs = common.abstract_opt_state(opt_cfg, p_abs)
                 o_specs = shr.opt_state_specs(p_specs, o_abs, p_abs)
+                # the step runs each data row through a copy of the module
+                holder.update(mesh=mesh, specs=p_specs, model=p_abs)
                 return (common.with_shardings(p_abs, p_specs, mesh),
                         common.with_shardings(o_abs, o_specs, mesh),
                         _on_mesh(batch_abs_fn(cfg, batch), mesh,
                                  _dp_spec(mesh, batch)[0]))
 
-            return cell(fn=common.make_train_step(loss_fn, opt_cfg),
+            return cell(fn=common.make_train_step(
+                            loss_fn, opt_cfg, grad_specs_holder=holder),
                         abstract_args=abstract_args, tokens=batch,
                         out_shardings=lambda args: (
                             common.arg_shardings(args[0]),

@@ -205,7 +205,7 @@ def _scored_lookup(scored, ids: torch.Tensor,
     A sorted set is replicated under a :class:`ShardCtx` too, so its local
     op is the whole answer, with no collective."""
     if isinstance(scored, ScoredSet):
-        return ops.sorted_set_lookup(scored.ids, ids)
+        return collectives.member_lookup(scored.ids, ids)
     if shard is None:
         return (ids >= 0) & scored.gather(1, ids.clamp(min=0).long())
     return collectives.bitmap_lookup(scored, ids)
@@ -215,8 +215,7 @@ def _scored_scatter(scored, ids: torch.Tensor, mark: torch.Tensor,
                     shard: ShardCtx | None = None):
     """Mark the kept lanes' ids in the dedup state (bitmap: in place)."""
     if isinstance(scored, ScoredSet):
-        pad = torch.full_like(ids, ops.SET_PAD)
-        merged = ops.sorted_set_merge(scored.ids, torch.where(mark, ids, pad))
+        merged = collectives.member_insert(scored.ids, ids, mark)
         return ScoredSet(ids=merged,
                          count=scored.count + mark.sum(dim=1, dtype=_I32))
     if shard is None:

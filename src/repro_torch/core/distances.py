@@ -60,6 +60,11 @@ class EmbeddingMetric:
     def dim(self) -> int:
         return self.embeddings.shape[1]
 
+    def embed_query(self, q: torch.Tensor) -> torch.Tensor:
+        """The query's embedding: ``q`` itself (the embeddings are
+        precomputed)."""
+        return q
+
     def dists_batch(self, q_embs: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
         """(B, dim), (B, k) -> (B, k); ids < 0 -> +inf.
 

@@ -119,6 +119,25 @@ def bitmap_count(scored_locals: Sequence[torch.Tensor]) -> torch.Tensor:
     return total
 
 
+def member_lookup(set_ids: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """(B, K) bool: which ids the replicated sorted dedup set holds.
+
+    ``set_ids`` (B, C) are a ``core.beam.ScoredSet``'s ascending id rows,
+    replicated like the pools, so the lookup is one local ``searchsorted``
+    a row with no collective (compare :func:`bitmap_lookup`)."""
+    return ops.sorted_set_lookup(set_ids, ids)
+
+
+def member_insert(set_ids: torch.Tensor, ids: torch.Tensor,
+                  mark: torch.Tensor) -> torch.Tensor:
+    """The set's (B, C) rows with the marked lanes' ids merged in. Every
+    shard runs the same merge on the same replicated inputs, which keeps
+    the replicas equal (the sorted set's counterpart of
+    :func:`bitmap_scatter`'s owner-only writes)."""
+    return ops.sorted_set_merge(
+        set_ids, torch.where(mark, ids, torch.full_like(ids, ops.SET_PAD)))
+
+
 def member_count(set_ids: torch.Tensor) -> torch.Tensor:
     """(B,) distinct scored ids of the replicated sorted set: the number
     :func:`bitmap_count` sums out of the partitioned bitmap (duplicate

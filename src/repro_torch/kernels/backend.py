@@ -89,6 +89,9 @@ class Backend:
         return self.name == "matmul"
 
 
+REF = Backend("ref")
+
+
 def resolve_backend(
     backend: str | Backend | None = None,
     *,

@@ -159,42 +159,109 @@ def slots(top_e: torch.Tensor, n_experts: int, cap: int) -> torch.Tensor:
     return torch.where(pos < cap, row, spare).view(g, tg, k)
 
 
+def plan(router: torch.Tensor, xt: torch.Tensor, cfg: MoEConfig, g: int,
+         cap: int):
+    """Route tokens ``xt`` (T, d) in ``g`` contiguous groups of capacity
+    ``cap``: (logits, probs, top_p, top_e) of :func:`route` and each (token,
+    slot) assignment's buffer row (T·K,), token-major (:func:`slots`)."""
+    t, d = xt.shape
+    logits, probs, top_p, top_e = route(router, xt.reshape(g, t // g, d),
+                                        cfg.top_k)
+    row = slots(top_e, cfg.n_experts, cap).reshape(-1)
+    return logits, probs, top_p, top_e, row
+
+
+def dispatch(xt: torch.Tensor, row: torch.Tensor, n_experts: int,
+             rows: int) -> torch.Tensor:
+    """The (E, rows / E, d) expert-major buffer: each assignment's token
+    copied to its row, the dropped ones past the buffer, which is cut
+    off."""
+    t, d = xt.shape
+    k = row.numel() // t
+    buf = xt.new_zeros(rows + t * k, d).index_copy(
+        0, row, xt[:, None].expand(t, k, d).reshape(t * k, d))
+    return buf[:rows].view(n_experts, rows // n_experts, d)
+
+
+def experts(buf: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+            w_down: torch.Tensor) -> torch.Tensor:
+    """The three expert products over every row of the buffer (``bmm``)."""
+    gate = torch.bmm(buf, w_gate)
+    up = torch.bmm(buf, w_up)
+    h = F.silu(gate.float()).to(buf.dtype) * up
+    return torch.bmm(h, w_down)
+
+
+def combine(out: torch.Tensor, row: torch.Tensor,
+            top_p: torch.Tensor) -> torch.Tensor:
+    """(T, d): each token's K outputs of ``out`` (E, ·, d) (a dropped one
+    reads some row, at weight 0), weighted by the renormalised
+    probabilities and summed over K in one (1, K) @ (K, d) product."""
+    d = out.shape[-1]
+    out = out.reshape(-1, d)
+    rows = out.shape[0]
+    k = top_p.shape[-1]
+    t = row.numel() // k
+    w = torch.where(row < rows, top_p.reshape(-1), 0.0).to(out.dtype)
+    got = out.index_select(0, row % rows).view(t, k, d)
+    return torch.bmm(w.view(t, 1, k), got).view(t, d)
+
+
+def row_layout(cfg: MoEConfig, n_tokens: int, n_rows: int):
+    """(groups a data row, capacity) of the global batch's routing layout
+    when its ``n_tokens`` tokens (flattened in (batch, seq) order) lie in
+    ``n_rows`` equal contiguous rows: the groups are
+    ``n_groups(cfg, n_tokens)`` chunks of the global order, the capacity
+    that of the global group size. A row must hold whole groups, else
+    ``ValueError``."""
+    g = n_groups(cfg, n_tokens)
+    tg = n_tokens // g
+    if n_tokens % n_rows or (n_tokens // n_rows) % tg:
+        raise ValueError(
+            f"the MoE's {g} groups of {tg} tokens do not split over "
+            f"{n_rows} data rows of {n_tokens / n_rows:g} tokens: a row must "
+            "hold whole groups")
+    return (n_tokens // n_rows) // tg, capacity(cfg, tg)
+
+
+def aux_terms(logits: torch.Tensor, probs: torch.Tensor,
+              top_e: torch.Tensor):
+    """One row's share of the aux and z losses: its top-1 counts per
+    expert (no gradient), its router probabilities summed per expert and
+    its tokens' squared log-sum-exp summed (both with their gradient)."""
+    e = probs.shape[-1]
+    top1 = top_e[..., 0].reshape(-1, 1)
+    counts = (top1 == torch.arange(e, device=top1.device)).float().sum(0)
+    return (counts, probs.reshape(-1, e).sum(0),
+            torch.logsumexp(logits, dim=-1).square().sum())
+
+
+def aux_from_rows(terms, n_tokens: int):
+    """(aux, z) over the rows' :func:`aux_terms`, summed in row order:
+    ``E · Σ_e frac_tok_e · frac_prob_e`` and the mean squared
+    log-sum-exp, over all ``n_tokens`` tokens."""
+    dev = terms[0][0].device
+    counts, prob, lse = (sum(t[i].to(dev) for t in terms) for i in range(3))
+    e = counts.numel()
+    aux = e * ((counts / n_tokens) * (prob / n_tokens)).sum()
+    return aux, lse / n_tokens
+
+
 def moe_ffn(module: MoE, x: torch.Tensor, cfg: MoEConfig) -> MoEOut:
     """x: (..., d_model) -> MoEOut(y of x's shape and dtype, f32 aux, f32
     z). Flattens the leading dims to T tokens, as JAX's ``moe_ffn``."""
     lead, d = x.shape[:-1], x.shape[-1]
     xt = x.reshape(-1, d)
     t = xt.shape[0]
-    e, k = cfg.n_experts, cfg.top_k
+    e = cfg.n_experts
     g = n_groups(cfg, t)
-    tg = t // g
-    c = capacity(cfg, tg)
+    c = capacity(cfg, t // g)
 
-    logits, probs, top_p, top_e = route(module.router, xt.reshape(g, tg, d),
-                                        k)
-    rows = e * g * c
-    row = slots(top_e, e, c).reshape(-1)  # (T·K,), token-major
-    # dispatch: each assignment to a row of its own, the dropped ones past
-    # the buffer, which is cut off
-    buf = xt.new_zeros(rows + t * k, d).index_copy(
-        0, row, xt[:, None].expand(t, k, d).reshape(t * k, d))
-    buf = buf[:rows].view(e, g * c, d)
-    gate = torch.bmm(buf, module.w_gate)
-    up = torch.bmm(buf, module.w_up)
-    h = F.silu(gate.float()).to(x.dtype) * up
-    out = torch.bmm(h, module.w_down).view(rows, d)
-    # combine: each token's K outputs (a dropped one reads some row, at
-    # weight 0), weighted by the renormalised probabilities, summed over K
-    w = torch.where(row < rows, top_p.reshape(-1), 0.0).to(x.dtype)
-    got = out.index_select(0, row % rows).view(t, k, d)
-    y = torch.bmm(w.view(t, 1, k), got).view(t, d)
+    logits, probs, top_p, top_e, row = plan(module.router, xt, cfg, g, c)
+    out = experts(dispatch(xt, row, e, e * g * c), module.w_gate,
+                  module.w_up, module.w_down)
+    y = combine(out, row, top_p)
     if module.shared is not None:
         y = y + module.shared(xt)
-
-    top1 = top_e[..., 0].reshape(-1, 1)
-    frac_tok = (top1 == torch.arange(e, device=x.device)).float().mean(0)
-    frac_prob = probs.reshape(-1, e).mean(0)
-    aux = e * (frac_tok * frac_prob).sum()
-    z = torch.logsumexp(logits, dim=-1).square().mean()
+    aux, z = aux_from_rows([aux_terms(logits, probs, top_e)], t)
     return MoEOut(y=y.view(*lead, d), aux_loss=aux, z_loss=z)
-

@@ -145,17 +145,19 @@ def test_shard_then_gather_is_identity():
     assert len(placed.unique_blocks()) == 1 and placed.shape == (6, 10, 3)
 
 
-def _train_state(cell, mesh, seed=0, opt_cfg=AdamWConfig()):
-    """qwen3's smoke weights from a seed on the CPU, AdamW's state, a batch
-    from numpy; the same placed by ``abstract_args(mesh)``'s shardings."""
+def _train_state(cell, mesh, seed=0, opt_cfg=AdamWConfig(),
+                 arch="qwen3-0.6b", batch_rows=None, cfg=None):
+    """``arch``'s smoke weights (qwen3's by default; ``cfg`` if given) from
+    a seed on the CPU, AdamW's state, a batch from numpy; the same placed
+    by ``abstract_args(mesh)``'s shardings."""
     from repro_torch.models import transformer as T
 
-    cfg = TC.get_arch("qwen3-0.6b").make_config(True)
+    cfg = cfg or TC.get_arch(arch).make_config(True)
     model = T.init_params(seed, cfg, device=CPU)
     opt = make_adamw(opt_cfg)[0](model)
     info = SMOKE_SHAPES["train_4k"]
     rng = np.random.default_rng(seed)
-    toks = rng.integers(0, cfg.vocab, (info["global_batch"],
+    toks = rng.integers(0, cfg.vocab, (batch_rows or info["global_batch"],
                                        info["seq_len"] + 1))
     batch = {"tokens": torch.from_numpy(toks[:, :-1].astype(np.int32)),
              "labels": torch.from_numpy(toks[:, 1:].astype(np.int32))}
@@ -244,6 +246,150 @@ def test_sharded_step_quantized_moments():
             for k, x in getattr(po1, field)[name].items():
                 assert all(tuple(b.shape) == x.sharding.block_shape(x.shape)
                            for b in x.blocks), (name, k)
+
+
+def _step_against_unsharded(arch, shape=(2, 2), opt_cfg=AdamWConfig(),
+                            cfg=None):
+    """One step of ``arch``'s smoke train cell (of ``cfg`` if given) on a
+    ``["cpu"] * 4`` mesh and the port's unsharded step on a copy: (the
+    unsharded step's metrics, the mesh step's, the new weights, master
+    copy and moments of each)."""
+    cfg = cfg or TC.get_arch(arch).make_config(True)
+    cell = build_lm_cell(cfg, "train_4k", opt_cfg, shapes=SMOKE_SHAPES)
+    mesh = M.make_mesh(shape, ("data", "model"), [CPU] * 4)
+    (model, opt, batch), (pp, po, pb) = _train_state(
+        cell, mesh, arch=arch, opt_cfg=opt_cfg, cfg=cfg)
+    model, opt1, m1 = cell.fn(model, opt, batch)
+    pp, po1, pm1 = cell.fn(pp, po, pb)
+    return m1, pm1, (dict(model.named_parameters()), opt1), (pp, po1)
+
+
+def _assert_step_close(m1, pm1, ref, got):
+    """The loss within 1e-6 relative, the gradients' norm within 1e-5
+    relative, the weights, master copy and moments within 1e-5 x their
+    max (qwen3's limits in ``test_sharded_step_matches_unsharded``)."""
+    ref_loss = float(m1["loss"])
+    assert abs(float(pm1["loss"]) - ref_loss) <= 1e-6 * abs(ref_loss), (
+        float(pm1["loss"]), ref_loss)
+    gn = float(m1["grad_norm"])
+    assert abs(float(pm1["grad_norm"]) - gn) <= 1e-5 * gn, (
+        float(pm1["grad_norm"]), gn)
+    gap, top = _state_gap(shr.gather(got[0]), ref[0])
+    assert gap <= 1e-5 * top, ("params", gap, top)
+    for field in ("master", "m", "v"):
+        gap, top = _state_gap(shr.gather(getattr(got[1], field)),
+                              getattr(ref[1], field))
+        assert gap <= 1e-5 * top, (field, gap, top)
+
+
+def test_moe_mesh_step_routes_the_global_batch():
+    """granite-moe's smoke train cell on a (2, 2) mesh against its
+    unsharded step, at qwen3's limits: the MoE routes the global batch's
+    tokens (its groups and capacity of the global token count, the aux
+    loss over every token), so the mesh step is the unsharded step."""
+    m1, pm1, ref, got = _step_against_unsharded("granite-moe-3b-a800m")
+    _assert_step_close(m1, pm1, ref, got)
+
+
+@pytest.mark.parametrize("arch,n_experts", [
+    pytest.param("granite-20b", None, id="granite-20b"),
+    pytest.param("deepseek-v3-671b", None, id="deepseek-v3-671b"),
+    pytest.param("granite-moe-3b-a800m", 5, id="experts-by-width")])
+def test_tensor_parallel_step_matches_unsharded(arch, n_experts):
+    """The tensor-parallel step on a (2, 2) mesh against the unsharded
+    step: granite-20b's MQA (one kv head, which two "model" shards read
+    whole); DeepSeek-V3's MLA, shared experts, leading dense block and
+    MTP head; granite-moe's smoke cell with 5 experts, a count that does
+    not divide "model" = 2, so the expert stacks lie by width over
+    "model" (as granite-moe's 40 experts on JAX's (16, 16) mesh) and each
+    shard runs its columns of every expert, column- then row-parallel."""
+    import dataclasses
+
+    from repro_torch.distributed import tensor_parallel as tp
+
+    cfg = TC.get_arch(arch).make_config(True)
+    if n_experts:
+        cfg = dataclasses.replace(cfg, n_experts=n_experts)
+        cell = build_lm_cell(cfg, "train_4k", AdamWConfig(),
+                             shapes=SMOKE_SHAPES)
+        mesh = M.make_mesh((2, 2), ("data", "model"), [CPU] * 4)
+        _, (pp, _, _) = _train_state(cell, mesh, cfg=cfg)
+        sh = tp.Shards(mesh, pp)
+        stacks = {n: sh.split_dim(n) for n in pp
+                  if n.split(".")[-2:-1] == ["moe"] and n.endswith(
+                      ("w_gate", "w_up", "w_down"))}
+        assert stacks and all(
+            d == (1 if n.endswith("w_down") else 2)
+            for n, d in stacks.items()), stacks
+    _assert_step_close(*_step_against_unsharded(arch, cfg=cfg))
+
+
+def test_moe_groups_straddling_rows_raise():
+    """A data row must hold whole routing groups of the global batch: 2
+    rows of 7 tokens form one group of 14 (14 is no multiple of the 32
+    groups), which straddles them, so the step raises, naming the
+    shapes; the layout rule itself at the smoke cell's and full size's
+    shapes."""
+    from repro_torch.models import moe
+
+    spec = TC.get_arch("granite-moe-3b-a800m")
+    cfg = spec.make_config(True)
+    mc = cfg.moe_cfg()
+    assert moe.row_layout(mc, 4 * 64, 2) == (16, moe.capacity(mc, 8))
+    full = spec.make_config(False).moe_cfg()
+    assert moe.row_layout(full, 2 * 4096, 2) == (16, 64)
+    assert moe.row_layout(full, 256 * 4096, 16) == (2, moe.capacity(
+        full, 256 * 4096 // 32))
+    with pytest.raises(ValueError, match="1 groups of 14 tokens"):
+        moe.row_layout(mc, 14, 2)
+    cell = spec.build_cell(cfg, "train_4k", smoke=True)
+    mesh = M.make_mesh((2, 2), ("data", "model"), [CPU] * 4)
+    _, (pp, po, pb) = _train_state(cell, mesh,
+                                   arch="granite-moe-3b-a800m")
+    short = {k: shr.Placed(shr.shard_tensor(x.gather()[:2, :7].contiguous(),
+                                            x.sharding), x.sharding)
+             for k, x in pb.items()}
+    with pytest.raises(ValueError, match="do not split over 2 data rows"):
+        cell.fn(pp, po, short)
+
+
+def test_vocab_parallel_cross_entropy_matches_chunked():
+    """The tied head's cross entropy with the vocab over "model" (two
+    shards' log-sum-exps, the label's logit from its owner), in chunks of
+    16 and a remainder of 8, against ``transformer.chunked_cross_entropy``
+    on the whole table: the value within 1e-6 relative, the gradients of
+    the hidden states and of every block of the table within 1e-5 x their
+    max."""
+    from types import SimpleNamespace
+
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.models import transformer as T
+
+    g = torch.Generator().manual_seed(3)
+    vocab, d, b, s = 96, 12, 2, 40
+    table = torch.randn(vocab, d, generator=g) * 0.5
+    hidden = torch.randn(b, s, d, generator=g).requires_grad_()
+    labels = torch.randint(0, vocab, (b, s), generator=g, dtype=torch.int32)
+    mesh = M.make_mesh((2, 2), ("data", "model"), [CPU] * 4)
+    sh = shr.NamedSharding(mesh, shr.P("model", "data"))
+    shards = tp.Shards(mesh, {"embed": shr.Placed(shr.shard_tensor(table, sh),
+                                                  sh)})
+    row = tp.Row(mesh, (0, 0), {}, b)
+    got = tp.cross_entropy(shards, SimpleNamespace(ce_chunk=16), hidden,
+                           labels, row, chunked=True)
+    leaves = [leaf for _, _, leaf in shards.leaves["embed"]]
+    g_got = torch.autograd.grad(got, [hidden, *leaves])
+    whole = table.clone().requires_grad_()
+    want = T.chunked_cross_entropy(hidden, whole, labels, 16)
+    g_want = torch.autograd.grad(want, [hidden, whole])
+    assert abs(float(got.detach()) - float(want.detach())) <= 1e-6 * abs(
+        float(want.detach()))
+    top = float(g_want[0].abs().max())
+    assert float((g_got[0] - g_want[0]).abs().max()) <= 1e-5 * top
+    grad_table = shr.gather_tensor(
+        shards.grads({"embed": list(g_got[1:])})["embed"], sh)
+    top = float(g_want[1].abs().max())
+    assert float((grad_table - g_want[1]).abs().max()) <= 1e-5 * top
 
 
 def test_step_on_placed_args_needs_abstract_args():

@@ -151,3 +151,49 @@ def test_pack_norms_matches_jax():
                                atol=1e-6)
     view = tbackend.as_corpus_view(torch.from_numpy(corpus))
     assert torch.equal(got, tl2.pack_row_meta(view))
+
+
+def test_member_lookup_and_insert_match_jax():
+    """``collectives.member_lookup`` / ``member_insert`` on a replicated
+    sorted set (pads, duplicate lanes, negative ids, unmarked lanes)
+    against JAX's (their ``axis_name`` names no collective): the lookup
+    and the merged rows exact; ``beam``'s dedup step calls them."""
+    from repro.distributed import collectives as jcoll
+    from repro_torch.distributed import collectives as tcoll
+
+    rng = np.random.default_rng(5)
+    b, c, k = 4, 12, 6
+    pad = int(jops.SET_PAD)
+    assert pad == int(tops.SET_PAD)
+    set_ids = np.full((b, c), pad, np.int32)
+    for r in range(b):
+        held = np.sort(rng.choice(40, size=r + 2, replace=False))
+        set_ids[r, :held.size] = held
+    ids = rng.integers(-1, 40, (b, k)).astype(np.int32)
+    ids[0, 1] = ids[0, 0]  # a duplicate lane
+    ids[1, :2] = set_ids[1, :2]  # already held
+    mark = rng.random((b, k)) < 0.6
+    got = tcoll.member_lookup(torch.from_numpy(set_ids), torch.from_numpy(ids))
+    want = jcoll.member_lookup(jnp.asarray(set_ids), jnp.asarray(ids),
+                               axis_name="x")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    got = tcoll.member_insert(torch.from_numpy(set_ids),
+                              torch.from_numpy(ids), torch.from_numpy(mark))
+    want = jcoll.member_insert(jnp.asarray(set_ids), jnp.asarray(ids),
+                               jnp.asarray(mark), axis_name="x")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_backend_ref_and_embed_query_match_jax():
+    """``backend.REF`` is JAX's: the ``ref`` form, no residency; and
+    ``EmbeddingMetric.embed_query`` returns the query as it is, as JAX's
+    precomputed-embedding metric does."""
+    assert tbackend.REF == tbackend.resolve_backend("ref")
+    assert (tbackend.REF.name, tbackend.REF.quantize) == (
+        jbackend.REF.name, jbackend.REF.quantize)
+    q = np.linspace(-1.0, 1.0, 8, dtype=np.float32)
+    emb = np.ones((5, 8), np.float32)
+    got = tdist.EmbeddingMetric(torch.from_numpy(emb)).embed_query(
+        torch.from_numpy(q))
+    want = jdist.EmbeddingMetric(jnp.asarray(emb)).embed_query(jnp.asarray(q))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))

@@ -452,7 +452,10 @@ def test_port_matches_jax_sharded_engine():
     ring matmuls against JAX's on a 4-device mesh (1e-4); training on a
     mesh: ``gpipe_apply`` at 4 stages from JAX's stacked stage weights
     (outputs and gradients within 1e-5), ``quantized_psum`` over 4 shards
-    (bit-equal), and qwen3's smoke train cell, JAX's jitted with its
+    (bit-equal), and the smoke train cells of qwen3, granite-20b (MQA: one
+    kv head over two "model" shards) and granite-moe (the port's
+    tensor-parallel step, the MoE routed over the global batch) and of the
+    four recommenders, JAX's jitted with its
     ``abstract_args(mesh)`` shardings on a (2, 2) mesh and the port's on
     ``["cpu"] * 4``: every block of the weights and the optimizer's state
     at every position bit-equal to JAX's shard there before the step, the
@@ -604,6 +607,12 @@ def test_port_matches_jax_sharded_engine():
 
         # training on a mesh
         from repro.configs import common as jcommon, qwen3_0_6b as jq
+        from repro.configs import granite_20b as jg20
+        from repro.configs import granite_moe_3b_a800m as jgm
+        from repro.configs import bert4rec as jb4r, bst as jbst
+        from repro.configs import din as jdin, xdeepfm as jxdfm
+        sys.path.insert(0, "tests")
+        from test_torch_recsys import _batch as rs_batch
         from repro.distributed import pipeline as jpp
         from repro.train.compression import quantized_psum as jqpsum
         from repro.train.optimizer import make_adamw as jadamw
@@ -647,15 +656,26 @@ def test_port_matches_jax_sharded_engine():
                           out_specs=P("x"))
             return np.asarray(f(jnp.asarray(qg)))
 
-        jspec = jq.SPEC
-        jcfg = jspec.make_config(True)
-        jcell = jspec.cell("train_4k", smoke=True)
         jmesh = make_mesh((2, 2), ("data", "model"))
-        jargs = jcell.abstract_args(jmesh)
-        jp0 = jspec.init_params(jax.random.PRNGKey(0), jcfg)
         trng = np.random.default_rng(11)
-        toks = trng.integers(0, jcfg.vocab, (4, 65)).astype(np.int32)
-        nbatch = {"tokens": toks[:, :-1].copy(), "labels": toks[:, 1:].copy()}
+        # (name, JAX's spec, its train cell, the optimizer's config)
+        TRAIN = [(n, m.SPEC, "train_4k", AdamWConfig())
+                 for n, m in (("qwen3-0.6b", jq), ("granite-20b", jg20),
+                              ("granite-moe-3b-a800m", jgm))]
+        TRAIN += [(n, m.SPEC, "train_batch", AdamWConfig(weight_decay=0.0))
+                  for n, m in (("bst", jbst), ("din", jdin),
+                               ("bert4rec", jb4r), ("xdeepfm", jxdfm))]
+        train_in = {}
+        for name, jspec, shape, _ in TRAIN:
+            jcfg = jspec.make_config(True)
+            if shape == "train_4k":
+                toks = trng.integers(0, jcfg.vocab, (4, 65)).astype(np.int32)
+                nb = {"tokens": toks[:, :-1].copy(),
+                      "labels": toks[:, 1:].copy()}
+            else:
+                nb = rs_batch(name, jcfg, 32, 11)
+            train_in[name] = (jcfg, jspec.init_params(
+                jax.random.PRNGKey(0), jcfg), nb)
 
         def shards_of(tree):  # each leaf's shards, in row-major order
             def one(a):
@@ -665,12 +685,15 @@ def test_port_matches_jax_sharded_engine():
                              for pos in np.ndindex(2, 2))
             return jax.tree.map(one, tree)
 
-        def jax_train():
+        def jax_train(name, jspec, shape, opt):
+            jcfg, jp0, nb = train_in[name]
+            jcell = jspec.cell(shape, smoke=True)
+            jargs = jcell.abstract_args(jmesh)
             sh = jcommon.arg_shardings(jargs)
             p0 = jax.device_put(jp0, sh[0])
-            o0 = jax.device_put(jadamw(AdamWConfig())[0](jp0), sh[1])
-            b0 = jax.device_put({k: jnp.asarray(v) for k, v in
-                                 nbatch.items()}, sh[2])
+            o0 = jax.device_put(jadamw(opt)[0](jp0), sh[1])
+            b0 = jax.device_put({k: jnp.asarray(v) for k, v in nb.items()},
+                                sh[2])
             before = (shards_of(p0), shards_of(o0))
             step = jax.jit(jcell.fn, in_shardings=sh,
                            out_shardings=jcell.out_shardings(jargs))
@@ -687,7 +710,8 @@ def test_port_matches_jax_sharded_engine():
                     "distributed": ex.submit(jax_distributed),
                     "gpipe": ex.submit(jax_gpipe),
                     "qpsum": ex.submit(jax_qpsum),
-                    "train": ex.submit(jax_train)}
+                    **{("train", t[0]): ex.submit(jax_train, *t)
+                       for t in TRAIN}}
             want = {k: f.result() for k, f in futs.items()}
 
         for shards in (2, 4):
@@ -774,53 +798,68 @@ def test_port_matches_jax_sharded_engine():
             assert np.array_equal(qout[s]["g"].numpy(),
                                   want["qpsum"][s]), s
 
-        # qwen3's smoke train cell on a (2, 2) mesh
-        (jp_sh, jo_sh), (jp1, jo1), (jloss, jgn) = want["train"]
-        tspec = TC.get_arch("qwen3-0.6b")
-        tcfg = tspec.make_config(True)
-        tcell = tspec.build_cell(tcfg, "train_4k", smoke=True)
+        # the smoke train cells on a (2, 2) mesh: qwen3's, granite-20b's and
+        # granite-moe's (tensor-parallel, the MoE routed over the global
+        # batch) and the four recommenders' (a model copy a data row)
         tmesh = tmake_mesh((2, 2), ("data", "model"), ["cpu"] * 4)
-        targs = tcell.abstract_args(tmesh)
-        model = convert.transformer_from_numpy(
-            jax.tree.map(np.asarray, jp0), tcfg, device="cpu")
-        tbatch = {k: t(v) for k, v in nbatch.items()}
-        placed = [tshr.place(x, tcommon.arg_shardings(a)) for x, a in zip(
-            (model, make_adamw(AdamWConfig())[0](model), tbatch), targs)]
+        for name, _, shape, opt in TRAIN:
+            (jp_sh, jo_sh), (jp1, jo1), (jloss, jgn) = want["train", name]
+            jcfg, jp0, nb = train_in[name]
+            tspec = TC.get_arch(name)
+            tcfg = tspec.make_config(True)
+            lm = tspec.family == "lm"
+            tcell = tspec.build_cell(tcfg, shape, smoke=True)
+            targs = tcell.abstract_args(tmesh)
+            np0 = jax.tree.map(np.asarray, jp0)
+            model = (convert.transformer_from_numpy(np0, tcfg, device="cpu")
+                     if lm else convert.recsys_from_numpy(np0, tcfg,
+                                                          device="cpu"))
+            tbatch = {k: t(v) for k, v in nb.items()}
+            placed = [tshr.place(x, tcommon.arg_shardings(a))
+                      for x, a in zip((model, make_adamw(opt)[0](model),
+                                       tbatch), targs)]
 
-        def jax_name(n):
-            if n.startswith("blocks."):
-                _, i, rest = n.split(".", 2)
-                return "dense_blocks." + rest, int(i)
-            return n, None
+            def jax_name(n):
+                if lm and n.startswith("blocks."):
+                    _, i, rest = n.split(".", 2)
+                    i = int(i)
+                    if i < tcfg.n_dense:
+                        return "dense_blocks." + rest, i
+                    return "moe_blocks." + rest, i - tcfg.n_dense
+                return n, None
 
-        def same_blocks(tree, jtree):
-            jflat = convert._flatten(jtree)
-            for n, x in tree.items():
-                jn, layer = jax_name(n)
-                for i, blk in enumerate(x.blocks):
-                    ref = jflat[jn][i]
-                    ref = ref if layer is None else ref[layer]
-                    assert np.array_equal(blk.numpy(), ref), (n, i)
+            def same_blocks(tree, jtree):
+                jflat = convert._flatten(jtree)
+                for n, x in tree.items():
+                    jn, layer = jax_name(n)
+                    for i, blk in enumerate(x.blocks):
+                        ref = jflat[jn][i]
+                        ref = ref if layer is None else ref[layer]
+                        assert np.array_equal(blk.numpy(), ref), (name, n, i)
 
-        same_blocks(placed[0], jp_sh)
-        for f in ("master", "m", "v"):
-            same_blocks(getattr(placed[1], f), getattr(jo_sh, f))
-        tp1, to1, tm = tcell.fn(*placed)
-        assert abs(float(tm["loss"]) - jloss) <= 1e-5 * abs(jloss)
-        assert abs(float(tm["grad_norm"]) - jgn) <= 1e-5 * jgn
+            same_blocks(placed[0], jp_sh)
+            for f in ("master", "m", "v"):
+                same_blocks(getattr(placed[1], f), getattr(jo_sh, f))
+            tp1, to1, tm = tcell.fn(*placed)
+            assert abs(float(tm["loss"]) - jloss) <= 1e-5 * abs(jloss), (
+                name, float(tm["loss"]), jloss)
+            assert abs(float(tm["grad_norm"]) - jgn) <= 1e-5 * jgn, (
+                name, float(tm["grad_norm"]), jgn)
+            to_numpy = (convert.transformer_to_numpy if lm
+                        else convert.recsys_to_numpy)
 
-        def close(tree, jtree, what):
-            got = convert._flatten(convert.transformer_to_numpy(
-                {n: x.detach() for n, x in tshr.gather(tree).items()}))
-            ref = convert._flatten(jtree)
-            assert got.keys() == ref.keys(), what
-            top = max(float(np.abs(r).max()) for r in ref.values())
-            gap = max(float(np.abs(got[k] - ref[k]).max()) for k in ref)
-            assert gap <= 1e-5 * top, (what, gap, top)
+            def close(tree, jtree, what):
+                got = convert._flatten(to_numpy(
+                    {n: x.detach() for n, x in tshr.gather(tree).items()}))
+                ref = convert._flatten(jtree)
+                assert got.keys() == ref.keys(), (name, what)
+                top = max(float(np.abs(r).max()) for r in ref.values())
+                gap = max(float(np.abs(got[k] - ref[k]).max()) for k in ref)
+                assert gap <= 1e-5 * top, (name, what, gap, top)
 
-        close(tp1, jp1, "params")
-        for f in ("master", "m", "v"):
-            close(getattr(to1, f), getattr(jo1, f), f)
+            close(tp1, jp1, "params")
+            for f in ("master", "m", "v"):
+                close(getattr(to1, f), getattr(jo1, f), f)
         print("PORT_SHARDED_OK")
     """)
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
